@@ -1,0 +1,23 @@
+"""turingcodec_tpu_torch — the HEVC (H.265) encoder/decoder of
+`turingcodec_tpu`, ported to PyTorch and CUDA for one NVIDIA H100.
+
+The layout mirrors `turingcodec_tpu` module for module. The host modules
+(bitstream, CABAC, headers, the decoder's host path, the encoder's search
+and the native C++ core) are carried over unchanged; the encoder's
+data-parallel analysis stage (`encode/device_analysis.py`) runs as torch
+code on a chosen device, with the dense-ME sweep as a hand-written CUDA
+kernel (`ops/dense_me.py`, `csrc/dense_me.cu`). The package imports torch
+and never jax.
+"""
+
+import os as _os
+
+# OpenBLAS worker threads spin-wait after every numpy call and steal a core
+# from the native codec loops on small hosts; the codec does its own
+# threading (OpenMP / wavefront rows), so pin BLAS to one thread unless the
+# user overrides. Must happen before numpy first loads the BLAS library.
+for _v in ("OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS",
+           "NUMEXPR_NUM_THREADS"):
+    _os.environ.setdefault(_v, "1")
+
+__version__ = "0.1.0"
