@@ -9,7 +9,13 @@ drives the main path: decode tests/streams/vfy_sweep.hevc (md5 against
 tests/streams/GOLDEN.json), upscale it 3x to 1920x1080, encode 8 frames at
 the fast low-delay-P operating point with the analysis stage on the card
 and on the host, check byte-identical bitstreams, and decode the result
-hash-clean. Any failed check raises and the exit code is non-zero.
+hash-clean. Then the decoder's device pipeline: every staged decode stage
+on the card against its host twin (on the 1080p encode and on vfy_sweep),
+the two decoder kernels against their plain versions (synthetic inputs and
+the 1080p P pictures' own calls), vfy_sweep md5-exact through
+Decoder(device="cuda"), and the 1080p encode decoded on the card equal to
+the host decode, every picture through the pipeline. Any failed check
+raises and the exit code is non-zero.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the kernels' JSON record, and
@@ -27,6 +33,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+KERNELS = ("dense_me", "mc_block_grid", "dequant_idct")
 STREAM = os.path.join(ROOT, "tests", "streams", "vfy_sweep.hevc")
 GOLDEN = os.path.join(ROOT, "tests", "streams", "GOLDEN.json")
 N_FRAMES = 8
@@ -239,7 +246,7 @@ def encode(frames, device):
 
 def main_path(frames, device):
     """The encode with the stage on the device and on the host; returns
-    (kernel launches in the device run, fps device, fps host)."""
+    (kernel launches in the device run, the device run's bitstream)."""
     from turingcodec_tpu_torch.decode.decoder import Decoder
     from turingcodec_tpu_torch.ops import dense_me
     dense_me.launches = 0
@@ -259,7 +266,266 @@ def main_path(frames, device):
         f"{fps_dev:.4f} fps, host {fps_host:.4f} fps, {len(bs_dev)} bytes "
         f"identical; dense_me_argmin launches {launches} (>= {n_p} P "
         f"pictures); decoded {n} frames, 0 hash failures")
-    return launches, fps_dev, fps_host
+    return launches, bs_dev
+
+
+def build_all():
+    """Every CUDA kernel (one nvcc each) and the native host core, all
+    started together; logs each build time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from turingcodec_tpu_torch import native
+    from turingcodec_tpu_torch.ops import kernel_build
+
+    def job(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        return name, time.perf_counter() - t0
+
+    jobs = [(f"csrc/{k}.cu for sm_90a",
+             lambda k=k: kernel_build.build(k, force=True)) for k in KERNELS]
+    jobs.append(("native host core", lambda: check(
+        native.get_lib() is not None, "native host core did not build")))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        for name, dt in ex.map(lambda j: job(*j), jobs):
+            log(f"built {name} in {dt:.1f} s")
+
+
+def equal_on_card(name, got, want):
+    """A kernel's output against its plain version's; returns max |diff|."""
+    import torch
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and torch.equal(got, want),
+          f"kernel differs from its plain version: {name}")
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def decode_planes(bitstream, device):
+    """Decode with the port; returns (frames' planes, decoder, seconds)."""
+    import torch
+
+    from turingcodec_tpu_torch.decode.decoder import Decoder
+    dec = Decoder(device=device)
+    t0 = time.perf_counter()
+    frames = [f.planes for f in dec.decode_stream(bitstream)]
+    if device is not None:
+        torch.cuda.synchronize()
+    return frames, dec, time.perf_counter() - t0
+
+
+def check_decode_stages(device, streams):
+    """The staged decode stages on the card against their host twins, per
+    picture of each stream, by hooking the host decoder's calls (as
+    tests/test_device_deblock.py does). Returns the kernels' calls of the
+    picture with the most inter blocks: {"mc": [args], "dq": [args]}."""
+    import numpy as np
+
+    import turingcodec_tpu_torch.decode.device_recon as dr
+    import turingcodec_tpu_torch.decode.picture_recon as prm
+    import turingcodec_tpu_torch.decode.recon_vec as rv
+    from turingcodec_tpu_torch.ops.deblock import deblock_picture_device
+    from turingcodec_tpu_torch.ops.sao import sao_picture_device
+
+    host = (rv.reconstruct_inter_batch, prm.deblock_picture,
+            prm.sao_picture, dr.mc_block_grid, dr.dequant_inverse_transform)
+    counts = {"recon": 0, "deblock": 0, "sao": 0}
+    pics = []
+
+    def same(what, a, b):
+        check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+              f"{what} differs from its host twin")
+        counts[what.split("_")[0]] += 1
+
+    def recon(plan, geom, ref_lists, planes):
+        dev = [p.copy() for p in planes]
+        host[0](plan, geom, ref_lists, planes)
+        pics.append({"mc": [], "dq": []})
+        dr.reconstruct_inter_device(plan, geom, ref_lists, dev, device)
+        same("recon_inter_device", planes, dev)
+
+    def deblock(plan, geom, ry, rcb, rcr):
+        dev = [ry.copy(), rcb.copy(), rcr.copy()]
+        host[1](plan, geom, ry, rcb, rcr)
+        deblock_picture_device(plan, geom, *dev, device)
+        same("deblock_picture_device", (ry, rcb, rcr), dev)
+
+    def sao(plan, geom, planes):
+        ref = host[2](plan, geom, [p.copy() for p in planes])
+        same("sao_picture_device", ref,
+             sao_picture_device(plan, geom, planes, device))
+        return ref
+
+    def mc(*a):
+        pics[-1]["mc"].append(a)
+        return host[3](*a)
+
+    def dq(*a):
+        pics[-1]["dq"].append(a)
+        return host[4](*a)
+
+    (rv.reconstruct_inter_batch, prm.deblock_picture, prm.sao_picture,
+     dr.mc_block_grid, dr.dequant_inverse_transform) = (
+        recon, deblock, sao, mc, dq)
+    try:
+        for name, data in streams:
+            frames, dec, _ = decode_planes(data, None)
+            check(dec.hash_failures == 0, f"{name}: hash failures")
+            log(f"staged decode stages on {name} ({len(frames)} frames): "
+                f"equal to their host twins")
+    finally:
+        (rv.reconstruct_inter_batch, prm.deblock_picture, prm.sao_picture,
+         dr.mc_block_grid, dr.dequant_inverse_transform) = host
+    log(f"pictures compared: reconstruct_inter_device {counts['recon']}, "
+        f"deblock_picture_device {counts['deblock']}, sao_picture_device "
+        f"{counts['sao']}")
+    check(min(counts.values()) > 0, f"a stage was never compared: {counts}")
+    return max(pics, key=lambda p: sum(a[1].shape[0] for a in p["mc"]))
+
+
+def check_decode_kernels(device, captured, reps):
+    """mc_block_grid and dequant_idct against their plain versions on the
+    card: synthetic inputs that reach every phase, the clamp and the
+    saturation, then the captured calls of a 1080p P picture; times at
+    those shapes."""
+    import numpy as np
+    import torch
+
+    from turingcodec_tpu_torch.ops.inter import (mc_block_grid,
+                                                 mc_block_grid_ref)
+    from turingcodec_tpu_torch.ops.transform import (
+        dequant_inverse_transform, dequant_inverse_transform_ref)
+    rng = np.random.default_rng(11)
+
+    def up(a, dtype=np.int32):
+        return torch.from_numpy(np.asarray(a).astype(dtype)).to(device)
+
+    mc_errs = []
+    for bd in (8, 10):
+        for bs, taps, phases in ((4, 8, 4), (2, 4, 8)):
+            h, w, b = 72, 104, 4096
+            refs = up(rng.integers(0, 1 << bd, (3, h, w)), np.int16)
+            k = np.arange(b)
+            args = [up(rng.integers(0, 3, b)),
+                    up(rng.integers(-24, w + 16, b)),
+                    up(rng.integers(-24, h + 16, b)),
+                    up(k % phases), up(k // phases % phases)]
+            mc_errs.append(equal_on_card(
+                f"mc_block_grid bs={bs} {bd}-bit",
+                mc_block_grid(refs, *args, bs, taps, bd),
+                mc_block_grid_ref(refs, *args, bs, taps, bd)))
+            log(f"kernel vs plain, mc_block_grid bs={bs} taps={taps} "
+                f"{bd}-bit: B={b}, all {phases * phases} phases, windows "
+                f"past every edge: equal")
+    for a in captured["mc"]:
+        mc_errs.append(equal_on_card("mc_block_grid 1080p",
+                                     mc_block_grid(*a), mc_block_grid_ref(*a)))
+    log(f"kernel vs plain, mc_block_grid on the 1080p P picture's "
+        f"{len(captured['mc'])} calls: equal")
+
+    dq_errs = []
+    for bd in (8, 10):
+        for log2 in (2, 3, 4, 5):
+            n, b = 1 << log2, 640
+            lv = rng.integers(-32768, 32769, (b, n, n))
+            lv[::3] = rng.integers(-64, 65, (len(lv[::3]), n, n))
+            lv[1, 0, :2] = (-32768, 32768)
+            qp = np.arange(b) % 64
+            for mode in (0, 1):
+                dq_errs.append(equal_on_card(
+                    f"dequant_idct N={n} {bd}-bit mode {mode}",
+                    dequant_inverse_transform(up(lv), up(qp), bd, log2, mode),
+                    dequant_inverse_transform_ref(up(lv), up(qp), bd, log2,
+                                                  mode)))
+    log("kernel vs plain, dequant_idct N=4..32, 8/10-bit, QP 0..63, "
+        "levels to +-32768, modes 0 and 1: equal")
+    for a in captured["dq"]:
+        dq_errs.append(equal_on_card(
+            "dequant_idct 1080p", dequant_inverse_transform(*a),
+            dequant_inverse_transform_ref(*a)))
+    log(f"kernel vs plain, dequant_idct on the 1080p P picture's "
+        f"{len(captured['dq'])} buckets: equal")
+
+    out = {}
+    for name, calls, fn, ref, errs, size in (
+            ("mc_block_grid", captured["mc"], mc_block_grid,
+             mc_block_grid_ref, mc_errs, lambda a: a[1].numel()),
+            ("dequant_idct", captured["dq"], dequant_inverse_transform,
+             dequant_inverse_transform_ref, dq_errs,
+             lambda a: a[0].numel())):
+        check(calls, f"no {name} call captured at 1080p")
+        big = max(calls, key=size)
+        ms = timed_ms(lambda: fn(*big), device, reps)
+        plain_ms = timed_ms(lambda: ref(*big), device, max(1, reps // 4))
+        pic_ms = timed_ms(lambda: [fn(*a) for a in calls], device, reps)
+        pic_plain = timed_ms(lambda: [ref(*a) for a in calls], device,
+                             max(1, reps // 4))
+        shape = tuple(big[0].shape if name == "dequant_idct"
+                      else big[1].shape + big[0].shape)
+        log(f"{name} at its largest 1080p call {shape}: kernel {ms:.4f} ms, "
+            f"plain torch {plain_ms:.4f} ms; all {len(calls)} calls of the "
+            f"P picture: kernel {pic_ms:.4f} ms, plain {pic_plain:.4f} ms "
+            f"(median, CUDA events)")
+        out[name] = {"max_abs_err": max(errs), "ms": ms,
+                     "plain_ms": plain_ms}
+    return out
+
+
+def decode_main_path(device, frames, bitstream):
+    """The decoder's device pipeline on the main path: vfy_sweep md5-exact
+    through Decoder(device), then the 1080p encode decoded on the card
+    (kernel counts read around this run) equal to the host decode. Returns
+    the kernels' launches in the 1080p device decode."""
+    import hashlib
+
+    import numpy as np
+
+    from turingcodec_tpu_torch.decode import device_pipeline as dp
+    from turingcodec_tpu_torch.ops import inter, transform
+    dev = str(device)
+
+    dp.pictures = dp.envelope_host = 0
+    got, dec, _ = decode_planes(open(STREAM, "rb").read(), dev)
+    md5 = hashlib.md5()
+    for planes in got:
+        for p in planes:
+            md5.update(p.astype(np.uint8).tobytes())
+    want = json.load(open(GOLDEN))["vfy_sweep.hevc"]
+    check(md5.hexdigest() == want and dec.hash_failures == 0,
+          f"vfy_sweep on the card: md5 {md5.hexdigest()} != golden {want}")
+    check(dp.pictures == len(got) and dp.envelope_host == 0,
+          f"vfy_sweep: {dp.pictures} pictures through the pipeline, "
+          f"{dp.envelope_host} on the host")
+    log(f"decode vfy_sweep with device={dev}: {len(got)} frames, md5 "
+        f"{want} OK, all through the pipeline")
+
+    n = len(frames)
+    inter.launches = transform.launches = 0
+    dp.pictures = dp.envelope_host = 0
+    got, dec, t_dev = decode_planes(bitstream, dev)
+    launches = {"mc_block_grid": inter.launches,
+                "dequant_idct": transform.launches}
+    pictures, envelope = dp.pictures, dp.envelope_host
+    want, dec_h, t_host = decode_planes(bitstream, None)
+    check(len(got) == n and dec.hash_failures == 0
+          and dec_h.hash_failures == 0, "1080p decode: frames or hashes")
+    check(all(np.array_equal(a, b) for fa, fb in zip(got, want)
+              for a, b in zip(fa, fb)),
+          "1080p decode on the card differs from the host decode")
+    check(pictures == n and envelope == 0,
+          f"1080p: {pictures} pictures through the pipeline, {envelope} "
+          f"on the host")
+    check(launches["mc_block_grid"] >= 6 * (n - 1)
+          and launches["dequant_idct"] > 0, f"launches {launches}")
+    t_dev2 = decode_planes(bitstream, dev)[2]
+    t_host2 = decode_planes(bitstream, None)[2]
+    h, w = frames[0][0].shape
+    log(f"decode {n} frames {w}x{h} with device={dev}: equal to the host "
+        f"decode, 0 hash failures, {pictures} pictures through the "
+        f"pipeline, 0 on the host; launches {launches}")
+    log(f"decode fps, host clock, in turns card/host/card/host: "
+        f"{n / t_dev:.4f} / {n / t_host:.4f} / {n / t_dev2:.4f} / "
+        f"{n / t_host2:.4f}")
+    return launches
 
 
 def main() -> int:
@@ -274,8 +540,6 @@ def main() -> int:
         print(f"chip_smoke: {pkg} not found", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from turingcodec_tpu_torch import native
-    from turingcodec_tpu_torch.ops import kernel_build
 
     # 1. environment
     card = card_line()
@@ -289,13 +553,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     # 2. build: the CUDA kernels from source, and the native host core
-    t0 = time.perf_counter()
-    kernel_build.build("dense_me", force=True)
-    log(f"built csrc/dense_me.cu for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    check(native.get_lib() is not None, "native host core did not build")
-    log(f"native host core ready in {time.perf_counter() - t0:.1f} s")
+    build_all()
 
     frames = decode_inputs(N_FRAMES, 3)
     orig, ref = frames[1][0], frames[0][0]
@@ -311,16 +569,38 @@ def main() -> int:
                                  rd_candidates=1)).geom
     check_stages(device, orig, ref, geom.zscan, reps=5)
 
-    # 5. main path
-    launches, fps_dev, fps_host = main_path(frames, device)
+    # 5. main path: the encode
+    launches, bitstream = main_path(frames, device)
+
+    # 6. decode stages against their host twins (1080p encode, vfy_sweep)
+    captured = check_decode_stages(device, [
+        ("the 1080p encode", bitstream),
+        ("vfy_sweep", open(STREAM, "rb").read())])
+
+    # 7. decoder kernels against their plain versions on the card
+    dec_kern = check_decode_kernels(device, captured, reps=20)
+
+    # 8. main path: the decode on the card
+    dec_launches = decode_main_path(device, frames, bitstream)
 
     log(card)
+    rows = [dict(name="dense_me_argmin", source="dense_me.cu",
+                 replaces="turingcodec_tpu/ops/pallas_kernels.py:71",
+                 launches=launches, **kern),
+            dict(name="mc_block_grid", source="mc_block_grid.cu",
+                 replaces="turingcodec_tpu/ops/inter.py:66",
+                 launches=dec_launches["mc_block_grid"],
+                 **dec_kern["mc_block_grid"]),
+            dict(name="dequant_idct", source="dequant_idct.cu",
+                 replaces="turingcodec_tpu/ops/transform.py:32",
+                 launches=dec_launches["dequant_idct"],
+                 **dec_kern["dequant_idct"])]
     log(json.dumps({"kernels": [{
-        "name": "dense_me_argmin", "route": "cuda",
-        "source": "turingcodec_tpu_torch/csrc/dense_me.cu",
-        "replaces": "turingcodec_tpu/ops/pallas_kernels.py:71",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"]}]}))
+        "name": r["name"], "route": "cuda",
+        "source": "turingcodec_tpu_torch/csrc/" + r["source"],
+        "replaces": r["replaces"], "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"]} for r in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

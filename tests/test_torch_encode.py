@@ -91,8 +91,14 @@ out += [nal for (_i, nal, _r) in enc.flush()]
 dec = Decoder()
 assert sum(1 for _ in dec.decode_stream(b"".join(out))) == 2
 assert dec.hash_failures == 0
+from turingcodec_tpu_torch.decode import device_pipeline
+dec = Decoder(device="cpu")
+assert sum(1 for _ in dec.decode_stream(b"".join(out))) == 2
+assert dec.hash_failures == 0 and device_pipeline.pictures == 2
 assert "torch" in sys.modules
-import turingcodec_tpu_torch.ops.dense_me  # the kernel's module loaded
+import turingcodec_tpu_torch.ops.dense_me  # the kernels' modules loaded
+import turingcodec_tpu_torch.ops.inter
+import turingcodec_tpu_torch.ops.transform
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "turingcodec_tpu" or m.startswith("turingcodec_tpu.")]

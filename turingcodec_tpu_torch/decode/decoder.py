@@ -60,7 +60,15 @@ class Decoder:
     """Streaming HEVC decoder. Feed an Annex-B byte stream; yields frames in
     output order."""
 
-    def __init__(self, reconstructor_cls=PictureReconstructor):
+    def __init__(self, reconstructor_cls=PictureReconstructor, device=None):
+        """device: None decodes on the host; a torch device ("cuda",
+        "cpu") runs the chained device pipeline there. "cuda" without a
+        usable card raises: the decoder never falls back to the host."""
+        self.device = None
+        if device is not None:
+            from turingcodec_tpu_torch.encode.device_analysis import (
+                resolve_device)
+            self.device = resolve_device(device)
         self.ps = ParamSets()
         self.dpb: Optional[Dpb] = None
         self.geom: Optional[PictureGeometry] = None
@@ -247,7 +255,9 @@ class Decoder:
         # per-slice ref lists: rebuild for reconstruction (predict_pu pulls
         # from these); for multi-slice this would need per-CU slice lookup —
         # handled by reconstructing with each slice's lists
-        recon = self.reconstructor_cls(plan, self.geom, self._ref_lists_for(plan))
+        recon = self.reconstructor_cls(plan, self.geom,
+                                       self._ref_lists_for(plan),
+                                       device=self.device)
         return recon.run()
 
     def _ref_lists_for(self, plan):
@@ -259,9 +269,11 @@ class Decoder:
 
 
 def decode_to_yuv(data: bytes, max_frames: Optional[int] = None,
-                  out_path: Optional[str] = None, bit_depth: int = 8):
-    """Decode a stream; returns (md5_hex, frame_count). Writes YUV if path."""
-    dec = Decoder()
+                  out_path: Optional[str] = None, bit_depth: int = 8,
+                  device=None):
+    """Decode a stream; returns (md5_hex, frame_count). Writes YUV if path.
+    device: see Decoder."""
+    dec = Decoder(device=device)
     md5 = hashlib.md5()
     n = 0
     fh = open(out_path, "wb") if out_path else None

@@ -7,6 +7,7 @@ preCtu/postCtu loop-filter sequencing.
 """
 from __future__ import annotations
 
+import os
 from typing import List
 
 import numpy as np
@@ -45,11 +46,24 @@ def _pu_geometry(cu, part_mode):
     }[part_mode]
 
 
+def _staged(name: str) -> bool:
+    """Whether the TURING_TPU_DEVICE_<name> switch selects a staged device
+    stage (read only when the reconstructor has a device)."""
+    return bool(os.environ.get(f"TURING_TPU_DEVICE_{name}"))
+
+
 class PictureReconstructor:
-    def __init__(self, plan: PicturePlan, geom, ref_lists):
+    """device: None runs the host path (the TURING_TPU_DEVICE_* switches
+    are not read). A torch device runs the chained device pipeline
+    (decode/device_pipeline.py), or, when any of TURING_TPU_DEVICE_RECON,
+    _DEBLOCK or _SAO is set, those staged stages on the device and the
+    rest on the host."""
+
+    def __init__(self, plan: PicturePlan, geom, ref_lists, device=None):
         self.plan = plan
         self.geom = geom
         self.ref_lists = ref_lists
+        self.device = device
         sps = plan.sps
         w, h = sps.pic_width_in_luma_samples, sps.pic_height_in_luma_samples
         cw, ch = w // sps.sub_width_c, h // sps.sub_height_c
@@ -74,7 +88,11 @@ class PictureReconstructor:
         self.wp_tables = [derive_wp_tables(sh, plan.sps)
                           for sh in plan.slice_headers]
         if any(w is not None for w in self.wp_tables):
-            # weighted prediction: scalar per-PU path (spec 8.5.3.3.4.3)
+            # weighted prediction: scalar per-PU path (spec 8.5.3.3.4.3),
+            # outside the device pipeline's envelope
+            if self.device is not None:
+                from turingcodec_tpu_torch.decode import device_pipeline
+                device_pipeline.envelope_host += 1
             for cu in plan.cu_list:
                 if cu.pcm:
                     self._recon_pcm(cu)
@@ -86,8 +104,25 @@ class PictureReconstructor:
         if self.use_batched_inter:
             from turingcodec_tpu_torch import native
             from turingcodec_tpu_torch.decode.recon_vec import reconstruct_inter_batch
-            reconstruct_inter_batch(plan, self.geom, self.ref_lists,
-                                    [self.ry, self.rcb, self.rcr])
+            recon = [self.ry, self.rcb, self.rcr]
+            staged = self.device is not None and any(
+                _staged(k) for k in ("RECON", "DEBLOCK", "SAO"))
+            if self.device is not None and not staged:
+                # chained device pipeline: MC -> residual -> (host intra)
+                # -> deblock -> SAO, one device->host pull per picture
+                from turingcodec_tpu_torch.decode.device_pipeline import (
+                    decode_picture_device)
+                out = decode_picture_device(self, self.device)
+                if out is not None:
+                    return out
+            if staged and _staged("RECON"):
+                from turingcodec_tpu_torch.decode.device_recon import (
+                    reconstruct_inter_device)
+                reconstruct_inter_device(plan, self.geom, self.ref_lists,
+                                         recon, self.device)
+            else:
+                reconstruct_inter_batch(plan, self.geom, self.ref_lists,
+                                        recon)
             if not native.intra_recon(self):
                 for cu in plan.cu_list:
                     if cu.pcm:
@@ -106,11 +141,24 @@ class PictureReconstructor:
 
     def _loop_filters(self):
         plan = self.plan
-        deblock_picture(plan, self.geom, self.ry, self.rcb, self.rcr)
+        on_device = self.device is not None
+        if on_device and _staged("DEBLOCK"):
+            from turingcodec_tpu_torch.ops.deblock import (
+                deblock_picture_device)
+            deblock_picture_device(plan, self.geom, self.ry, self.rcb,
+                                   self.rcr, self.device)
+        else:
+            deblock_picture(plan, self.geom, self.ry, self.rcb, self.rcr)
         if any(sh.slice_sao_luma_flag or sh.slice_sao_chroma_flag
                for sh in plan.slice_headers):
-            planes = sao_picture(plan, self.geom,
-                                 [self.ry, self.rcb, self.rcr])
+            if on_device and _staged("SAO"):
+                from turingcodec_tpu_torch.ops.sao import sao_picture_device
+                planes = sao_picture_device(
+                    plan, self.geom, [self.ry, self.rcb, self.rcr],
+                    self.device)
+            else:
+                planes = sao_picture(plan, self.geom,
+                                     [self.ry, self.rcb, self.rcr])
             self.ry, self.rcb, self.rcr = planes
         return [self.ry, self.rcb, self.rcr]
 

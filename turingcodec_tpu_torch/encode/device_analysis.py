@@ -37,14 +37,14 @@ _STATIC = {}  # per-geometry index tensors, keyed by shape and device
 
 
 def resolve_device(device) -> Optional[torch.device]:
-    """EncoderConfig.device -> the torch device of the analysis stage, or
-    None for the host path. A CUDA device without a usable card raises:
-    the stage never falls back to the host."""
+    """EncoderConfig.device or Decoder's device -> the torch device of the
+    device stages, or None for the host path. A CUDA device without a
+    usable card raises: the stages never fall back to the host."""
     if device is None:
         return None
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"analysis device {device!r} requested but "
+        raise RuntimeError(f"device {device!r} requested but "
                            "torch.cuda.is_available() is False")
     return dev
 

@@ -4,6 +4,10 @@ Each kernel is one `csrc/<name>.cu` with a plain C entry point. It is
 compiled with nvcc for sm_90a into `build/kernels/lib<name>.so` at the
 repository root on first use, rebuilt when its source is newer, and loaded
 with ctypes. A failed build raises; nothing falls back.
+
+The constant tables the kernels and their plain versions read (DCT
+matrices, filter taps, QP tables) stay in hevc/tables.py and friends;
+`table` puts each on a device once.
 """
 from __future__ import annotations
 
@@ -12,6 +16,9 @@ import os
 import shutil
 import subprocess
 
+import numpy as np
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -19,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS = {}
+_TABLES = {}  # (id(array), device) -> (array, int32 tensor)
 
 
 def _nvcc() -> str:
@@ -49,6 +57,17 @@ def build(name: str, force: bool = False) -> str:
         raise RuntimeError(f"nvcc failed for {src}:\n{r.stdout}{r.stderr}")
     os.replace(tmp, so)
     return so
+
+
+def table(array: np.ndarray, device) -> torch.Tensor:
+    """A module-level constant table as an int32 tensor on `device`,
+    uploaded once (the entry keeps the array, so its id stays valid)."""
+    dev = torch.device(device)
+    ent = _TABLES.get((id(array), dev))
+    if ent is None:
+        ent = _TABLES[(id(array), dev)] = (array, torch.as_tensor(
+            np.asarray(array, np.int32), device=dev))
+    return ent[1]
 
 
 def load(name: str) -> ctypes.CDLL:
