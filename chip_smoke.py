@@ -1,21 +1,27 @@
 """Smoke run of the PyTorch / H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-csrc DIR]
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each kernel against its plain torch version on the card, holds every
-encoder analysis stage on the card against its host twin at 1080p, then
-drives the main path: decode tests/streams/vfy_sweep.hevc (md5 against
-tests/streams/GOLDEN.json), upscale it 3x to 1920x1080, encode 8 frames at
-the fast low-delay-P operating point with the analysis stage on the card
-and on the host, check byte-identical bitstreams, and decode the result
-hash-clean. Then the decoder's device pipeline: every staged decode stage
-on the card against its host twin (on the 1080p encode and on vfy_sweep),
-the two decoder kernels against their plain versions (synthetic inputs and
-the 1080p P pictures' own calls), vfy_sweep md5-exact through
+each kernel against its plain torch version on the card (the dense-ME
+sweep also through its fused entry point, on odd-sized frames with seeds
+at +-36, at 8, 10 and 12 bits), holds every encoder analysis stage on the
+card against its host twin at 1080p, then drives the main path: decode
+tests/streams/vfy_sweep.hevc (md5 against tests/streams/GOLDEN.json),
+upscale it 3x to 1920x1080, encode 8 frames at the fast low-delay
+operating point with the analysis stage on the card and on the host, check
+byte-identical bitstreams, and decode the result hash-clean. Then the
+decoder's device pipeline: every staged decode stage on the card against
+its host twin (on the 1080p encode and on vfy_sweep), the two decoder
+kernels against their plain versions (synthetic inputs of two reference
+lists with every phase, full-pel, 8 and 10 bits, and the 1080p picture's
+own calls), vfy_sweep and static_test (all full-pel) md5-exact through
 Decoder(device="cuda"), and the 1080p encode decoded on the card equal to
-the host decode, every picture through the pipeline. Any failed check
-raises and the exit code is non-zero.
+the host decode, every picture through the pipeline, at most 3 MC launches
+per inter picture. Last, each kernel's device time per launch at the main
+path's shapes (torch.profiler), and with --parent-csrc, the dense-ME and
+MC kernels of an older commit (their .cu files in DIR) timed against this
+tree's in turns. Any failed check raises and the exit code is non-zero.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the kernels' JSON record, and
@@ -38,6 +44,10 @@ STREAM = os.path.join(ROOT, "tests", "streams", "vfy_sweep.hevc")
 GOLDEN = os.path.join(ROOT, "tests", "streams", "GOLDEN.json")
 N_FRAMES = 8
 QP = 30
+# peaks of an H100 SXM at its 700 W limit: HBM3 rate (NVIDIA's data sheet)
+# and INT32 issue, 132 SMs x 64 lanes x 1.98 GHz boost clock
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -100,7 +110,7 @@ def decode_inputs(n_frames: int, upscale: int):
     import numpy as np
 
     from turingcodec_tpu_torch.decode.decoder import Decoder
-    dec = Decoder()
+    dec = Decoder(device=None)
     md5 = hashlib.md5()
     frames = []
     for f in dec.decode_stream(open(STREAM, "rb").read()):
@@ -120,19 +130,74 @@ def decode_inputs(n_frames: int, upscale: int):
     return ups
 
 
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the least time an H100 SXM could take, the
+    larger of the bytes over the HBM rate and the integer operations over
+    the INT32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_us(fn, name: str, n: int = 50):
+    """Device time per call of fn(), in us, summed over the CUDA kernels
+    whose name holds `name`: torch.profiler's kernel durations over n calls
+    after a warm-up call. Where the profiler reports no such kernel, CUDA
+    events around the n back-to-back calls (launch gaps then count).
+    Returns (us, launches per call, source)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if name in e.key and t > 0:
+            total += t
+            count += e.count
+    if count:
+        return total / n, count / n, "profiler"
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) * 1e3 / n, None, "CUDA events"
+
+
+def dense_bound(b: int, plane_bytes: int):
+    """Bound of one dense-ME sweep over b blocks: 289 x 256 absolute
+    differences per block at one INT32 operation each; the two planes in,
+    the seeds in and [ox, oy, sad] out."""
+    return bound(2 * plane_bytes + 8 * b + 12 * b, 289 * 256 * b)
+
+
 def check_kernel(device, orig, ref, reps):
-    """dense_me_argmin against dense_me_argmin_ref on the device."""
+    """dense_me_argmin and the fused dense_me_sweep against their plain
+    versions on the device: planted matches, random 10-bit, every SAD tied,
+    12-bit extremes, the 1080p pair, and odd-sized synthetic frames at 8 and
+    10 bits with seeds at +-36 (windows past every edge). Times the sweep at
+    the 1080p pair's shape."""
     import numpy as np
     import torch
 
     from turingcodec_tpu_torch.encode import device_analysis as da
-    from turingcodec_tpu_torch.ops.dense_me import (dense_me_argmin,
-                                                    dense_me_argmin_ref)
+    from turingcodec_tpu_torch.ops.dense_me import (dense_inputs,
+                                                    dense_me_argmin,
+                                                    dense_me_argmin_ref,
+                                                    dense_me_sweep)
 
     def compare(name, cur, pat):
         got = dense_me_argmin(cur, pat)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         want = dense_me_argmin_ref(cur, pat)
         err = int((got.to(torch.int64) - want).abs().max()) \
             if got.numel() else 0
@@ -140,6 +205,17 @@ def check_kernel(device, orig, ref, reps):
               f"kernel differs from its plain version: {name}")
         log(f"kernel vs plain, {name}: B={cur.shape[0]} equal")
         return err
+
+    def compare_sweep(name, args):
+        got = dense_me_sweep(*args)
+        torch.cuda.synchronize()
+        cb, patch = dense_inputs(*args)
+        want = dense_me_argmin_ref(cb, patch)
+        check(torch.equal(got, want) and torch.equal(
+            dense_me_argmin(cb, patch), want),
+            f"fused sweep differs from its plain version: {name}")
+        log(f"fused sweep vs plain, {name}: B={got.shape[0]} equal")
+        return int((got.long() - want.long()).abs().max())
 
     rng = np.random.default_rng(7)
     b = 7
@@ -159,20 +235,42 @@ def check_kernel(device, orig, ref, reps):
         "all equal (every SAD ties)",
         torch.full((64, 16, 16), 77, dtype=torch.int32, device=device),
         torch.full((64, 32, 32), 77, dtype=torch.int32, device=device)))
+    errs.append(compare(
+        "12-bit extremes (the largest SAD, every offset tied)",
+        torch.full((64, 16, 16), 4095, dtype=torch.int32, device=device),
+        torch.zeros((64, 32, 32), dtype=torch.int32, device=device)))
+
+    for bd, (hh, ww) in ((8, (270, 477)), (10, (135, 250))):
+        wb, hb = da.block_dims(ww, hh)
+        o = torch.from_numpy(rng.integers(0, 1 << bd, (hh, ww)).astype(
+            np.int16)).to(device)
+        r = torch.roll(o, (5, -3), (0, 1)).contiguous()
+        s = rng.integers(-36, 37, (hb, wb, 2)).astype(np.int32)
+        s[0, 0], s[-1, -1], s[0, -1], s[-1, 0] = \
+            (-36, -36), (36, 36), (36, -36), (-36, 36)
+        errs.append(compare_sweep(
+            f"{ww}x{hh} {bd}-bit, seeds to +-36",
+            (o, r, torch.from_numpy(s).to(device), ww, hh, wb, hb)))
 
     h, w = orig.shape
     wb, hb = da.block_dims(w, h)
-    o, r = da.upload(orig, device), da.upload(ref, device)
-    cb, patch = da.dense_inputs(o, r, da.seed_field(o, r, wb, hb),
-                                w, h, wb, hb)
-    errs.append(compare(f"{w}x{h} frame pair", cb, patch))
-    ms = timed_ms(lambda: dense_me_argmin(cb, patch), device, reps)
-    plain_ms = timed_ms(lambda: dense_me_argmin_ref(cb, patch), device,
-                        max(1, reps // 4))
-    log(f"dense_me_argmin at B={cb.shape[0]}: kernel {ms:.4f} ms, "
-        f"plain torch {plain_ms:.4f} ms (median, CUDA events)")
+    o = da.upload(orig, device, torch.int16)
+    r = da.upload(ref, device, torch.int16)
+    args = (o, r, da.seed_field(o, r, wb, hb), w, h, wb, hb)
+    errs.append(compare_sweep(f"{w}x{h} frame pair", args))
+    ms = timed_ms(lambda: dense_me_sweep(*args), device, reps)
+    plain_ms = timed_ms(lambda: dense_me_argmin_ref(*dense_inputs(*args)),
+                        device, max(1, reps // 4))
+    b = hb * wb
+    bound_ms, bound_by = dense_bound(b, o.numel() * o.element_size())
+    log(f"dense_me_sweep at B={b}: kernel {ms:.4f} ms (median, CUDA events "
+        f"around the wrapper), plain torch {plain_ms:.4f} ms; bound "
+        f"{bound_ms * 1e3:.2f} us ({bound_by})")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "B": int(cb.shape[0])}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "timed": {f"dense_me_sweep at B={b}":
+                      lambda: dense_me_sweep(*args)},
+            "kname": "dense_me"}, args
 
 
 def check_stages(device, orig, ref, zscan, reps):
@@ -248,23 +346,23 @@ def main_path(frames, device):
     """The encode with the stage on the device and on the host; returns
     (kernel launches in the device run, the device run's bitstream)."""
     from turingcodec_tpu_torch.decode.decoder import Decoder
-    from turingcodec_tpu_torch.ops import dense_me
-    dense_me.launches = 0
+    reset_launches()
     bs_dev, fps_dev = encode(frames, str(device))
-    launches = dense_me.launches
+    counts = read_launches()
+    launches = counts.pop("dense_me")
     bs_host, fps_host = encode(frames, None)
     check(bs_dev == bs_host, "device and host bitstreams differ")
     n_p = len(frames) - 1   # low-delay P: one IDR, then P pictures
-    check(launches >= n_p,
-          f"{launches} dense_me_argmin launches for {n_p} P pictures")
-    dec = Decoder()
+    check(launches >= n_p and not any(counts.values()),
+          f"{launches} dense_me launches for {n_p} P pictures; {counts}")
+    dec = Decoder(device=None)
     n = sum(1 for _ in dec.decode_stream(bs_dev))
     check(n == len(frames) and dec.hash_failures == 0,
           f"decoded {n} frames, {dec.hash_failures} hash failures")
     h, w = frames[0][0].shape
     log(f"encode {len(frames)} frames {w}x{h}: device={device} "
         f"{fps_dev:.4f} fps, host {fps_host:.4f} fps, {len(bs_dev)} bytes "
-        f"identical; dense_me_argmin launches {launches} (>= {n_p} P "
+        f"identical; dense_me launches {launches} (>= {n_p} P "
         f"pictures); decoded {n} frames, 0 hash failures")
     return launches, bs_dev
 
@@ -289,6 +387,9 @@ def build_all():
     with ThreadPoolExecutor(len(jobs)) as ex:
         for name, dt in ex.map(lambda j: job(*j), jobs):
             log(f"built {name} in {dt:.1f} s")
+    for k in KERNELS:
+        for line in kernel_build.PTXAS.get(k, []):
+            log(f"{k}: {line}")
 
 
 def equal_on_card(name, got, want):
@@ -379,7 +480,7 @@ def check_decode_stages(device, streams):
         f"deblock_picture_device {counts['deblock']}, sao_picture_device "
         f"{counts['sao']}")
     check(min(counts.values()) > 0, f"a stage was never compared: {counts}")
-    return max(pics, key=lambda p: sum(a[1].shape[0] for a in p["mc"]))
+    return max(pics, key=lambda p: sum(a[1].numel() for a in p["mc"]))
 
 
 def check_decode_kernels(device, captured, reps):
@@ -400,22 +501,30 @@ def check_decode_kernels(device, captured, reps):
         return torch.from_numpy(np.asarray(a).astype(dtype)).to(device)
 
     mc_errs = []
+    h, w, b = 72, 104, 4096
+    k = np.arange(b)
     for bd in (8, 10):
-        for bs, taps, phases in ((4, 8, 4), (2, 4, 8)):
-            h, w, b = 72, 104, 4096
-            refs = up(rng.integers(0, 1 << bd, (3, h, w)), np.int16)
-            k = np.arange(b)
-            args = [up(rng.integers(0, 3, b)),
-                    up(rng.integers(-24, w + 16, b)),
-                    up(rng.integers(-24, h + 16, b)),
-                    up(k % phases), up(k // phases % phases)]
-            mc_errs.append(equal_on_card(
-                f"mc_block_grid bs={bs} {bd}-bit",
-                mc_block_grid(refs, *args, bs, taps, bd),
-                mc_block_grid_ref(refs, *args, bs, taps, bd)))
-            log(f"kernel vs plain, mc_block_grid bs={bs} taps={taps} "
-                f"{bd}-bit: B={b}, all {phases * phases} phases, windows "
-                f"past every edge: equal")
+        for bs, taps, phases, what in ((4, 8, 4, "luma"),
+                                       (2, 4, 8, "Cb+Cr")):
+            # two lists of 3 and 2 references, in one launch
+            planes = [[up(rng.integers(0, 1 << bd, (n, h, w)), np.int16)
+                       for _ in range(1 if bs == 4 else 2)] for n in (3, 2)]
+            where = [up([rng.integers(0, 3, b), rng.integers(0, 2, b)]),
+                     up(rng.integers(-24, w + 16, (2, b))),
+                     up(rng.integers(-24, h + 16, (2, b)))]
+            for case, xf, yf in (
+                    (f"all {phases * phases} phases",
+                     [k % phases, k // phases % phases],
+                     [k // phases % phases, k % phases]),
+                    ("full-pel", [0 * k] * 2, [0 * k] * 2)):
+                args = where + [up(xf), up(yf)]
+                mc_errs.append(equal_on_card(
+                    f"mc_block_grid {what} {bd}-bit {case}",
+                    mc_block_grid(planes, *args, bs, taps, bd),
+                    mc_block_grid_ref(planes, *args, bs, taps, bd)))
+                log(f"kernel vs plain, mc_block_grid {what} of 2 lists in "
+                    f"one launch, bs={bs} taps={taps} {bd}-bit: B={b}, "
+                    f"{case}, windows past every edge: equal")
     for a in captured["mc"]:
         mc_errs.append(equal_on_card("mc_block_grid 1080p",
                                      mc_block_grid(*a), mc_block_grid_ref(*a)))
@@ -446,12 +555,13 @@ def check_decode_kernels(device, captured, reps):
         f"{len(captured['dq'])} buckets: equal")
 
     out = {}
-    for name, calls, fn, ref, errs, size in (
+    for name, calls, fn, ref, errs, size, bnd, kname in (
             ("mc_block_grid", captured["mc"], mc_block_grid,
-             mc_block_grid_ref, mc_errs, lambda a: a[1].numel()),
+             mc_block_grid_ref, mc_errs, lambda a: (a[6], a[1].numel()),
+             mc_bound, "mc_block_grid"),
             ("dequant_idct", captured["dq"], dequant_inverse_transform,
              dequant_inverse_transform_ref, dq_errs,
-             lambda a: a[0].numel())):
+             lambda a: a[0].numel(), dequant_bound, "dequant_idct")):
         check(calls, f"no {name} call captured at 1080p")
         big = max(calls, key=size)
         ms = timed_ms(lambda: fn(*big), device, reps)
@@ -459,51 +569,220 @@ def check_decode_kernels(device, captured, reps):
         pic_ms = timed_ms(lambda: [fn(*a) for a in calls], device, reps)
         pic_plain = timed_ms(lambda: [ref(*a) for a in calls], device,
                              max(1, reps // 4))
-        shape = tuple(big[0].shape if name == "dequant_idct"
-                      else big[1].shape + big[0].shape)
+        bound_ms, bound_by = bnd(big)
+        shape = tuple(big[0].shape if name == "dequant_idct" else (
+            len(big[0]), len(big[0][0]), big[1].shape[1], big[6], big[6]))
         log(f"{name} at its largest 1080p call {shape}: kernel {ms:.4f} ms, "
             f"plain torch {plain_ms:.4f} ms; all {len(calls)} calls of the "
             f"P picture: kernel {pic_ms:.4f} ms, plain {pic_plain:.4f} ms "
-            f"(median, CUDA events)")
-        out[name] = {"max_abs_err": max(errs), "ms": ms,
-                     "plain_ms": plain_ms}
+            f"(median, CUDA events around the wrappers); bound of the "
+            f"largest call {bound_ms * 1e3:.2f} us ({bound_by})")
+        out[name] = {
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "kname": kname,
+            "timed": {
+                f"{name} at its largest 1080p call {shape}":
+                    lambda fn=fn, big=big: fn(*big),
+                f"{name}, all {len(calls)} calls of the 1080p picture":
+                    lambda fn=fn, calls=calls: [fn(*a) for a in calls]}}
     return out
 
 
+def device_times(rows):
+    """Each kernel's device time per call at its main-path shapes (the
+    first shape is the one its row reports), with the share of the bound.
+    Runs after the main paths, so that the profiler's tracing cannot touch
+    their end-to-end timings."""
+    for r in rows:
+        for i, (what, fn) in enumerate(r.pop("timed").items()):
+            us, per, src = device_us(fn, r["kname"])
+            if i == 0:
+                r["device_us"] = us
+                share = f", {r['bound_ms'] * 1e3 / us:.1%} of its bound"
+            else:
+                share = ""
+            log(f"{what}: {us:.2f} us device time per call ({src}, {per} "
+                f"launches per call){share}")
+
+
+def mc_bound(args):
+    """Bound of one mc_block_grid call, from this call's data: per list and
+    component, each reference plane the blocks select read once, the motion
+    in, the predictions out; one INT32 multiply-add per filter tap the
+    blocks' phases need (none for full-pel)."""
+    import torch
+    planes, sel, _xi, _yi, xf, yf, bs, taps, _bd = args
+    span = bs + taps - 1
+    nbytes = 5 * 4 * sel.numel()
+    ops = 0
+    for lx, lst in enumerate(planes):
+        c, r = len(lst), len(lst[0])
+        hh, ww = lst[0][0].shape
+        used = torch.unique(sel[lx].clamp(0, r - 1)).numel()
+        fx, fy = xf[lx] != 0, yf[lx] != 0
+        one_d = int((fx ^ fy).sum())
+        two_d = int((fx & fy).sum())
+        b = sel.shape[1]
+        nbytes += c * (used * hh * ww * 2 + b * bs * bs * 4)
+        ops += c * (one_d * bs * bs * taps
+                    + two_d * (span * bs * taps + bs * bs * taps))
+    return bound(nbytes, ops)
+
+
+def dequant_bound(args):
+    """Bound of one dequant_idct call: levels and QPs in, residuals out; one
+    INT32 multiply per coefficient to dequantise and, for the inverse DCT,
+    N multiply-adds per coefficient in each of the two stages."""
+    levels, _qp, _bd, log2, mode = args
+    b, n = levels.shape[0], 1 << log2
+    per = 1 + (2 * n if mode == 0 else 1)
+    return bound(2 * b * n * n * 4 + b * 4, b * n * n * per)
+
+
+def compare_with_parent(parent_csrc, dense_args, captured, device):
+    """Device time per launch of the parent commit's dense-ME and MC kernels
+    (their sources in parent_csrc, built into a temporary directory)
+    against this tree's, at the main path's shapes, in turns parent,
+    change, change, parent; the outputs must be equal."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from turingcodec_tpu_torch.ops import kernel_build
+    from turingcodec_tpu_torch.ops.dense_me import (dense_inputs,
+                                                    dense_me_argmin,
+                                                    dense_me_sweep)
+    from turingcodec_tpu_torch.ops.inter import _filter_on, mc_block_grid
+    vp, vi = ctypes.c_void_p, ctypes.c_int
+    with tempfile.TemporaryDirectory(prefix="parent_kernels_") as tmp:
+        fns = {}
+        for name, sym, argtypes in (
+                ("dense_me", "dense_me_argmin_launch", [vp] * 3 + [vi, vp]),
+                ("mc_block_grid", "mc_block_grid_launch",
+                 [vp] + [vi] * 3 + [vp] * 6 + [vi] * 3 + [vp] * 2)):
+            so = os.path.join(tmp, f"lib{name}.so")
+            r = subprocess.run([kernel_build._nvcc()] + kernel_build.NVCC_FLAGS
+                               + ["-o", so,
+                                  os.path.join(parent_csrc, f"{name}.cu")],
+                               capture_output=True, text=True)
+            check(r.returncode == 0, f"parent {name}.cu: {r.stderr[-2000:]}")
+            fn = getattr(ctypes.CDLL(so), sym)
+            fn.restype, fn.argtypes = vi, argtypes
+            fns[name] = fn
+
+        def stream():
+            return torch.cuda.current_stream(device).cuda_stream
+
+        def turns(what, old, new, kname):
+            t = [device_us(f, kname)[0] for f in (old, new, new, old)]
+            log(f"{what}: device us per call, parent / change / change / "
+                f"parent: {t[0]:.2f} / {t[1]:.2f} / {t[2]:.2f} / {t[3]:.2f}")
+            return t
+
+        res = {}
+        cb, patch = dense_inputs(*dense_args)
+        b = cb.shape[0]
+        out = torch.empty((b, 3), dtype=torch.int32, device=device)
+
+        def old_dense():
+            check(fns["dense_me"](cb.data_ptr(), patch.data_ptr(),
+                                  out.data_ptr(), b, stream()) == 0,
+                  "parent dense_me launch")
+
+        old_dense()
+        check(torch.equal(out, dense_me_sweep(*dense_args)),
+              "parent and change dense-ME differ")
+        res["dense_me (parent on windows, change fused on planes)"] = turns(
+            f"dense-ME at B={b}, parent on materialised windows vs the "
+            f"fused sweep", old_dense, lambda: dense_me_sweep(*dense_args),
+            "dense_me")
+        res["dense_me (both on windows)"] = turns(
+            f"dense-ME at B={b}, both on materialised windows", old_dense,
+            lambda: dense_me_argmin(cb, patch), "dense_me")
+
+        for bs in (4, 2):
+            a = max((a for a in captured["mc"] if a[6] == bs),
+                    key=lambda a: a[1].numel())
+            planes, sel, xi, yi, xf, yf, _bs, taps, bd = a
+            # the parent takes one (R, H, W) stack and one launch per list
+            # and component
+            groups = [(lx, torch.stack(list(c))) for lx, lst in
+                      enumerate(planes) for c in lst]
+            filt = _filter_on(taps, device)
+            b = sel.shape[1]
+            outs = [torch.empty((b, bs, bs), dtype=torch.int32,
+                                device=device) for _ in groups]
+
+            def old_mc():
+                for (lx, st), o in zip(groups, outs):
+                    check(fns["mc_block_grid"](
+                        st.data_ptr(), *st.shape, sel[lx].data_ptr(),
+                        xi[lx].data_ptr(), yi[lx].data_ptr(),
+                        xf[lx].data_ptr(), yf[lx].data_ptr(),
+                        filt.data_ptr(), b, bs, bd, o.data_ptr(),
+                        stream()) == 0, "parent mc launch")
+
+            old_mc()
+            check(torch.equal(torch.stack(outs),
+                              mc_block_grid(*a).reshape(-1, b, bs, bs)),
+                  "parent and change MC differ")
+            what = "luma" if bs == 4 else "Cb+Cr"
+            res[f"mc_block_grid {what}"] = turns(
+                f"mc_block_grid {what} of {len(planes)} list(s) at B={b} "
+                f"(parent {len(groups)} launches, change 1)", old_mc,
+                lambda: mc_block_grid(*a), "mc_block_grid")
+    return res
+
+
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    from turingcodec_tpu_torch.ops import dense_me, inter, transform
+    dense_me.launches = inter.launches = transform.launches = 0
+
+
+def read_launches():
+    from turingcodec_tpu_torch.ops import dense_me, inter, transform
+    return {"dense_me": dense_me.launches, "mc_block_grid": inter.launches,
+            "dequant_idct": transform.launches}
+
+
 def decode_main_path(device, frames, bitstream):
-    """The decoder's device pipeline on the main path: vfy_sweep md5-exact
-    through Decoder(device), then the 1080p encode decoded on the card
-    (kernel counts read around this run) equal to the host decode. Returns
-    the kernels' launches in the 1080p device decode."""
+    """The decoder's device pipeline on the main path: vfy_sweep (B
+    pictures, SAO) and static_test (every block full-pel) md5-exact through
+    Decoder(device), then the 1080p encode decoded on the card (kernel
+    counts read around this run) equal to the host decode. Returns the
+    kernels' launches in the 1080p device decode."""
     import hashlib
 
     import numpy as np
 
     from turingcodec_tpu_torch.decode import device_pipeline as dp
-    from turingcodec_tpu_torch.ops import inter, transform
     dev = str(device)
 
-    dp.pictures = dp.envelope_host = 0
-    got, dec, _ = decode_planes(open(STREAM, "rb").read(), dev)
-    md5 = hashlib.md5()
-    for planes in got:
-        for p in planes:
-            md5.update(p.astype(np.uint8).tobytes())
-    want = json.load(open(GOLDEN))["vfy_sweep.hevc"]
-    check(md5.hexdigest() == want and dec.hash_failures == 0,
-          f"vfy_sweep on the card: md5 {md5.hexdigest()} != golden {want}")
-    check(dp.pictures == len(got) and dp.envelope_host == 0,
-          f"vfy_sweep: {dp.pictures} pictures through the pipeline, "
-          f"{dp.envelope_host} on the host")
-    log(f"decode vfy_sweep with device={dev}: {len(got)} frames, md5 "
-        f"{want} OK, all through the pipeline")
+    for name in ("vfy_sweep.hevc", "static_test.hevc"):
+        dp.pictures = dp.envelope_host = 0
+        got, dec, _ = decode_planes(
+            open(os.path.join(ROOT, "tests", "streams", name), "rb").read(),
+            dev)
+        md5 = hashlib.md5()
+        for planes in got:
+            for p in planes:
+                md5.update(p.astype(np.uint8).tobytes())
+        want = json.load(open(GOLDEN))[name]
+        check(md5.hexdigest() == want and dec.hash_failures == 0,
+              f"{name} on the card: md5 {md5.hexdigest()} != golden {want}")
+        check(dp.pictures == len(got) and dp.envelope_host == 0,
+              f"{name}: {dp.pictures} pictures through the pipeline, "
+              f"{dp.envelope_host} on the host")
+        log(f"decode {name} with device={dev}: {len(got)} frames, md5 "
+            f"{want} OK, all through the pipeline")
 
     n = len(frames)
-    inter.launches = transform.launches = 0
     dp.pictures = dp.envelope_host = 0
+    reset_launches()
     got, dec, t_dev = decode_planes(bitstream, dev)
-    launches = {"mc_block_grid": inter.launches,
-                "dequant_idct": transform.launches}
+    launches = read_launches()
     pictures, envelope = dp.pictures, dp.envelope_host
     want, dec_h, t_host = decode_planes(bitstream, None)
     check(len(got) == n and dec.hash_failures == 0
@@ -514,8 +793,11 @@ def decode_main_path(device, frames, bitstream):
     check(pictures == n and envelope == 0,
           f"1080p: {pictures} pictures through the pipeline, {envelope} "
           f"on the host")
-    check(launches["mc_block_grid"] >= 6 * (n - 1)
-          and launches["dequant_idct"] > 0, f"launches {launches}")
+    # each inter picture takes one luma and one Cb+Cr launch over the lists
+    # its blocks use (6 before: one per list and component)
+    check(0 < launches["mc_block_grid"] <= 3 * (n - 1)
+          and launches["dequant_idct"] > 0 and launches["dense_me"] == 0,
+          f"launches {launches}")
     t_dev2 = decode_planes(bitstream, dev)[2]
     t_host2 = decode_planes(bitstream, None)[2]
     h, w = frames[0][0].shape
@@ -528,7 +810,14 @@ def decode_main_path(device, frames, bitstream):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-csrc", default=None,
+                    help="directory with an older commit's dense_me.cu and "
+                         "mc_block_grid.cu: time them against this tree's "
+                         "kernels at the main path's shapes")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -560,13 +849,13 @@ def main() -> int:
     h, w = orig.shape
     check((w, h) == (1920, 1080), f"upscaled input is {w}x{h}")
 
-    # 3. kernel against its plain version on the card
-    kern = check_kernel(device, orig, ref, reps=20)
+    # 3. dense-ME kernel against its plain versions on the card
+    kern, dense_args = check_kernel(device, orig, ref, reps=20)
 
     # 4. stages against their host twins
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
-    geom = Encoder(EncoderConfig(width=w, height=h, qp=QP,
-                                 rd_candidates=1)).geom
+    geom = Encoder(EncoderConfig(width=w, height=h, qp=QP, rd_candidates=1,
+                                 device=None)).geom
     check_stages(device, orig, ref, geom.zscan, reps=5)
 
     # 5. main path: the encode
@@ -583,7 +872,7 @@ def main() -> int:
     # 8. main path: the decode on the card
     dec_launches = decode_main_path(device, frames, bitstream)
 
-    log(card)
+    # 9. device time per launch of each kernel at the main path's shapes
     rows = [dict(name="dense_me_argmin", source="dense_me.cu",
                  replaces="turingcodec_tpu/ops/pallas_kernels.py:71",
                  launches=launches, **kern),
@@ -595,12 +884,23 @@ def main() -> int:
                  replaces="turingcodec_tpu/ops/transform.py:32",
                  launches=dec_launches["dequant_idct"],
                  **dec_kern["dequant_idct"])]
+    device_times(rows)
+    if args.parent_csrc:
+        compare_with_parent(args.parent_csrc, dense_args, captured, device)
+
+    log(card)
+    # no single PyTorch call computes any of the three functions (a
+    # penalised argmin over 289 SADs, a per-block filter phase, an integer
+    # dequantisation before two products), so library_ms is null
     log(json.dumps({"kernels": [{
         "name": r["name"], "route": "cuda",
         "source": "turingcodec_tpu_torch/csrc/" + r["source"],
         "replaces": r["replaces"], "launches": r["launches"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"]} for r in rows]}))
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "device_us": r["device_us"], "bound_us": r["bound_ms"] * 1e3}
+        for r in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -41,16 +41,32 @@ def _mc_inputs(bd, phases, seed):
 @pytest.mark.parametrize("bd", [8, 10])
 @pytest.mark.parametrize("plane", ["luma", "chroma"])
 def test_mc_block_grid_matches_jax(bd, plane):
+    """One call of two lists: luma as one component, Cb and Cr as two, each
+    (list, component) held against its own JAX call. The lists' reference
+    counts differ."""
     bs, taps, phases = (4, 8, 4) if plane == "luma" else (2, 4, 8)
     refs, blocks = _mc_inputs(bd, phases, seed=bd + taps)
-    want = np.asarray(jinter.mc_block_grid(
-        jnp.asarray(refs), *[jnp.asarray(a) for a in blocks], bs, taps, bd))
+    refs1, blocks1 = _mc_inputs(bd, phases, seed=bd + taps + 1)
+    refs1, blocks1[0] = refs1[:2], blocks1[0] % 2
+    lists = [[refs], [refs1]]
+    if plane == "chroma":
+        lists = [[refs, refs[::-1] ^ 1], [refs1, refs1 ^ 3]]
+    per_list = [blocks, blocks1]
+    want = [[np.asarray(jinter.mc_block_grid(
+        jnp.asarray(r), *[jnp.asarray(a) for a in per_list[lx]], bs, taps,
+        bd)) for r in lst] for lx, lst in enumerate(lists)]
     before = tinter.launches
-    got = tinter.mc_block_grid(T(refs), *[T(a) for a in blocks], bs, taps,
-                               bd)
+    # a component is a sequence of (H, W) planes: a stack or a list
+    planes = [[T(c) if i == 0 else list(T(c)) for i, c in enumerate(lst)]
+              for lst in lists]
+    got = tinter.mc_block_grid(planes, *[T(np.stack(a)) for a in
+                                         zip(*per_list)], bs, taps, bd)
     assert tinter.launches == before  # CPU tensors: the plain version
-    assert got.dtype == torch.int32 and got.shape == (300, bs, bs)
-    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.dtype == torch.int32
+    assert got.shape == (2, len(lists[0]), 300, bs, bs)
+    for g_l, w_l in zip(got, want):
+        for g, w in zip(g_l, w_l):
+            np.testing.assert_array_equal(g.numpy(), w)
 
 
 def _levels(log2, bd, seed):
@@ -137,32 +153,53 @@ def test_dequant_inverse_transform_rejects_bad_inputs(bad):
         ttransform.dequant_inverse_transform(lv, qp, 8, 3, mode)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "taps"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "taps", "sizes",
+                                 "components", "groups", "planes", "lists"])
 def test_mc_block_grid_rejects_bad_inputs(bad):
     refs, blocks = _mc_inputs(8, 4, seed=3)
-    refs, blocks, taps = T(refs), [T(a) for a in blocks], 8
+    refs, blocks, taps = T(refs), [T(a)[None] for a in blocks], 8
+    planes = [[refs]]
     if bad == "dtype":
-        refs = refs.to(torch.int32)
+        planes = [[refs.to(torch.int32)]]
     elif bad == "shape":
-        blocks[2] = blocks[2][:10]
-    else:
+        blocks[2] = blocks[2][:, :10]
+    elif bad == "taps":
         taps = 6
+    elif bad == "sizes":       # planes of two sizes
+        planes = [[[refs[0], refs[1, :-2].contiguous()]]]
+    elif bad == "components":  # lists with different component counts
+        planes = [[refs], [refs, refs]]
+        blocks = [a.expand(2, -1).contiguous() for a in blocks]
+    elif bad == "groups":      # more (list, component) groups than a launch
+        planes = [[refs] * 5]
+    elif bad == "planes":      # more planes than a launch takes
+        planes = [[list(refs) * 11] * 2]
+    else:                      # motion rows for one list, planes for two
+        planes = [[refs], [refs]]
     with pytest.raises((TypeError, ValueError)):
-        tinter.mc_block_grid(refs, *blocks, 4, taps, 8)
+        tinter.mc_block_grid(planes, *blocks, 4, taps, 8)
 
 
 @pytest.mark.parametrize("bd", [8, 10])
-def test_combine_uni_bi_matches_jax(bd):
+@pytest.mark.parametrize("lists", ["both", "list0", "list1"])
+def test_combine_uni_bi_matches_jax(bd, lists):
+    """With both lists in use, and with one list that no block uses, which
+    _predict skips and hands over as None."""
     rng = np.random.default_rng(bd)
     b = 200
     p0, p1 = (rng.integers(-(1 << 13), 1 << 14, (b, 4, 4)).astype(np.int32)
               for _ in range(2))
     on0, on1 = rng.integers(0, 2, b) > 0, rng.integers(0, 2, b) > 0
     on1[~on0] = True  # every block uses at least one list
+    if lists != "both":
+        on0[:] = lists == "list0"
+        on1[:] = lists == "list1"
     want = np.asarray(jrecon._combine_uni_bi(
         jnp.asarray(p0), jnp.asarray(p1), jnp.asarray(on0),
         jnp.asarray(on1), bd))
-    got = trecon._combine_uni_bi(T(p0), T(p1), T(on0), T(on1), bd)
+    t0 = None if lists == "list1" else T(p0)
+    t1 = None if lists == "list0" else T(p1)
+    got = trecon._combine_uni_bi(t0, t1, T(on0), T(on1), bd)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -1,19 +1,24 @@
 """The port's dense-ME sweep (turingcodec_tpu_torch.ops.dense_me) against
-the JAX package's Pallas kernel in interpret mode and a brute-force loop:
-exact integers (tolerance 0).
+the JAX package's Pallas kernel in interpret mode, its _dense_stage and a
+brute-force loop: exact integers (tolerance 0).
 
 The Pallas kernel runs in interpret mode with jit disabled: compiling its
 289-step unrolled body for the CPU takes minutes, evaluating it op by op
 about ten seconds. All cases go through it as one batch."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import turingcodec_tpu.encode.device_analysis as jda
+import turingcodec_tpu_torch.encode.device_analysis as tda
 from turingcodec_tpu.ops.pallas_kernels import dense_me_argmin as jax_dense
 from turingcodec_tpu_torch.ops import dense_me
-from turingcodec_tpu_torch.ops.dense_me import (dense_me_argmin,
-                                                dense_me_argmin_ref)
+from turingcodec_tpu_torch.ops.dense_me import (dense_inputs,
+                                                dense_me_argmin,
+                                                dense_me_argmin_ref,
+                                                dense_me_sweep)
 
 
 def _planted(seed=7, b=7, hi=256):
@@ -104,3 +109,102 @@ def test_wrapper_rejects_bad_inputs(bad):
         cur = cur.transpose(1, 2)
     with pytest.raises((TypeError, ValueError)):
         dense_me_argmin(cur, pat)
+
+
+# frames whose sizes are not multiples of 16 (1080 = 67 * 16 + 8), with
+# seeds to +-36, the lowres pre-ME's reach, at the grid's corners
+SWEEPS = {"odd_8bit": (40, 57, 8, 1), "odd_10bit": (35, 70, 10, 2),
+          "one_block": (9, 13, 8, 3)}
+
+
+def _sweep_inputs(name):
+    h, w, bd, seed = SWEEPS[name]
+    rng = np.random.default_rng(seed)
+    orig = rng.integers(0, 1 << bd, (h, w)).astype(np.int16)
+    ref = np.roll(orig, (3, -5), (0, 1)).astype(np.int16)
+    ref[::5] = rng.integers(0, 1 << bd, (len(ref[::5]), w))
+    wb, hb = tda.block_dims(w, h)
+    seeds = rng.integers(-36, 37, (hb, wb, 2)).astype(np.int32)
+    seeds[0, 0], seeds[-1, -1] = (-36, -36), (36, 36)
+    seeds[0, -1], seeds[-1, 0] = (36, -36), (-36, 36)
+    return orig, ref, seeds, w, h, wb, hb
+
+
+def _brute_sweep(orig, ref, seeds, w, h, wb, hb):
+    """The kernel's addressing in numpy: every coordinate clamped into the
+    unpadded planes, then the brute-force scan per block."""
+    by, bx = np.divmod(np.arange(hb * wb), wb)
+    a16, a32 = np.arange(16), np.arange(32)
+    sy = np.minimum(16 * by[:, None] + a16, h - 1)
+    sx = np.minimum(16 * bx[:, None] + a16, w - 1)
+    s = seeds.reshape(-1, 2)
+    wy = np.clip(16 * by[:, None] + s[:, 1:2] - 8 + a32, 0, h - 1)
+    wx = np.clip(16 * bx[:, None] + s[:, 0:1] - 8 + a32, 0, w - 1)
+    cur = orig[sy[:, :, None], sx[:, None, :]].astype(np.int32)
+    pat = ref[wy[:, :, None], wx[:, None, :]].astype(np.int32)
+    return _brute(cur, pat)
+
+
+@pytest.mark.parametrize("name", sorted(SWEEPS))
+def test_dense_me_sweep_matches_jax_dense_stage(name, monkeypatch):
+    """The fused entry point's plain version (dense_me_argmin_ref over
+    dense_inputs) against the JAX package's _dense_stage (the scan, not the
+    Pallas kernel) and the clamped brute force, on int16 and int32
+    planes; the port's _dense_stage adds the seeds as the JAX one does."""
+    monkeypatch.setenv("TC_DENSE_PALLAS", "0")
+    orig, ref, seeds, w, h, wb, hb = _sweep_inputs(name)
+    mv, sad = jda._dense_stage(jnp.asarray(orig), jnp.asarray(ref),
+                               jnp.asarray(seeds), w, h, wb, hb)
+    want = np.concatenate([np.asarray(mv).reshape(-1, 2) - seeds.reshape(
+        -1, 2), np.asarray(sad).reshape(-1, 1)], 1)
+    np.testing.assert_array_equal(_brute_sweep(orig, ref, seeds, w, h, wb,
+                                               hb), want)
+    for dtype in (torch.int16, torch.int32):
+        o, r = (torch.from_numpy(a).to(dtype) for a in (orig, ref))
+        s = torch.from_numpy(seeds)
+        got = dense_me_sweep(o, r, s, w, h, wb, hb)
+        assert got.dtype == torch.int32 and got.shape == (hb * wb, 3)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(
+            dense_me_argmin_ref(*dense_inputs(o, r, s, w, h, wb, hb)).numpy(),
+            want)
+    tmv, tsad = tda._dense_stage(o, r, s, w, h, wb, hb)
+    np.testing.assert_array_equal(tmv.numpy(), np.asarray(mv))
+    np.testing.assert_array_equal(tsad.numpy(), np.asarray(sad))
+
+
+def test_sweep_off_the_cpu_launches_or_raises(monkeypatch):
+    """A tensor that is not on the CPU never takes the plain version: the
+    sweep goes to the kernel, which needs a CUDA tensor, and never
+    materialises the windows."""
+    orig, ref, seeds, w, h, wb, hb = _sweep_inputs("odd_8bit")
+    meta = [torch.from_numpy(a).to("meta") for a in (orig, ref, seeds)]
+
+    def no_windows(*a):
+        raise AssertionError("dense_inputs called off the CPU")
+
+    monkeypatch.setattr(dense_me, "dense_inputs", no_windows)
+    before = dense_me.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        dense_me_sweep(*meta, w, h, wb, hb)
+    assert dense_me.launches == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "mixed", "seeds", "grid",
+                                 "contiguous"])
+def test_sweep_rejects_bad_inputs(bad):
+    orig, ref, seeds, w, h, wb, hb = (
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+        for a in _sweep_inputs("odd_8bit"))
+    if bad == "dtype":
+        orig, ref = orig.long(), ref.long()
+    elif bad == "mixed":
+        ref = ref.int()
+    elif bad == "seeds":
+        seeds = seeds[:, :-1].contiguous()
+    elif bad == "grid":
+        seeds, wb = seeds[:, :-1].contiguous(), wb - 1
+    else:
+        orig = orig.t().contiguous().t()
+    with pytest.raises((TypeError, ValueError)):
+        dense_me_sweep(orig, ref, seeds, w, h, wb, hb)

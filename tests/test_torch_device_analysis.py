@@ -107,6 +107,9 @@ def test_cuda_without_a_card_raises(monkeypatch):
         tda.resolve_device("cuda")
     with pytest.raises(RuntimeError):
         Encoder(EncoderConfig(width=64, height=64, device="cuda"))
+    with pytest.raises(RuntimeError):  # the default asks for the card
+        EncoderConfig(width=64, height=64)
+    assert EncoderConfig(width=64, height=64, device=None).device is None
     assert tda.resolve_device(None) is None
     assert tda.resolve_device("cpu") == torch.device("cpu")
 

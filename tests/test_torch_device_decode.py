@@ -6,6 +6,8 @@ the kernels' plain versions), exact integers throughout.
   vfy_sweep (GOP8 with SAO);
 - Decoder(device="cpu") md5-equal to GOLDEN.json (md5s the JAX decoder and
   the reference decoder produced) with the chained pipeline taken;
+- MC's launches: a list no block uses is skipped (P pictures), and the
+  uni/bi combine stays exact where B pictures use list 1 in part;
 - the staged TURING_TPU_DEVICE_* switches, the envelope counts and the
   device DPB's copies;
 - all GOLDEN streams through the port's host path (the corpus oracle of
@@ -69,7 +71,7 @@ def _capture(name, attr, n_frames):
 
     setattr(picture_recon, attr, hooked)
     try:
-        for i, _f in enumerate(Decoder().decode_stream(_data(name))):
+        for i, _f in enumerate(Decoder(device=None).decode_stream(_data(name))):
             if i + 1 >= n_frames:
                 break
     finally:
@@ -119,6 +121,54 @@ def test_device_pipeline_md5(name):
     assert dp.pictures == n and dp.envelope_host == 0
 
 
+def _mc_calls(monkeypatch):
+    """Record every mc_block_grid call of the pipeline's MC as (lists,
+    components, bs), and every _predict call's per-list block usage."""
+    import turingcodec_tpu_torch.decode.device_recon as trecon
+    calls, pics = [], []
+    mc, predict = trecon.mc_block_grid, dp._predict
+
+    def mc_hook(planes, *a):
+        calls.append((len(planes), len(planes[0]), a[-3]))
+        return mc(planes, *a)
+
+    def predict_hook(plan, by4, bx4, refs, device):
+        pics.append([int((plan.ref_idx[lx, by4, bx4] >= 0).sum())
+                     for lx in (0, 1)] + [len(by4)])
+        return predict(plan, by4, bx4, refs, device)
+
+    monkeypatch.setattr(trecon, "mc_block_grid", mc_hook)
+    monkeypatch.setattr(dp, "_predict", predict_hook)
+    return calls, pics
+
+
+@pytest.mark.parametrize("name", ["vfy_hp.hevc", "static_test.hevc"])
+def test_p_pictures_make_no_list1_call(name, monkeypatch):
+    """P-only streams: one luma and one Cb+Cr launch per picture over list 0
+    alone, none for the empty list 1, and the md5 of the JAX and reference
+    decoders."""
+    calls, pics = _mc_calls(monkeypatch)
+    md5, _n, dec = _decode(name, "cpu")
+    assert md5 == GOLDEN[name] and dec.hash_failures == 0
+    assert pics and all(l1 == 0 for _l0, l1, _b in pics)
+    assert calls == [(1, 1, 4), (1, 2, 2)] * len(pics)
+
+
+def test_b_pictures_combine_both_lists(monkeypatch):
+    """GOP8 with B pictures, some blocks on list 1 only, some on both, some
+    on list 0 only: one luma and one Cb+Cr launch per picture over the
+    lists its blocks use, and the decode stays md5-exact."""
+    calls, pics = _mc_calls(monkeypatch)
+    md5, _n, dec = _decode("vfy_sweep.hevc", "cpu")
+    assert md5 == GOLDEN["vfy_sweep.hevc"] and dec.hash_failures == 0
+    partial = [p for p in pics if 0 < p[1] < p[2] and 0 < p[0] < p[2]]
+    assert partial, pics
+    want = [c for l0, l1, _b in pics
+            for c in [((l0 > 0) + (l1 > 0), 1, 4),
+                      ((l0 > 0) + (l1 > 0), 2, 2)]]
+    assert calls == want
+
+
 def test_weighted_prediction_stays_on_the_host_and_is_counted():
     dp.pictures = dp.envelope_host = 0
     md5, n, _dec = _decode("vfy_wp.hevc", "cpu")
@@ -158,7 +208,7 @@ def test_transform_skip_inter_residuals(monkeypatch):
     rng = np.random.RandomState(5)
     base = rng.randint(0, 256, (80, 80)).astype(np.int16)
     enc = Encoder(EncoderConfig(width=64, height=64, qp=27, rd_candidates=2,
-                                tskip=True, sao=False))
+                                tskip=True, sao=False, device=None))
     out = [enc.headers()]
     for i in range(3):
         f = [base[i:i + 64, 2 * i:2 * i + 64].copy(), base[:32, :32].copy(),
@@ -181,12 +231,16 @@ def test_transform_skip_inter_residuals(monkeypatch):
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
+    """"cuda", also as the default, raises without a card: the decoder
+    never falls back to the host."""
     from turingcodec_tpu_torch.decode.decoder import decode_to_yuv
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError):
-        Decoder(device="cuda")
-    with pytest.raises(RuntimeError):
-        decode_to_yuv(_data("static_test.hevc"), device="cuda")
+    for make in (lambda: Decoder(device="cuda"), Decoder,
+                 lambda: decode_to_yuv(_data("static_test.hevc"),
+                                       device="cuda"),
+                 lambda: decode_to_yuv(_data("static_test.hevc"))):
+        with pytest.raises(RuntimeError):
+            make()
 
 
 def test_device_dpb_holds_copies():

@@ -61,16 +61,47 @@ def test_port_encode_matches_jax_device_encode(jax_stream, device,
     import turingcodec_tpu_torch.encode.encoder as tenc
     from turingcodec_tpu_torch.decode.decoder import Decoder
     calls = []
-    sweep = tda.dense_me_argmin
-    monkeypatch.setattr(tda, "dense_me_argmin",
-                        lambda c, p: calls.append(1) or sweep(c, p))
+    sweep = tda.dense_me_sweep
+    monkeypatch.setattr(tda, "dense_me_sweep",
+                        lambda *a: calls.append(1) or sweep(*a))
     got = _encode(tenc, _frames(5, 128, 96), device=device)
     assert got == jax_stream
     # the stage ran once per inter picture and reference list, or never
     assert len(calls) >= (4 if device else 0) and (device or not calls)
-    dec = Decoder()
+    dec = Decoder(device=None)
     n = sum(1 for _ in dec.decode_stream(got))
     assert n == 5 and dec.hash_failures == 0
+
+
+@pytest.mark.parametrize("tool", ["encode", "decode"])
+def test_tools_default_to_the_card(tool, tmp_path, monkeypatch):
+    """With no --device the CLI tools ask for the card and raise without
+    one (nothing carries on on the CPU); --device none is the host path."""
+    import json
+
+    import torch
+
+    from turingcodec_tpu_torch.tools import decode, encode
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out.hevc"
+    if tool == "encode":
+        yuv = tmp_path / "in.yuv"
+        yuv.write_bytes(np.random.RandomState(2).randint(
+            0, 256, 2 * 64 * 64 * 3 // 2).astype(np.uint8).tobytes())
+        main = encode.main
+        argv = [str(yuv), "--input-res", "64x64", "-o", str(out),
+                "--speed", "fast", "--no-progress"]
+    else:
+        streams = os.path.join(REPO, "tests", "streams")
+        golden = json.load(open(os.path.join(streams, "GOLDEN.json")))
+        main = decode.main
+        argv = [os.path.join(streams, "static_test.hevc"), "--no-progress",
+                "--md5", golden["static_test.hevc"]]
+    with pytest.raises(RuntimeError):
+        main(argv)
+    assert not out.exists()
+    assert main(argv + ["--device", "none"]) == 0
+    assert tool == "decode" or out.stat().st_size > 0
 
 
 NO_JAX = r"""
@@ -88,7 +119,7 @@ out = [enc.headers()]
 for f in frames:
     out += [nal for (_i, nal, _r) in enc.push_frame(f)]
 out += [nal for (_i, nal, _r) in enc.flush()]
-dec = Decoder()
+dec = Decoder(device=None)
 assert sum(1 for _ in dec.decode_stream(b"".join(out))) == 2
 assert dec.hash_failures == 0
 from turingcodec_tpu_torch.decode import device_pipeline

@@ -4,9 +4,11 @@
 The layout mirrors `turingcodec_tpu` module for module. The host modules
 (bitstream, CABAC, headers, the decoder's host path, the encoder's search
 and the native C++ core) are carried over unchanged; the encoder's
-data-parallel analysis stage (`encode/device_analysis.py`) runs as torch
-code on a chosen device, with the dense-ME sweep as a hand-written CUDA
-kernel (`ops/dense_me.py`, `csrc/dense_me.cu`). The package imports torch
+data-parallel analysis stage (`encode/device_analysis.py`) and the
+decoder's reconstruction pipeline (`decode/device_pipeline.py`) run as
+torch code on the card by default (`device=None` asks for the host path),
+with hand-written CUDA kernels for the dense-ME sweep, motion compensation
+and dequantisation + inverse transform (`csrc/`). The package imports torch
 and never jax.
 """
 

@@ -1,13 +1,15 @@
 // Per-block fractional motion compensation for Hopper (sm_90a).
 //
 // Replaces the XLA program turingcodec_tpu/ops/inter.py mc_block_grid (its
-// int32 einsums). Every 4x4 luma (2x2 chroma) min-block b of a picture
-// carries its PU's motion: a reference index sel[b], the integer top-left
-// sample (xi[b], yi[b]) and the fractional phase (xf[b], yf[b]). The kernel
-// gathers the (bs + taps - 1)^2 window of refs[sel[b]] around it with every
-// coordinate clamped into the plane (the spec's edge extension), then runs
-// the separable 8-tap luma or 4-tap chroma filter and writes the 14-bit
-// intermediate prediction with the spec's four phase cases:
+// int32 einsums, :96-104). Every 4x4 luma (2x2 chroma) min-block b of a
+// picture carries, per reference list l, its PU's motion: a reference index
+// sel[l][b], the integer top-left sample (xi[l][b], yi[l][b]) and the
+// fractional phase (xf[l][b], yf[l][b]). For each list and component the
+// kernel reads the (bs + taps - 1)^2 window of reference plane sel[l][b]
+// around it with every coordinate clamped into the plane (the spec's edge
+// extension), then runs the separable 8-tap luma or 4-tap chroma filter and
+// writes the 14-bit intermediate prediction with the spec's four phase
+// cases:
 //   full-pel:  ref << (14 - bd)
 //   H only:    sum_k win * fh >> (bd - 8)
 //   V only:    sum_k win * fv >> (bd - 8)
@@ -15,30 +17,47 @@
 // All sums are exact in int32. The filter table comes in from the wrapper
 // (hevc/tables.py LUMA_FILTER / CHROMA_FILTER).
 //
-// Design: one thread block of 256 threads covers 16 luma (64 chroma) blocks,
-// one thread per output sample. The block stages its windows in shared
-// memory as int32 (7.7 KB luma, 6.4 KB chroma), runs the horizontal pass of
-// every window row once into shared memory, and each thread then takes its
-// sample's vertical pass, so no product is computed twice.
+// What bounds it on this card. The largest call of a 1080p P picture covers
+// B = 87,168 luma blocks per list: one list writes 5.6 MB of int32, reads
+// 1.7 MB of motion and about 4 MB of reference plane (the windows overlap,
+// so the rest are cache hits), 11.3 MB or 3.4 us at 3.35 TB/s; its 42 M
+// multiply-adds are 2.5 us of INT32 issue. The bytes bound it. The encoder's
+// low-delay pictures are B slices whose blocks use both lists, so a picture
+// costs twice that. The first design staged every window in shared memory
+// as int32 (7.6 times the samples it writes), reloaded the motion for every
+// window element behind divides by 11 and 121, ran three phases behind
+// __syncthreads at 16 blocks per CTA, and took one launch per list and
+// component.
 //
-// Bound on the card: at 1080p one call covers up to 129,600 blocks. The
-// windows read 121 int16 samples per 4x4 luma block from refs (31 MB of
-// gathers, about 7.6 times the 4 MB plane, so mostly cache hits) and write
-// 8.3 MB of int32; the arithmetic is about 62 M multiply-adds (352 for the
-// horizontal pass and 128 for the vertical one per block). Both are
-// microseconds of the card's peak, so the gathers' latency and the launch
-// decide the time; reading each reference row once for a whole PU instead
-// of once per min-block is later work.
+// Design. One thread per block: it loads its motion once into registers,
+// clamps the window's columns once, and walks the window a row at a time,
+// reading the int16 samples of the row into registers (a register window),
+// running the horizontal pass of that row once and adding its products into
+// the bs x bs vertical sums, so nothing is staged and nothing is divided. A
+// full-pel block only reads its bs x bs samples, an H-only block only its bs
+// rows. The output block goes out in 16-byte stores. Reference planes come
+// through a table of plane addresses passed by value (no stack of the
+// planes is copied), one row of the table per (list, component) group; the
+// groups are the grid's second dimension, so one launch covers both lists,
+// and Cb with Cr.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kMaxGroups = 4;    // lists x components
+constexpr int kMaxPlanes = 64;   // lists x components x references
+
+struct PlaneTable {
+    const int16_t* p[kMaxPlanes];
+    int first[kMaxGroups];       // a group's first plane in p
+    int count[kMaxGroups];       // its references
+};
 
 template <int BS, int TAPS>
 __global__ void __launch_bounds__(kThreads)
-mc_block_grid_kernel(const int16_t* __restrict__ refs, int R, int H, int W,
+mc_block_grid_kernel(PlaneTable tab, int C, int H, int W,
                      const int32_t* __restrict__ sel,
                      const int32_t* __restrict__ xi,
                      const int32_t* __restrict__ yi,
@@ -48,102 +67,146 @@ mc_block_grid_kernel(const int16_t* __restrict__ refs, int R, int H, int W,
                      int shift3, int32_t* __restrict__ out) {
     constexpr int SPAN = BS + TAPS - 1;
     constexpr int OFF = TAPS / 2 - 1;
-    constexpr int NS = BS * BS;          // outputs per MC block
-    constexpr int PER = kThreads / NS;   // MC blocks per thread block
     constexpr int PHASES = TAPS == 8 ? 4 : 8;
-    __shared__ int32_t s_win[PER][SPAN][SPAN];
-    __shared__ int32_t s_h[PER][SPAN][BS];
-    __shared__ int32_t s_f[PHASES * TAPS];
-
-    const int t = threadIdx.x;
-    const int b0 = blockIdx.x * PER;
-    if (t < PHASES * TAPS) s_f[t] = filt[t];
-    for (int i = t; i < PER * SPAN * SPAN; i += kThreads) {
-        const int j = i / (SPAN * SPAN);
-        const int r = i / SPAN % SPAN;
-        const int c = i % SPAN;
-        const int b = b0 + j;
-        int v = 0;
-        if (b < B) {
-            const int s = min(max(sel[b], 0), R - 1);
-            const int y = min(max(yi[b] - OFF + r, 0), H - 1);
-            const int x = min(max(xi[b] - OFF + c, 0), W - 1);
-            v = refs[((size_t)s * H + y) * W + x];
-        }
-        s_win[j][r][c] = v;
-    }
-    __syncthreads();
-
-    // horizontal pass of every window row
-    for (int i = t; i < PER * SPAN * BS; i += kThreads) {
-        const int j = i / (SPAN * BS);
-        const int r = i / BS % SPAN;
-        const int c = i % BS;
-        const int b = b0 + j;
-        int acc = 0;
-        if (b < B) {
-            const int32_t* f = s_f + min(max(xf[b], 0), PHASES - 1) * TAPS;
-#pragma unroll
-            for (int k = 0; k < TAPS; ++k) acc += s_win[j][r][c + k] * f[k];
-        }
-        s_h[j][r][c] = acc >> shift1;
-    }
-    __syncthreads();
-
-    const int j = t / NS;
-    const int y = t / BS % BS;
-    const int x = t % BS;
-    const int b = b0 + j;
+    const int b = blockIdx.x * kThreads + threadIdx.x;
     if (b >= B) return;
-    const int fx = min(max(xf[b], 0), PHASES - 1);
-    const int fy = min(max(yf[b], 0), PHASES - 1);
-    const int32_t* fv = s_f + fy * TAPS;
-    int v;
+    const int g = blockIdx.y;               // (list, component) group
+    const size_t m = (size_t)(g / C) * B + b;  // the list's motion of b
+    const int16_t* __restrict__ ref =
+        tab.p[tab.first[g] + min(max(sel[m], 0), tab.count[g] - 1)];
+    const int x0 = xi[m] - OFF;
+    const int y0 = yi[m] - OFF;
+    const int fx = min(max(xf[m], 0), PHASES - 1);
+    const int fy = min(max(yf[m], 0), PHASES - 1);
+
+    int col[SPAN];
+#pragma unroll
+    for (int k = 0; k < SPAN; ++k) col[k] = min(max(x0 + k, 0), W - 1);
+    auto row_at = [&](int r) {
+        return ref + (size_t)min(max(y0 + r, 0), H - 1) * W;
+    };
+
+    int v[BS * BS];
     if (fx == 0 && fy == 0) {
-        v = s_win[j][OFF + y][OFF + x] << shift3;
+#pragma unroll
+        for (int y = 0; y < BS; ++y) {
+            const int16_t* row = row_at(OFF + y);
+#pragma unroll
+            for (int x = 0; x < BS; ++x)
+                v[y * BS + x] = (int)row[col[OFF + x]] << shift3;
+        }
     } else if (fy == 0) {
-        v = s_h[j][OFF + y][x];
-    } else if (fx == 0) {
-        int acc = 0;
+        int fh[TAPS];
 #pragma unroll
-        for (int k = 0; k < TAPS; ++k) acc += s_win[j][y + k][OFF + x] * fv[k];
-        v = acc >> shift1;
+        for (int k = 0; k < TAPS; ++k) fh[k] = __ldg(filt + fx * TAPS + k);
+#pragma unroll
+        for (int y = 0; y < BS; ++y) {
+            const int16_t* row = row_at(OFF + y);
+            int w[SPAN];
+#pragma unroll
+            for (int k = 0; k < SPAN; ++k) w[k] = row[col[k]];
+#pragma unroll
+            for (int x = 0; x < BS; ++x) {
+                int acc = 0;
+#pragma unroll
+                for (int k = 0; k < TAPS; ++k) acc += w[x + k] * fh[k];
+                v[y * BS + x] = acc >> shift1;
+            }
+        }
     } else {
-        int acc = 0;
+        // V only (fx == 0) or 2-D: walk the window's rows once, each row's
+        // horizontal pass (or its centre samples) feeding every output row
+        // whose vertical taps reach it
+        int fh[TAPS], fv[TAPS];
 #pragma unroll
-        for (int k = 0; k < TAPS; ++k) acc += s_h[j][y + k][x] * fv[k];
-        v = acc >> 6;
+        for (int k = 0; k < TAPS; ++k) {
+            fh[k] = __ldg(filt + fx * TAPS + k);
+            fv[k] = __ldg(filt + fy * TAPS + k);
+        }
+        const bool h_pass = fx != 0;
+#pragma unroll
+        for (int i = 0; i < BS * BS; ++i) v[i] = 0;
+#pragma unroll
+        for (int r = 0; r < SPAN; ++r) {
+            const int16_t* row = row_at(r);
+            int hr[BS];
+            if (h_pass) {
+                int w[SPAN];
+#pragma unroll
+                for (int k = 0; k < SPAN; ++k) w[k] = row[col[k]];
+#pragma unroll
+                for (int x = 0; x < BS; ++x) {
+                    int acc = 0;
+#pragma unroll
+                    for (int k = 0; k < TAPS; ++k) acc += w[x + k] * fh[k];
+                    hr[x] = acc >> shift1;
+                }
+            } else {
+#pragma unroll
+                for (int x = 0; x < BS; ++x) hr[x] = row[col[OFF + x]];
+            }
+#pragma unroll
+            for (int y = 0; y < BS; ++y) {
+                if (r - y >= 0 && r - y < TAPS) {
+#pragma unroll
+                    for (int x = 0; x < BS; ++x)
+                        v[y * BS + x] += hr[x] * fv[r - y];
+                }
+            }
+        }
+        const int sh = h_pass ? 6 : shift1;
+#pragma unroll
+        for (int i = 0; i < BS * BS; ++i) v[i] >>= sh;
     }
-    out[(size_t)b * NS + y * BS + x] = v;
+
+    int4* o = reinterpret_cast<int4*>(out + ((size_t)g * B + b) * BS * BS);
+#pragma unroll
+    for (int q = 0; q < BS * BS / 4; ++q)
+        o[q] = make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
 }
 
 template <int BS, int TAPS>
-void launch(const int16_t* refs, int R, int H, int W, const int32_t* sel,
-            const int32_t* xi, const int32_t* yi, const int32_t* xf,
-            const int32_t* yf, const int32_t* filt, int B, int bit_depth,
-            int32_t* out, cudaStream_t stream) {
-    constexpr int PER = kThreads / (BS * BS);
-    const unsigned grid = (unsigned)((B + PER - 1) / PER);
+void launch(const PlaneTable& tab, int G, int C, int H, int W,
+            const int32_t* sel, const int32_t* xi, const int32_t* yi,
+            const int32_t* xf, const int32_t* yf, const int32_t* filt, int B,
+            int bit_depth, int32_t* out, cudaStream_t stream) {
+    const dim3 grid((unsigned)((B + kThreads - 1) / kThreads), (unsigned)G);
     mc_block_grid_kernel<BS, TAPS><<<grid, kThreads, 0, stream>>>(
-        refs, R, H, W, sel, xi, yi, xf, yf, filt, B, bit_depth - 8,
+        tab, C, H, W, sel, xi, yi, xf, yf, filt, B, bit_depth - 8,
         14 - bit_depth, out);
 }
 
 }  // namespace
 
-// refs: (R, H, W) int16; sel, xi, yi, xf, yf: (B,) int32; filt: (4, 8)
-// int32 for bs 4 (luma) or (8, 4) int32 for bs 2 (chroma); out: (B, bs, bs)
-// int32; all contiguous on the device. Launches on `stream` and returns
-// cudaGetLastError() (0 on success, cudaErrorInvalidValue for another bs);
-// never synchronises.
-extern "C" int mc_block_grid_launch(const void* refs, int R, int H, int W,
-                                    const void* sel, const void* xi,
+// L lists of C components each make G = L * C <= 4 groups, list-major;
+// counts[g] is group g's number of references and planes holds every
+// group's device pointers to (H, W) int16 contiguous planes, one group
+// after the other (at most 64 in all); both arrays are on the host.
+// sel, xi, yi, xf, yf: (L, B) int32; filt: (4, 8) int32 for bs 4 (luma) or
+// (8, 4) int32 for bs 2 (chroma); out: (L, C, B, bs, bs) int32; all
+// contiguous on the device. Launches on `stream` and returns
+// cudaGetLastError() (0 on success, cudaErrorInvalidValue for another bs or
+// too many groups or planes); never synchronises.
+extern "C" int mc_block_grid_launch(const void* const* planes,
+                                    const int* counts, int L, int C, int H,
+                                    int W, const void* sel, const void* xi,
                                     const void* yi, const void* xf,
                                     const void* yf, const void* filt, int B,
                                     int bs, int bit_depth, void* out,
                                     void* stream) {
+    const int G = L * C;
+    if (L < 1 || C < 1 || G > kMaxGroups) return (int)cudaErrorInvalidValue;
+    PlaneTable tab = {};
+    int n = 0;
+    for (int g = 0; g < G; ++g) {
+        if (counts[g] < 1 || n + counts[g] > kMaxPlanes)
+            return (int)cudaErrorInvalidValue;
+        tab.first[g] = n;
+        tab.count[g] = counts[g];
+        for (int i = 0; i < counts[g]; ++i, ++n)
+            tab.p[n] = (const int16_t*)planes[n];
+    }
     if (B > 0) {
-        const int16_t* r = (const int16_t*)refs;
         const int32_t* s = (const int32_t*)sel;
         const int32_t* x = (const int32_t*)xi;
         const int32_t* y = (const int32_t*)yi;
@@ -153,9 +216,11 @@ extern "C" int mc_block_grid_launch(const void* refs, int R, int H, int W,
         int32_t* o = (int32_t*)out;
         cudaStream_t st = (cudaStream_t)stream;
         if (bs == 4)
-            launch<4, 8>(r, R, H, W, s, x, y, fx, fy, f, B, bit_depth, o, st);
+            launch<4, 8>(tab, G, C, H, W, s, x, y, fx, fy, f, B, bit_depth, o,
+                         st);
         else if (bs == 2)
-            launch<2, 4>(r, R, H, W, s, x, y, fx, fy, f, B, bit_depth, o, st);
+            launch<2, 4>(tab, G, C, H, W, s, x, y, fx, fy, f, B, bit_depth, o,
+                         st);
         else
             return (int)cudaErrorInvalidValue;
     }

@@ -60,10 +60,12 @@ class Decoder:
     """Streaming HEVC decoder. Feed an Annex-B byte stream; yields frames in
     output order."""
 
-    def __init__(self, reconstructor_cls=PictureReconstructor, device=None):
-        """device: None decodes on the host; a torch device ("cuda",
-        "cpu") runs the chained device pipeline there. "cuda" without a
-        usable card raises: the decoder never falls back to the host."""
+    def __init__(self, reconstructor_cls=PictureReconstructor,
+                 device="cuda"):
+        """device: a torch device ("cuda", the default, or "cpu") runs the
+        chained device pipeline there; None decodes on the host. "cuda"
+        without a usable card raises: the decoder never falls back to the
+        host."""
         self.device = None
         if device is not None:
             from turingcodec_tpu_torch.encode.device_analysis import (
@@ -270,7 +272,7 @@ class Decoder:
 
 def decode_to_yuv(data: bytes, max_frames: Optional[int] = None,
                   out_path: Optional[str] = None, bit_depth: int = 8,
-                  device=None):
+                  device="cuda"):
     """Decode a stream; returns (md5_hex, frame_count). Writes YUV if path.
     device: see Decoder."""
     dec = Decoder(device=device)

@@ -5,9 +5,9 @@ the picture has intra CUs). Port of
 `turingcodec_tpu/decode/device_pipeline.py`.
 
 It keeps a device-resident DPB: each reconstructed picture's planes stay
-on the device, and reference stacks are stacked there instead of
-re-uploaded per picture (the device-resident DPB of SURVEY.md section 7
-stage 6).
+on the device, and MC reads its reference planes there in place, through
+a table of their addresses, instead of re-uploading or stacking them per
+picture (the device-resident DPB of SURVEY.md section 7 stage 6).
 
 The decoder runs it for every picture when it is given a device
 (`Decoder(device=...)`). Bit-exact with the host path. Outside the
@@ -94,15 +94,11 @@ def _mc_device(plan, geom, ref_lists, planes):
     if blocks is None:
         return planes
     device = planes[0].device
-    stacks = []
-    for lx in (0, 1):
-        lst = ref_lists[lx] if lx < len(ref_lists) else []
-        devs = [_dev_planes_for(p, device) for p in lst[:16]]
-        if not devs:
-            devs = [tuple(torch.zeros_like(p) for p in planes)]
-        stacks.append([torch.stack([d[c] for d in devs]) for c in range(3)])
+    refs = [[_dev_planes_for(p, device)
+             for p in (ref_lists[lx] if lx < len(ref_lists) else [])[:16]]
+            for lx in (0, 1)]
     by4, bx4 = blocks
-    preds = _predict(plan, by4, bx4, stacks, device)
+    preds = _predict(plan, by4, bx4, refs, device)
     jb = torch.from_numpy(np.stack([by4, bx4]).astype(np.int32)).to(device)
     return [_scatter_blocks(p, jb[0], jb[1], pred, bs)
             for p, pred, bs in zip(planes, preds, (4, 2, 2))]

@@ -3,8 +3,9 @@ at min-block granularity plus size-bucketed batched residuals, consuming
 the plan's numpy tensors (port of `turingcodec_tpu/decode/device_recon.py`).
 
 The host CABAC parse fills the PicturePlan; the device reconstructs every
-inter CU in a handful of uniform batched calls: MC as one (B, 4, 4) luma
-and two (B, 2, 2) chroma block grids per list (ops/inter.mc_block_grid),
+inter CU in a handful of uniform batched calls: MC as one luma and one
+Cb/Cr block grid over the lists that some block uses
+(ops/inter.mc_block_grid),
 residuals as per-(component, size, mode) (B, n, n) dequant + inverse
 transform batches (ops/transform.dequant_inverse_transform). Intra CUs,
 deblock and SAO follow on the host. This staged form pulls each result
@@ -26,8 +27,13 @@ from turingcodec_tpu_torch.ops.transform import dequant_inverse_transform
 
 
 def _combine_uni_bi(p0, p1, on0, on1, bd):
-    """Default weighted sample prediction from 14-bit parts (8.5.3.3.4)."""
+    """Default weighted sample prediction from 14-bit parts (8.5.3.3.4).
+    A list no block uses comes as None: every block then predicts from the
+    other list alone."""
     shift = 14 - bd
+    if p0 is None or p1 is None:
+        p = p1 if p0 is None else p0
+        return ((p + (1 << (shift - 1))) >> shift).clamp(0, (1 << bd) - 1)
     bi = (p0 + p1 + (1 << shift)) >> (shift + 1)
     uni0 = (p0 + (1 << (shift - 1))) >> shift
     uni1 = (p1 + (1 << (shift - 1))) >> shift
@@ -37,14 +43,16 @@ def _combine_uni_bi(p0, p1, on0, on1, bd):
     return v.clamp(0, (1 << bd) - 1)
 
 
-def _mc_plane(refs, ref_sel, mvx, mvy, bx4, by4, on, bs, taps, shift_mv,
+def _mc_plane(planes, ref_sel, mvx, mvy, bx4, by4, on, bs, taps, shift_mv,
               bd):
-    """One list's 14-bit predictions for all blocks (B, bs, bs)."""
+    """14-bit predictions of every block, (L, C, B, bs, bs) for the L lists
+    and C components of `planes` (see ops/inter.mc_block_grid), from (L, B)
+    motion."""
     xi = bx4 * bs + (mvx >> shift_mv)
     yi = by4 * bs + (mvy >> shift_mv)
     frac_mask = (1 << shift_mv) - 1
     sel = torch.where(on, ref_sel, 0)
-    return mc_block_grid(refs, sel, xi, yi, mvx & frac_mask,
+    return mc_block_grid(planes, sel, xi, yi, mvx & frac_mask,
                          mvy & frac_mask, bs, taps, bd)
 
 
@@ -57,34 +65,39 @@ def _inter_blocks(plan):
     return np.nonzero(inter)
 
 
-def _predict(plan, by4, bx4, stacks, device):
+def _predict(plan, by4, bx4, refs, device):
     """MC and the uni/bi combine of every inter min-block: (pred_y,
     pred_cb, pred_cr) as (B, 4, 4) and 2 x (B, 2, 2) int32 on `device`.
-    stacks[lx][c] is list lx's (R, H, W) int16 reference stack of plane c.
-    The per-block motion goes up in one transfer."""
+    refs[lx] lists list lx's reference pictures as (y, cb, cr) int16
+    planes on `device`. The lists some block uses (list 1 of a P picture
+    is empty), decided from the host's plan, go to MC together: one launch
+    for luma and one for Cb and Cr. Their per-block motion goes up in one
+    transfer."""
     sps = plan.sps
     bd_y, bd_c = sps.bit_depth_y, sps.bit_depth_c
+    used = [lx for lx in (0, 1) if (plan.ref_idx[lx, by4, bx4] >= 0).any()]
     rows = [bx4, by4]
-    for lx in (0, 1):
+    for lx in used:
         rows += [plan.ref_idx[lx, by4, bx4], plan.mv[lx, by4, bx4, 0],
                  plan.mv[lx, by4, bx4, 1]]
     motion = torch.from_numpy(np.stack(rows).astype(np.int32)).to(device)
     jb_x, jb_y = motion[0], motion[1]
-    on = [None, None]
-    p14_y = [None, None]
-    p14_c = [[None, None], [None, None]]  # [cb/cr][list]
-    for lx in (0, 1):
-        r, mvx, mvy = motion[2 + 3 * lx:5 + 3 * lx]
-        on[lx] = r >= 0
-        sel = r.clamp(min=0)
-        p14_y[lx] = _mc_plane(stacks[lx][0], sel, mvx, mvy, jb_x, jb_y,
-                              on[lx], 4, 8, 2, bd_y)
-        for c in (1, 2):
-            p14_c[c - 1][lx] = _mc_plane(stacks[lx][c], sel, mvx, mvy,
-                                         jb_x, jb_y, on[lx], 2, 4, 3, bd_c)
-    return (_combine_uni_bi(p14_y[0], p14_y[1], on[0], on[1], bd_y),
-            _combine_uni_bi(p14_c[0][0], p14_c[0][1], on[0], on[1], bd_c),
-            _combine_uni_bi(p14_c[1][0], p14_c[1][1], on[0], on[1], bd_c))
+    r, mvx, mvy = motion[2:].reshape(len(used), 3, -1).unbind(1)  # (L, B)
+    on = r >= 0
+    sel = r.clamp(min=0)
+    p14_y = _mc_plane([[[d[0] for d in refs[lx]]] for lx in used], sel, mvx,
+                      mvy, jb_x, jb_y, on, 4, 8, 2, bd_y)[:, 0]
+    p14_c = _mc_plane([[[d[c] for d in refs[lx]] for c in (1, 2)]
+                       for lx in used], sel, mvx, mvy, jb_x, jb_y, on, 2, 4,
+                      3, bd_c)
+
+    def combine(p, bd):  # p: (L, B, bs, bs), one row per used list
+        parts, flags = dict(zip(used, p)), dict(zip(used, on))
+        return _combine_uni_bi(parts.get(0), parts.get(1), flags.get(0),
+                               flags.get(1), bd)
+
+    return (combine(p14_y, bd_y), combine(p14_c[:, 0], bd_c),
+            combine(p14_c[:, 1], bd_c))
 
 
 def reconstruct_inter_device(plan, geom, ref_lists, recon, device):
@@ -96,14 +109,12 @@ def reconstruct_inter_device(plan, geom, ref_lists, recon, device):
         return
     by4, bx4 = blocks
     h4, w4 = geom.h4, geom.w4
-    stacks = []
+    refs = []
     for lx in (0, 1):
         lst = ref_lists[lx] if lx < len(ref_lists) else []
-        stacks.append([torch.from_numpy(
-            np.stack([p.planes[c] for p in lst]) if lst else
-            np.zeros((1, *recon[c].shape), np.int16)).to(device)
-            for c in range(3)])
-    preds = _predict(plan, by4, bx4, stacks, device)
+        refs.append([tuple(torch.from_numpy(np.ascontiguousarray(
+            p.planes[c])).to(device) for c in range(3)) for p in lst])
+    preds = _predict(plan, by4, bx4, refs, device)
     # scatter the (B, bs, bs) blocks into the planes (blocks are disjoint)
     for plane, pred, bs in zip(recon, preds, (4, 2, 2)):
         plane.reshape(h4, bs, w4, bs).transpose(0, 2, 1, 3)[by4, bx4] = \

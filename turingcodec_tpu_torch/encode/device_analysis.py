@@ -11,7 +11,7 @@ the host path (integer arithmetic, same tie-breaks):
   then a half-res +/-2 refinement;
 - the dense full-pel +/-8 ME field around the seeds (enc_core
   dense_search_rows twin), through the hand-written kernel
-  ops/dense_me.dense_me_argmin;
+  ops/dense_me.dense_me_sweep, which reads the planes directly;
 - the 15 subpel planes of each reference (enc_core sp_build_plane twin);
 - the source-referenced 35-mode rank-SATD tables (intra_search
   _mode_satds twin).
@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from turingcodec_tpu_torch.ops.dense_me import dense_me_argmin
+from turingcodec_tpu_torch.ops.dense_me import dense_me_sweep, edge_pad
 
 _STATIC = {}  # per-geometry index tensors, keyed by shape and device
 
@@ -55,20 +55,11 @@ def device_enc_enabled(device) -> bool:
     return device is not None and not os.environ.get("TC_NO_LOWRES")
 
 
-def upload(plane: np.ndarray, device) -> torch.Tensor:
-    """A host sample plane as an int32 tensor on `device` (sent as int16)."""
+def upload(plane: np.ndarray, device, dtype=torch.int32) -> torch.Tensor:
+    """A host sample plane as a `dtype` tensor on `device` (sent as
+    int16)."""
     return torch.from_numpy(np.ascontiguousarray(plane, np.int16)).to(
-        device).to(torch.int32)
-
-
-def _edge_pad(x: torch.Tensor, top: int, bottom: int, left: int,
-              right: int) -> torch.Tensor:
-    """Edge-replicating pad of a 2-D tensor by clamped indexing (any
-    integer dtype, any device)."""
-    h, w = x.shape
-    ys = torch.arange(-top, h + bottom, device=x.device).clamp_(0, h - 1)
-    xs = torch.arange(-left, w + right, device=x.device).clamp_(0, w - 1)
-    return x[ys[:, None], xs[None, :]]
+        device).to(dtype)
 
 
 def _first_min(cost: torch.Tensor) -> torch.Tensor:
@@ -85,12 +76,12 @@ def _lowres_plane(src, f, b, wb, hb, border):
     rounded mean, padded to (hb*b, wb*b) + border."""
     h, w = src.shape
     lw, lh = -(-w // f), -(-h // f)
-    p = _edge_pad(src, 0, lh * f - h, 0, lw * f - w)
+    p = edge_pad(src, 0, lh * f - h, 0, lw * f - w)
     lr = (p.reshape(lh, f, lw, f).sum((1, 3), dtype=torch.int32)
           + f * f // 2) // (f * f)
     # two edge pads compose into one clamp to the decimated plane
-    return _edge_pad(lr, border, hb * b - lh + border,
-                     border, wb * b - lw + border)
+    return edge_pad(lr, border, hb * b - lh + border,
+                    border, wb * b - lw + border)
 
 
 def block_dims(w: int, h: int):
@@ -101,7 +92,7 @@ def block_dims(w: int, h: int):
 
 
 def seed_field(orig: torch.Tensor, ref: torch.Tensor, wb: int, hb: int):
-    """(orig, ref) int32 planes -> (hb, wb, 2) int32 seed MVs."""
+    """(orig, ref) int16 or int32 planes -> (hb, wb, 2) int32 seed MVs."""
     dev = orig.device
     cur4 = _lowres_plane(orig, 4, 4, wb, hb, 0)
     ref4 = _lowres_plane(ref, 4, 4, wb, hb, 8)
@@ -139,32 +130,11 @@ def seed_field(orig: torch.Tensor, ref: torch.Tensor, wb: int, hb: int):
     return torch.stack([bsx, bsy], -1).to(torch.int32)
 
 
-def dense_inputs(orig, ref, seeds, w, h, wb, hb):
-    """The dense sweep's kernel inputs: (hb*wb, 16, 16) source blocks and
-    (hb*wb, 32, 32) windows at seed - 8 over the edge-replicated plane
-    padded by 48 (enc_core dense_pad_plane), both int32 contiguous."""
-    P = 48
-    dev = orig.device
-    cur = _edge_pad(orig, 0, hb * 16 - h, 0, wb * 16 - w)
-    r = _edge_pad(ref, P, hb * 16 - h + P, P, wb * 16 - w + P)
-    cb = cur.reshape(hb, 16, wb, 16).permute(0, 2, 1, 3)
-    by = torch.arange(hb, device=dev)[:, None]
-    bx = torch.arange(wb, device=dev)[None, :]
-    a32 = torch.arange(32, device=dev)
-    ys = (by * 16 + seeds[:, :, 1] - 8 + P)[:, :, None, None] \
-        + a32[None, None, :, None]
-    xs = (bx * 16 + seeds[:, :, 0] - 8 + P)[:, :, None, None] \
-        + a32[None, None, None, :]
-    patch = r[ys, xs]  # (hb, wb, 32, 32)
-    return (cb.reshape(hb * wb, 16, 16).contiguous(),
-            patch.reshape(hb * wb, 32, 32).contiguous())
-
-
 def _dense_stage(orig, ref, seeds, w, h, wb, hb):
     """Twin of enc_core dense_search_rows: per 16x16 block, the exhaustive
     +/-8 full-pel SAD winner around the lowres seed, through the
-    dense_me_argmin kernel. Returns ((hb, wb, 2) MVs, (hb, wb) SADs)."""
-    res = dense_me_argmin(*dense_inputs(orig, ref, seeds, w, h, wb, hb))
+    dense_me_sweep kernel. Returns ((hb, wb, 2) MVs, (hb, wb) SADs)."""
+    res = dense_me_sweep(orig, ref, seeds, w, h, wb, hb)
     off = res[:, :2].reshape(hb, wb, 2)
     return seeds + off, res[:, 2].reshape(hb, wb)
 
@@ -179,8 +149,8 @@ def analysis_device(orig_y: np.ndarray, ref_y: np.ndarray, device):
     integer-exact with the host lowres_prepass + dense_prepass."""
     h, w = orig_y.shape
     wb, hb = block_dims(w, h)
-    orig = upload(orig_y, device)
-    ref = upload(ref_y, device)
+    orig = upload(orig_y, device, torch.int16)
+    ref = upload(ref_y, device, torch.int16)
     seeds = seed_field(orig, ref, wb, hb)
     dense, dsad = _dense_stage(orig, ref, seeds, w, h, wb, hb)
     return _np32(seeds), _np32(dense), _np32(dsad), wb, hb
@@ -192,8 +162,8 @@ def seed_field_device(orig_y: np.ndarray, ref_y: np.ndarray, device):
     enc_core lowres_prepass."""
     h, w = orig_y.shape
     wb, hb = block_dims(w, h)
-    seeds = seed_field(upload(orig_y, device), upload(ref_y, device),
-                        wb, hb)
+    seeds = seed_field(upload(orig_y, device, torch.int16),
+                       upload(ref_y, device, torch.int16), wb, hb)
     return _np32(seeds), wb, hb
 
 
@@ -212,7 +182,7 @@ def _subpel_planes(ref: torch.Tensor, bd: int) -> torch.Tensor:
     shift1 = bd - 8
     pw, ph = w + 2 * SP_P, h + 2 * SP_P
     pwe, phe = w + 2 * (SP_P + 4), h + 2 * (SP_P + 4)
-    ext2 = _edge_pad(ref, SP_EXT2, SP_EXT2, SP_EXT2, SP_EXT2)
+    ext2 = edge_pad(ref, SP_EXT2, SP_EXT2, SP_EXT2, SP_EXT2)
     # H-filtered intermediates for xf=1..3 over the full ext grid (rows
     # phe so the 2D V pass can reach its taps)
     hplanes = {}

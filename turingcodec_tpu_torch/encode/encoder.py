@@ -131,12 +131,18 @@ class EncoderConfig:
                                  # differ from the sequential walk (the
                                  # clamp). Env TURING_TPU_FRAME_OVERLAP
                                  # overrides (1/0).
-    device: Optional[str] = None  # torch device of the analysis stage
-                                  # (encode/device_analysis.py): None =
-                                  # host path; "cuda" = on the card with
-                                  # the dense-ME kernel (raises without
-                                  # one); "cpu" = the same stage through
-                                  # the kernels' plain torch versions
+    device: Optional[str] = "cuda"  # torch device of the analysis stage
+                                    # (encode/device_analysis.py): "cuda"
+                                    # = on the card with the dense-ME
+                                    # kernel (raises without one); None =
+                                    # host path; "cpu" = the same stage
+                                    # through the kernels' plain versions
+
+    def __post_init__(self):
+        if self.device is not None:
+            from turingcodec_tpu_torch.encode.device_analysis import (
+                resolve_device)
+            resolve_device(self.device)  # raises without a usable card
 
     @classmethod
     def from_dict(cls, d: dict) -> "EncoderConfig":

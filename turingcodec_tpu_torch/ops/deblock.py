@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from turingcodec_tpu_torch.decode.deblock import BETA_TABLE, TC_TABLE
-from turingcodec_tpu_torch.encode.device_analysis import _edge_pad
 from turingcodec_tpu_torch.hevc.tables import CHROMA_QP_TABLE_420
+from turingcodec_tpu_torch.ops.dense_me import edge_pad
 from turingcodec_tpu_torch.ops.kernel_build import table
 
 
@@ -231,7 +231,7 @@ def _dir_pass(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
         # extends past the plane edge; pad right by edge replication
         # (never written back).
         pad = max(0, 6 + 8 * m - w2)
-        planep = _edge_pad(plane, 0, 0, 0, pad) if pad else plane
+        planep = edge_pad(plane, 0, 0, 0, pad) if pad else plane
         midc = planep[:, 6:6 + 8 * m].reshape(n_s, 2, m, 8)
         winc = midc.permute(0, 2, 1, 3).to(i32)
         p1c, p0c = winc[..., 0], winc[..., 1]

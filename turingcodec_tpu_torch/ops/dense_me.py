@@ -1,12 +1,19 @@
 """Dense full-pel motion-estimation sweep: the encoder analysis stage's
 one hand-written kernel.
 
-`dense_me_argmin` replaces the Pallas TPU kernel
-`turingcodec_tpu/ops/pallas_kernels.py::dense_me_argmin` with the CUDA
-kernel in `csrc/dense_me.cu` (its header states the design and what bounds
-it on an H100). `dense_me_argmin_ref` is the plain torch version of the
-same function: the wrapper takes it for CPU tensors, and the kernel is held
-against it on the card.
+The CUDA kernel in `csrc/dense_me.cu` (its header states the design and
+what bounds it on an H100) replaces the Pallas TPU kernel
+`turingcodec_tpu/ops/pallas_kernels.py::dense_me_argmin`. Two wrappers
+launch it:
+
+- `dense_me_sweep(orig, ref, seeds, w, h, wb, hb)`, the encoder's entry
+  point, reads the sample planes directly around the seeds;
+- `dense_me_argmin(cur, patches)` keeps the Pallas kernel's interface
+  (materialised blocks and windows).
+
+`dense_me_argmin_ref` is the plain torch version of the function, and
+`dense_me_argmin_ref(*dense_inputs(...))` that of the sweep: the wrappers
+take them for CPU tensors, and the kernel is held against them on the card.
 """
 from __future__ import annotations
 
@@ -20,6 +27,37 @@ from turingcodec_tpu_torch.ops import kernel_build
 launches = 0
 
 _LAUNCH = None
+P = 48  # reference pad of enc_core dense_pad_plane
+
+
+def edge_pad(x: torch.Tensor, top: int, bottom: int, left: int,
+             right: int) -> torch.Tensor:
+    """Edge-replicating pad of a 2-D tensor by clamped indexing (any
+    integer dtype, any device)."""
+    h, w = x.shape
+    ys = torch.arange(-top, h + bottom, device=x.device).clamp_(0, h - 1)
+    xs = torch.arange(-left, w + right, device=x.device).clamp_(0, w - 1)
+    return x[ys[:, None], xs[None, :]]
+
+
+def dense_inputs(orig, ref, seeds, w, h, wb, hb):
+    """The sweep's materialised inputs: (hb*wb, 16, 16) source blocks and
+    (hb*wb, 32, 32) windows at seed - 8 over the edge-replicated plane
+    padded by P (enc_core dense_pad_plane), both int32 contiguous."""
+    dev = orig.device
+    cur = edge_pad(orig, 0, hb * 16 - h, 0, wb * 16 - w)
+    r = edge_pad(ref, P, hb * 16 - h + P, P, wb * 16 - w + P)
+    cb = cur.reshape(hb, 16, wb, 16).permute(0, 2, 1, 3)
+    by = torch.arange(hb, device=dev)[:, None]
+    bx = torch.arange(wb, device=dev)[None, :]
+    a32 = torch.arange(32, device=dev)
+    ys = (by * 16 + seeds[:, :, 1] - 8 + P)[:, :, None, None] \
+        + a32[None, None, :, None]
+    xs = (bx * 16 + seeds[:, :, 0] - 8 + P)[:, :, None, None] \
+        + a32[None, None, None, :]
+    patch = r[ys, xs]  # (hb, wb, 32, 32)
+    return (cb.reshape(hb * wb, 16, 16).to(torch.int32).contiguous(),
+            patch.reshape(hb * wb, 32, 32).to(torch.int32).contiguous())
 
 
 def _check(cur: torch.Tensor, patches: torch.Tensor) -> int:
@@ -35,6 +73,25 @@ def _check(cur: torch.Tensor, patches: torch.Tensor) -> int:
     if not (cur.is_contiguous() and patches.is_contiguous()):
         raise ValueError("contiguous inputs required")
     return b
+
+
+def _check_sweep(orig, ref, seeds, w, h, wb, hb) -> None:
+    if not (orig.device == ref.device == seeds.device):
+        raise ValueError(f"orig on {orig.device}, ref on {ref.device}, "
+                         f"seeds on {seeds.device}")
+    if orig.dtype not in (torch.int16, torch.int32) or ref.dtype != orig.dtype:
+        raise TypeError(f"int16 or int32 planes of one dtype required, got "
+                        f"{orig.dtype}, {ref.dtype}")
+    if orig.shape != (h, w) or ref.shape != (h, w):
+        raise ValueError(f"({h}, {w}) planes required, got "
+                         f"{tuple(orig.shape)} and {tuple(ref.shape)}")
+    if seeds.dtype != torch.int32 or seeds.shape != (hb, wb, 2):
+        raise TypeError(f"seeds must be ({hb}, {wb}, 2) int32, got "
+                        f"{seeds.dtype} {tuple(seeds.shape)}")
+    if -(-w // 16) > wb or -(-h // 16) > hb:
+        raise ValueError(f"a {wb}x{hb} block grid does not cover {w}x{h}")
+    if not all(a.is_contiguous() for a in (orig, ref, seeds)):
+        raise ValueError("contiguous inputs required")
 
 
 def dense_me_argmin_ref(cur: torch.Tensor,
@@ -61,12 +118,35 @@ def dense_me_argmin_ref(cur: torch.Tensor,
 def _launcher():
     global _LAUNCH
     if _LAUNCH is None:
-        fn = kernel_build.load("dense_me").dense_me_argmin_launch
+        fn = kernel_build.load("dense_me").dense_me_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 2)
         _LAUNCH = fn
     return _LAUNCH
+
+
+def _launch(src, src_hw, ref, ref_hw, seeds, wb, b) -> torch.Tensor:
+    """One kernel launch over contiguous planes on a CUDA device."""
+    global launches
+    if src.device.type != "cuda":
+        raise ValueError(f"unsupported device {src.device}")
+    out = torch.empty((b, 3), dtype=torch.int32, device=src.device)
+    if b == 0:
+        return out
+    fn = _launcher()
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    with torch.cuda.device(src.device):
+        rc = fn(src.data_ptr(), src_hw[1], src_hw[0], src_hw[1],
+                ref.data_ptr(), ref_hw[1], ref_hw[0], ref_hw[1],
+                None if seeds is None else seeds.data_ptr(), wb, b,
+                src.element_size(), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"dense_me launch failed: CUDA error {rc}")
+    launches += 1
+    return out
 
 
 def dense_me_argmin(cur: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
@@ -78,21 +158,27 @@ def dense_me_argmin(cur: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
     reference windows at seed - 8; samples of at most 12 bits. Returns
     (B, 3) int32 [ox, oy, sad]. CPU tensors take the plain version; CUDA
     tensors launch the kernel, and a failed build or launch raises."""
-    global launches
     b = _check(cur, patches)
     if cur.device.type == "cpu":
         return dense_me_argmin_ref(cur, patches)
-    if cur.device.type != "cuda":
-        raise ValueError(f"unsupported device {cur.device}")
-    out = torch.empty((b, 3), dtype=torch.int32, device=cur.device)
-    if b == 0:
-        return out
-    fn = _launcher()
-    stream = torch.cuda.current_stream(cur.device).cuda_stream
-    with torch.cuda.device(cur.device):
-        rc = fn(cur.data_ptr(), patches.data_ptr(), out.data_ptr(), b,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"dense_me_argmin launch failed: CUDA error {rc}")
-    launches += 1
-    return out
+    return _launch(cur, (16 * b, 16), patches, (32 * b, 32), None, 1, b)
+
+
+def dense_me_sweep(orig: torch.Tensor, ref: torch.Tensor,
+                   seeds: torch.Tensor, w: int, h: int, wb: int,
+                   hb: int) -> torch.Tensor:
+    """Twin of enc_core dense_search_rows: dense_me_argmin over every
+    16x16 block of the wb x hb grid, read straight from the planes.
+
+    orig, ref: (h, w) int16 or int32 sample planes of at most 12 bits;
+    seeds: (hb, wb, 2) int32 [sx, sy] full-pel seeds. Block (by, bx) is
+    the source at (16 by, 16 bx) and the window at (16 by + sy - 8,
+    16 bx + sx - 8), both with every coordinate clamped into the planes
+    (the edge replication of dense_inputs). Returns (hb*wb, 3) int32
+    [ox, oy, sad]. CPU tensors take the plain version; CUDA tensors launch
+    the kernel, and a failed build or launch raises."""
+    _check_sweep(orig, ref, seeds, w, h, wb, hb)
+    if orig.device.type == "cpu":
+        return dense_me_argmin_ref(*dense_inputs(orig, ref, seeds, w, h, wb,
+                                                 hb))
+    return _launch(orig, (h, w), ref, (h, w), seeds, wb, hb * wb)

@@ -20,6 +20,11 @@ from turingcodec_tpu_torch.ops import kernel_build
 
 # kernel launches since import (or since a caller reset it to 0)
 launches = 0
+# what one launch takes (csrc kMaxGroups, kMaxPlanes): up to 4 (list,
+# component) groups and 64 reference planes in all (2 lists x 2 chroma
+# components x 16, the most an HEVC list holds)
+MAX_GROUPS = 4
+MAX_PLANES = 64
 
 _LAUNCH = None
 
@@ -30,32 +35,44 @@ def _filter_on(taps: int, device) -> torch.Tensor:
                               device)
 
 
-def _check(refs, per_block, bs, taps) -> int:
+def _check(planes, per_block, bs, taps):
+    """planes as nested lists [list][component][reference], and
+    (L, C, H, W, B); raises on anything the kernel does not take."""
     if (bs, taps) not in ((4, 8), (2, 4)):
         raise ValueError(f"(bs, taps) = {(bs, taps)} unsupported")
-    if refs.dtype != torch.int16 or refs.dim() != 3:
-        raise TypeError(f"refs must be (R, H, W) int16, got "
-                        f"{refs.dtype} {tuple(refs.shape)}")
-    b = per_block[0].shape[0]
+    lists = [[list(c) for c in lst] for lst in planes]
+    n_l = len(lists)
+    n_c = len(lists[0]) if lists else 0
+    groups = [c for lst in lists for c in lst]
+    if (not n_c or any(len(lst) != n_c for lst in lists)
+            or not all(groups)):
+        raise ValueError("planes must be L >= 1 lists of C >= 1 components "
+                         "of R >= 1 reference planes each")
+    if n_l * n_c > MAX_GROUPS or sum(map(len, groups)) > MAX_PLANES:
+        raise ValueError(f"at most {MAX_GROUPS} (list, component) groups "
+                         f"and {MAX_PLANES} planes in one call")
+    first = groups[0][0]
+    for p in (p for c in groups for p in c):
+        if p.dtype != torch.int16 or p.dim() != 2 or p.shape != first.shape:
+            raise TypeError(f"planes must be (H, W) int16 of one size, got "
+                            f"{p.dtype} {tuple(p.shape)}")
+        if p.device != first.device or not p.is_contiguous():
+            raise ValueError("planes must be contiguous, on one device")
+    b = per_block[0].shape[-1]
     for a in per_block:
-        if a.device != refs.device:
-            raise ValueError(f"refs on {refs.device}, a block array on "
+        if a.device != first.device:
+            raise ValueError(f"planes on {first.device}, a block array on "
                              f"{a.device}")
-        if a.dtype != torch.int32 or a.shape != (b,):
-            raise TypeError(f"block arrays must be (B,) int32, got "
+        if a.dtype != torch.int32 or a.shape != (n_l, b):
+            raise TypeError(f"block arrays must be ({n_l}, B) int32, got "
                             f"{a.dtype} {tuple(a.shape)}")
-    if not all(a.is_contiguous() for a in (refs, *per_block)):
-        raise ValueError("contiguous inputs required")
-    return b
+        if not a.is_contiguous():
+            raise ValueError("contiguous block arrays required")
+    return lists, (n_l, n_c, *first.shape, b)
 
 
-def mc_block_grid_ref(refs: torch.Tensor, ref_sel: torch.Tensor,
-                      xi: torch.Tensor, yi: torch.Tensor, xf: torch.Tensor,
-                      yf: torch.Tensor, bs: int, taps: int,
-                      bit_depth: int = 8) -> torch.Tensor:
-    """Plain torch version: clamped window gather, then the separable
-    filter with the four phase cases, in int32."""
-    _check(refs, (ref_sel, xi, yi, xf, yf), bs, taps)
+def _mc_one(refs, ref_sel, xi, yi, xf, yf, bs, taps, bit_depth):
+    """The plain version for one (R, H, W) stack of reference planes."""
     dev = refs.device
     shift1 = bit_depth - 8
     shift3 = 14 - bit_depth
@@ -91,48 +108,71 @@ def mc_block_grid_ref(refs: torch.Tensor, ref_sel: torch.Tensor,
                                    torch.where(zx, v_only, out2d)))
 
 
+def mc_block_grid_ref(planes, ref_sel: torch.Tensor, xi: torch.Tensor,
+                      yi: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
+                      bs: int, taps: int, bit_depth: int = 8) -> torch.Tensor:
+    """Plain torch version: per list and component, the clamped window
+    gather from the stacked planes, then the separable filter with the four
+    phase cases, in int32."""
+    lists, _ = _check(planes, (ref_sel, xi, yi, xf, yf), bs, taps)
+    return torch.stack([torch.stack([
+        _mc_one(torch.stack(c), ref_sel[l], xi[l], yi[l], xf[l], yf[l], bs,
+                taps, bit_depth) for c in lst])
+        for l, lst in enumerate(lists)])
+
+
 def _launcher():
     global _LAUNCH
     if _LAUNCH is None:
         fn = kernel_build.load("mc_block_grid").mc_block_grid_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p] * 2)
         _LAUNCH = fn
     return _LAUNCH
 
 
-def mc_block_grid(refs: torch.Tensor, ref_sel: torch.Tensor,
-                  xi: torch.Tensor, yi: torch.Tensor, xf: torch.Tensor,
-                  yf: torch.Tensor, bs: int, taps: int,
-                  bit_depth: int = 8) -> torch.Tensor:
-    """Per-block single-phase MC over stacked reference planes.
+def mc_block_grid(planes, ref_sel: torch.Tensor, xi: torch.Tensor,
+                  yi: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
+                  bs: int, taps: int, bit_depth: int = 8) -> torch.Tensor:
+    """Per-block single-phase MC of L reference lists and C components.
 
-    refs: (R, H, W) int16; per-block (B,) int32 arrays: ref_sel index into
-    R, xi/yi the integer top-left sample position (mv integer part applied;
-    the gather clamps, which is the spec's edge extension), xf/yf the
-    fractional phase. (bs, taps) is (4, 8) for luma or (2, 4) for chroma.
-    Returns (B, bs, bs) int32 14-bit intermediate predictions, bit-exact
-    with decode.inter_pred.interp_luma/interp_chroma per block. CPU tensors
-    take the plain version; CUDA tensors launch the kernel, and a failed
-    build or launch raises."""
+    planes: L lists, each of C components (luma alone, or Cb and Cr), each
+    a sequence of the list's R (H, W) int16 reference planes (an (R, H, W)
+    tensor is such a sequence), all of one size; L * C <= MAX_GROUPS and
+    MAX_PLANES planes in all. Per-block (L, B) int32 arrays, one row per
+    list: ref_sel index into R, xi/yi the integer top-left sample position
+    (mv integer part applied; the reads clamp, which is the spec's edge
+    extension), xf/yf the fractional phase. (bs, taps) is (4, 8) for luma
+    or (2, 4) for chroma. Returns (L, C, B, bs, bs) int32 14-bit
+    intermediate predictions, bit-exact with decode.inter_pred.interp_luma/
+    interp_chroma per block. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (one launch for every list and component),
+    and a failed build or launch raises."""
     global launches
-    b = _check(refs, (ref_sel, xi, yi, xf, yf), bs, taps)
-    if refs.device.type == "cpu":
-        return mc_block_grid_ref(refs, ref_sel, xi, yi, xf, yf, bs, taps,
+    lists, (n_l, n_c, hh, ww, b) = _check(
+        planes, (ref_sel, xi, yi, xf, yf), bs, taps)
+    dev = lists[0][0][0].device
+    if dev.type == "cpu":
+        return mc_block_grid_ref(lists, ref_sel, xi, yi, xf, yf, bs, taps,
                                  bit_depth)
-    if refs.device.type != "cuda":
-        raise ValueError(f"unsupported device {refs.device}")
-    out = torch.empty((b, bs, bs), dtype=torch.int32, device=refs.device)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty((n_l, n_c, b, bs, bs), dtype=torch.int32, device=dev)
     if b == 0:
         return out
-    r, hh, ww = refs.shape
-    filt = _filter_on(taps, refs.device)
+    filt = _filter_on(taps, dev)
+    # the planes' addresses go to the kernel by value; `lists` keeps the
+    # tensors alive until the launch is enqueued, the stream orders the rest
+    groups = [c for lst in lists for c in lst]
+    ptrs = [p.data_ptr() for c in groups for p in c]
+    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    counts = (ctypes.c_int * len(groups))(*map(len, groups))
     fn = _launcher()
-    stream = torch.cuda.current_stream(refs.device).cuda_stream
-    with torch.cuda.device(refs.device):
-        rc = fn(refs.data_ptr(), r, hh, ww, ref_sel.data_ptr(),
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = fn(table, counts, n_l, n_c, hh, ww, ref_sel.data_ptr(),
                 xi.data_ptr(), yi.data_ptr(), xf.data_ptr(), yf.data_ptr(),
                 filt.data_ptr(), b, bs, bit_depth, out.data_ptr(), stream)
     if rc != 0:

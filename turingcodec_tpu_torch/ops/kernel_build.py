@@ -23,9 +23,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LIBS = {}
+# name -> ptxas's report of the last build (registers, shared memory,
+# spills per kernel)
+PTXAS = {}
 _TABLES = {}  # (id(array), device) -> (array, int32 tensor)
 
 
@@ -55,6 +58,9 @@ def build(name: str, force: bool = False) -> str:
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{r.stdout}{r.stderr}")
+    PTXAS[name] = [ln.strip() for ln in r.stderr.splitlines()
+                   if "spill" in ln or ("ptxas info" in ln and (
+                       "Compiling" in ln or "Used" in ln))]
     os.replace(tmp, so)
     return so
 

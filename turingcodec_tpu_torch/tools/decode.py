@@ -23,11 +23,12 @@ def main(argv=None):
                     help="verify output YUV md5 against this hex digest")
     ap.add_argument("--no-progress", action="store_true")
     ap.add_argument("--device", choices=["none", "cpu", "cuda"],
-                    default="none",
-                    help="where the decoder's device pipeline runs: none = "
-                         "host path, cuda = on the GPU with the CUDA "
-                         "kernels (raises without a GPU), cpu = the same "
-                         "pipeline through the kernels' plain torch versions")
+                    default="cuda",
+                    help="where the decoder's device pipeline runs: cuda (the "
+                         "default) = on the GPU with the CUDA kernels "
+                         "(raises without a GPU), none = host path, cpu = "
+                         "the same pipeline through the kernels' plain "
+                         "torch versions")
     args = ap.parse_args(argv)
 
     from turingcodec_tpu_torch.decode.decoder import decode_to_yuv

@@ -73,11 +73,12 @@ def main(argv=None):
                     help="emit buffering_period + pic_timing CPB/DPB "
                          "delay SEIs (needs --bitrate)")
     ap.add_argument("--device", choices=["none", "cpu", "cuda"],
-                    default="none",
-                    help="where the encoder analysis stage runs: none = "
-                         "host path, cuda = on the GPU with the CUDA "
-                         "kernels (raises without a GPU), cpu = the same "
-                         "stage through the kernels' plain torch versions")
+                    default="cuda",
+                    help="where the encoder analysis stage runs: cuda (the "
+                         "default) = on the GPU with the CUDA kernels "
+                         "(raises without a GPU), none = host path, cpu = "
+                         "the same stage through the kernels' plain "
+                         "torch versions")
     args = ap.parse_args(argv)
 
     import numpy as np
