@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch / H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent-csrc DIR]
+    python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain torch version on the card (the dense-ME
@@ -19,9 +19,8 @@ own calls), vfy_sweep and static_test (all full-pel) md5-exact through
 Decoder(device="cuda"), and the 1080p encode decoded on the card equal to
 the host decode, every picture through the pipeline, at most 3 MC launches
 per inter picture. Last, each kernel's device time per launch at the main
-path's shapes (torch.profiler), and with --parent-csrc, the dense-ME and
-MC kernels of an older commit (their .cu files in DIR) timed against this
-tree's in turns. Any failed check raises and the exit code is non-zero.
+path's shapes (torch.profiler). Any failed check raises and the exit code
+is non-zero.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the kernels' JSON record, and
@@ -142,9 +141,8 @@ def bound(nbytes: float, ops: float):
 def device_us(fn, name: str, n: int = 50):
     """Device time per call of fn(), in us, summed over the CUDA kernels
     whose name holds `name`: torch.profiler's kernel durations over n calls
-    after a warm-up call. Where the profiler reports no such kernel, CUDA
-    events around the n back-to-back calls (launch gaps then count).
-    Returns (us, launches per call, source)."""
+    after a warm-up call. Raises where the profiler reports no such kernel.
+    Returns (us, launches per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -161,16 +159,8 @@ def device_us(fn, name: str, n: int = 50):
         if name in e.key and t > 0:
             total += t
             count += e.count
-    if count:
-        return total / n, count / n, "profiler"
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) * 1e3 / n, None, "CUDA events"
+    check(count, f"the profiler saw no kernel named like {name!r}")
+    return total / n, count / n
 
 
 def dense_bound(b: int, plane_bytes: int):
@@ -270,7 +260,7 @@ def check_kernel(device, orig, ref, reps):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "timed": {f"dense_me_sweep at B={b}":
                       lambda: dense_me_sweep(*args)},
-            "kname": "dense_me"}, args
+            "kname": "dense_me"}
 
 
 def check_stages(device, orig, ref, zscan, reps):
@@ -595,144 +585,59 @@ def device_times(rows):
     their end-to-end timings."""
     for r in rows:
         for i, (what, fn) in enumerate(r.pop("timed").items()):
-            us, per, src = device_us(fn, r["kname"])
+            us, per = device_us(fn, r["kname"])
             if i == 0:
                 r["device_us"] = us
                 share = f", {r['bound_ms'] * 1e3 / us:.1%} of its bound"
             else:
                 share = ""
-            log(f"{what}: {us:.2f} us device time per call ({src}, {per} "
+            log(f"{what}: {us:.2f} us device time per call (profiler, {per} "
                 f"launches per call){share}")
 
 
 def mc_bound(args):
-    """Bound of one mc_block_grid call, from this call's data: per list and
-    component, each reference plane the blocks select read once, the motion
-    in, the predictions out; one INT32 multiply-add per filter tap the
-    blocks' phases need (none for full-pel)."""
+    """Bound of one mc_block_grid call, from this call's data: each distinct
+    reference plane the blocks select read once (by address, so a picture in
+    both lists, as in low-delay B, counts once), the motion in, every list's
+    and component's predictions out; one INT32 multiply-add per filter tap
+    the blocks' phases need (none for full-pel)."""
     import torch
     planes, sel, _xi, _yi, xf, yf, bs, taps, _bd = args
     span = bs + taps - 1
+    b = sel.shape[1]
     nbytes = 5 * 4 * sel.numel()
     ops = 0
+    read = {}
     for lx, lst in enumerate(planes):
-        c, r = len(lst), len(lst[0])
-        hh, ww = lst[0][0].shape
-        used = torch.unique(sel[lx].clamp(0, r - 1)).numel()
+        used = torch.unique(sel[lx].clamp(0, len(lst[0]) - 1)).tolist()
+        for comp in lst:
+            for r in used:
+                read[comp[r].data_ptr()] = comp[r].nbytes
         fx, fy = xf[lx] != 0, yf[lx] != 0
         one_d = int((fx ^ fy).sum())
         two_d = int((fx & fy).sum())
-        b = sel.shape[1]
-        nbytes += c * (used * hh * ww * 2 + b * bs * bs * 4)
-        ops += c * (one_d * bs * bs * taps
-                    + two_d * (span * bs * taps + bs * bs * taps))
-    return bound(nbytes, ops)
+        nbytes += len(lst) * b * bs * bs * 4
+        ops += len(lst) * (one_d * bs * bs * taps
+                           + two_d * (span * bs * taps + bs * bs * taps))
+    return bound(nbytes + sum(read.values()), ops)
+
+
+def idct_ops(n: int) -> int:
+    """INT32 operations of one n-point inverse DCT by the even-odd (partial
+    butterfly) decomposition, which gives the same integers as the matrix
+    product: the odd half's (n/2)^2 multiply-adds, the even half's
+    n/2-point transform and n adds to join them; 4 multiply-adds at n = 2."""
+    return 4 if n == 2 else (n // 2) ** 2 + idct_ops(n // 2) + n
 
 
 def dequant_bound(args):
     """Bound of one dequant_idct call: levels and QPs in, residuals out; one
     INT32 multiply per coefficient to dequantise and, for the inverse DCT,
-    N multiply-adds per coefficient in each of the two stages."""
+    an n-point partial butterfly per row and per column."""
     levels, _qp, _bd, log2, mode = args
     b, n = levels.shape[0], 1 << log2
-    per = 1 + (2 * n if mode == 0 else 1)
-    return bound(2 * b * n * n * 4 + b * 4, b * n * n * per)
-
-
-def compare_with_parent(parent_csrc, dense_args, captured, device):
-    """Device time per launch of the parent commit's dense-ME and MC kernels
-    (their sources in parent_csrc, built into a temporary directory)
-    against this tree's, at the main path's shapes, in turns parent,
-    change, change, parent; the outputs must be equal."""
-    import ctypes
-    import tempfile
-
-    import torch
-
-    from turingcodec_tpu_torch.ops import kernel_build
-    from turingcodec_tpu_torch.ops.dense_me import (dense_inputs,
-                                                    dense_me_argmin,
-                                                    dense_me_sweep)
-    from turingcodec_tpu_torch.ops.inter import _filter_on, mc_block_grid
-    vp, vi = ctypes.c_void_p, ctypes.c_int
-    with tempfile.TemporaryDirectory(prefix="parent_kernels_") as tmp:
-        fns = {}
-        for name, sym, argtypes in (
-                ("dense_me", "dense_me_argmin_launch", [vp] * 3 + [vi, vp]),
-                ("mc_block_grid", "mc_block_grid_launch",
-                 [vp] + [vi] * 3 + [vp] * 6 + [vi] * 3 + [vp] * 2)):
-            so = os.path.join(tmp, f"lib{name}.so")
-            r = subprocess.run([kernel_build._nvcc()] + kernel_build.NVCC_FLAGS
-                               + ["-o", so,
-                                  os.path.join(parent_csrc, f"{name}.cu")],
-                               capture_output=True, text=True)
-            check(r.returncode == 0, f"parent {name}.cu: {r.stderr[-2000:]}")
-            fn = getattr(ctypes.CDLL(so), sym)
-            fn.restype, fn.argtypes = vi, argtypes
-            fns[name] = fn
-
-        def stream():
-            return torch.cuda.current_stream(device).cuda_stream
-
-        def turns(what, old, new, kname):
-            t = [device_us(f, kname)[0] for f in (old, new, new, old)]
-            log(f"{what}: device us per call, parent / change / change / "
-                f"parent: {t[0]:.2f} / {t[1]:.2f} / {t[2]:.2f} / {t[3]:.2f}")
-            return t
-
-        res = {}
-        cb, patch = dense_inputs(*dense_args)
-        b = cb.shape[0]
-        out = torch.empty((b, 3), dtype=torch.int32, device=device)
-
-        def old_dense():
-            check(fns["dense_me"](cb.data_ptr(), patch.data_ptr(),
-                                  out.data_ptr(), b, stream()) == 0,
-                  "parent dense_me launch")
-
-        old_dense()
-        check(torch.equal(out, dense_me_sweep(*dense_args)),
-              "parent and change dense-ME differ")
-        res["dense_me (parent on windows, change fused on planes)"] = turns(
-            f"dense-ME at B={b}, parent on materialised windows vs the "
-            f"fused sweep", old_dense, lambda: dense_me_sweep(*dense_args),
-            "dense_me")
-        res["dense_me (both on windows)"] = turns(
-            f"dense-ME at B={b}, both on materialised windows", old_dense,
-            lambda: dense_me_argmin(cb, patch), "dense_me")
-
-        for bs in (4, 2):
-            a = max((a for a in captured["mc"] if a[6] == bs),
-                    key=lambda a: a[1].numel())
-            planes, sel, xi, yi, xf, yf, _bs, taps, bd = a
-            # the parent takes one (R, H, W) stack and one launch per list
-            # and component
-            groups = [(lx, torch.stack(list(c))) for lx, lst in
-                      enumerate(planes) for c in lst]
-            filt = _filter_on(taps, device)
-            b = sel.shape[1]
-            outs = [torch.empty((b, bs, bs), dtype=torch.int32,
-                                device=device) for _ in groups]
-
-            def old_mc():
-                for (lx, st), o in zip(groups, outs):
-                    check(fns["mc_block_grid"](
-                        st.data_ptr(), *st.shape, sel[lx].data_ptr(),
-                        xi[lx].data_ptr(), yi[lx].data_ptr(),
-                        xf[lx].data_ptr(), yf[lx].data_ptr(),
-                        filt.data_ptr(), b, bs, bd, o.data_ptr(),
-                        stream()) == 0, "parent mc launch")
-
-            old_mc()
-            check(torch.equal(torch.stack(outs),
-                              mc_block_grid(*a).reshape(-1, b, bs, bs)),
-                  "parent and change MC differ")
-            what = "luma" if bs == 4 else "Cb+Cr"
-            res[f"mc_block_grid {what}"] = turns(
-                f"mc_block_grid {what} of {len(planes)} list(s) at B={b} "
-                f"(parent {len(groups)} launches, change 1)", old_mc,
-                lambda: mc_block_grid(*a), "mc_block_grid")
-    return res
+    ops = b * n * n + (b * 2 * n * idct_ops(n) if mode == 0 else b * n * n)
+    return bound(2 * b * n * n * 4 + b * 4, ops)
 
 
 def reset_launches():
@@ -810,14 +715,7 @@ def decode_main_path(device, frames, bitstream):
     return launches
 
 
-def main(argv=None) -> int:
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent-csrc", default=None,
-                    help="directory with an older commit's dense_me.cu and "
-                         "mc_block_grid.cu: time them against this tree's "
-                         "kernels at the main path's shapes")
-    args = ap.parse_args(argv)
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -850,7 +748,7 @@ def main(argv=None) -> int:
     check((w, h) == (1920, 1080), f"upscaled input is {w}x{h}")
 
     # 3. dense-ME kernel against its plain versions on the card
-    kern, dense_args = check_kernel(device, orig, ref, reps=20)
+    kern = check_kernel(device, orig, ref, reps=20)
 
     # 4. stages against their host twins
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
@@ -885,8 +783,6 @@ def main(argv=None) -> int:
                  launches=dec_launches["dequant_idct"],
                  **dec_kern["dequant_idct"])]
     device_times(rows)
-    if args.parent_csrc:
-        compare_with_parent(args.parent_csrc, dense_args, captured, device)
 
     log(card)
     # no single PyTorch call computes any of the three functions (a

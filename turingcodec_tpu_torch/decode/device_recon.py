@@ -109,11 +109,15 @@ def reconstruct_inter_device(plan, geom, ref_lists, recon, device):
         return
     by4, bx4 = blocks
     h4, w4 = geom.h4, geom.w4
-    refs = []
+    refs, uploaded = [], {}
     for lx in (0, 1):
         lst = ref_lists[lx] if lx < len(ref_lists) else []
-        refs.append([tuple(torch.from_numpy(np.ascontiguousarray(
-            p.planes[c])).to(device) for c in range(3)) for p in lst])
+        for p in lst:   # a picture in both lists goes up once
+            if id(p.planes[0]) not in uploaded:
+                uploaded[id(p.planes[0])] = tuple(torch.from_numpy(
+                    np.ascontiguousarray(p.planes[c])).to(device)
+                    for c in range(3))
+        refs.append([uploaded[id(p.planes[0])] for p in lst])
     preds = _predict(plan, by4, bx4, refs, device)
     # scatter the (B, bs, bs) blocks into the planes (blocks are disjoint)
     for plane, pred, bs in zip(recon, preds, (4, 2, 2)):
