@@ -13,14 +13,19 @@ operating point with the analysis stage on the card and on the host, check
 byte-identical bitstreams, and decode the result hash-clean. Then the
 decoder's device pipeline: every staged decode stage on the card against
 its host twin (on the 1080p encode and on vfy_sweep), the two decoder
-kernels against their plain versions (synthetic inputs of two reference
-lists with every phase, full-pel, 8 and 10 bits, and the 1080p picture's
-own calls), vfy_sweep and static_test (all full-pel) md5-exact through
-Decoder(device="cuda"), and the 1080p encode decoded on the card equal to
-the host decode, every picture through the pipeline, at most 3 MC launches
-per inter picture. Last, each kernel's device time per launch at the main
-path's shapes (torch.profiler). Any failed check raises and the exit code
-is non-zero.
+kernels against their plain versions (MC: synthetic inputs of two
+reference lists with every phase, full-pel, 8 and 10 bits, and the 1080p
+picture's own calls; the residual kernel: synthetic 1080p tables of every
+size and mode with TUs on every edge, extreme levels, every QP at 8, 10
+and 12 bits, and every inter picture's own call), vfy_sweep and
+static_test (all full-pel) md5-exact through Decoder(device="cuda"), and
+the 1080p encode decoded on the card equal to the host decode, every
+picture through the pipeline, at most 3 MC launches per inter picture and
+one residual launch per picture with coded inter TUs. After the decode
+rates, one more decode times the residual stage (host clock, synchronised
+around it). Last, each kernel's device time per launch at the main path's
+shapes and the residual stage's device time per inter picture
+(torch.profiler). Any failed check raises and the exit code is non-zero.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the kernels' JSON record, and
@@ -407,8 +412,10 @@ def decode_planes(bitstream, device):
 def check_decode_stages(device, streams):
     """The staged decode stages on the card against their host twins, per
     picture of each stream, by hooking the host decoder's calls (as
-    tests/test_device_deblock.py does). Returns the kernels' calls of the
-    picture with the most inter blocks: {"mc": [args], "dq": [args]}."""
+    tests/test_device_deblock.py does). Returns the MC calls of the picture
+    with the most inter blocks, and every picture's residual call with its
+    stream's name: {"mc": [args], "dq": [(stream, args)]}; the residual
+    call's planes are copies taken before it ran."""
     import numpy as np
 
     import turingcodec_tpu_torch.decode.device_recon as dr
@@ -418,9 +425,11 @@ def check_decode_stages(device, streams):
     from turingcodec_tpu_torch.ops.sao import sao_picture_device
 
     host = (rv.reconstruct_inter_batch, prm.deblock_picture,
-            prm.sao_picture, dr.mc_block_grid, dr.dequant_inverse_transform)
+            prm.sao_picture, dr.mc_block_grid, dr.dequant_idct_add)
     counts = {"recon": 0, "deblock": 0, "sao": 0}
     pics = []
+    residual_calls = []
+    stream = [None]
 
     def same(what, a, b):
         check(all(np.array_equal(x, y) for x, y in zip(a, b)),
@@ -430,7 +439,7 @@ def check_decode_stages(device, streams):
     def recon(plan, geom, ref_lists, planes):
         dev = [p.copy() for p in planes]
         host[0](plan, geom, ref_lists, planes)
-        pics.append({"mc": [], "dq": []})
+        pics.append({"mc": []})
         dr.reconstruct_inter_device(plan, geom, ref_lists, dev, device)
         same("recon_inter_device", planes, dev)
 
@@ -450,41 +459,84 @@ def check_decode_stages(device, streams):
         pics[-1]["mc"].append(a)
         return host[3](*a)
 
-    def dq(*a):
-        pics[-1]["dq"].append(a)
-        return host[4](*a)
+    def dq(coeff, planes, table, bds):
+        residual_calls.append((stream[0], (
+            [c.clone() for c in coeff], [p.clone() for p in planes],
+            table.copy(), tuple(bds))))
+        return host[4](coeff, planes, table, bds)
 
     (rv.reconstruct_inter_batch, prm.deblock_picture, prm.sao_picture,
-     dr.mc_block_grid, dr.dequant_inverse_transform) = (
-        recon, deblock, sao, mc, dq)
+     dr.mc_block_grid, dr.dequant_idct_add) = (recon, deblock, sao, mc, dq)
     try:
         for name, data in streams:
+            stream[0] = name
             frames, dec, _ = decode_planes(data, None)
             check(dec.hash_failures == 0, f"{name}: hash failures")
             log(f"staged decode stages on {name} ({len(frames)} frames): "
                 f"equal to their host twins")
     finally:
         (rv.reconstruct_inter_batch, prm.deblock_picture, prm.sao_picture,
-         dr.mc_block_grid, dr.dequant_inverse_transform) = host
+         dr.mc_block_grid, dr.dequant_idct_add) = host
     log(f"pictures compared: reconstruct_inter_device {counts['recon']}, "
         f"deblock_picture_device {counts['deblock']}, sao_picture_device "
         f"{counts['sao']}")
     check(min(counts.values()) > 0, f"a stage was never compared: {counts}")
-    return max(pics, key=lambda p: sum(a[1].numel() for a in p["mc"]))
+    return {"mc": max(pics, key=lambda p: sum(a[1].numel()
+                                               for a in p["mc"]))["mc"],
+            "dq": residual_calls}
+
+
+def residual_synthetic(rng, bd, h, w, device, extreme=False):
+    """Arguments of one dequant_idct_add call on an (h, w) 4:2:0 picture:
+    random level and predicted planes, and a table of disjoint TUs of every
+    size and mode on every component with QPs over 0..51 + 6 * (bd - 8),
+    tiling 32 x 32 cells (4 x 4 TUs where a cell crosses the right or
+    bottom edge, so TUs touch both). extreme: levels of -32768, -32767,
+    32767 and 0 only, and QPs at the two ends of their range."""
+    import numpy as np
+    import torch
+
+    from turingcodec_tpu_torch.ops.transform import tu_kind
+    shapes = [(h, w), (h // 2, w // 2), (h // 2, w // 2)]
+    qp_max = 51 + 6 * (bd - 8)
+    coeff, planes, rows = [], [], []
+    for c, (hh, ww) in enumerate(shapes):
+        if extreme:
+            lv = rng.choice([-32768, -32767, 32767, 0], (hh, ww))
+        else:
+            lv = rng.integers(-300, 301, (hh, ww))
+            big = rng.random((hh, ww)) < 0.02
+            lv[big] = rng.integers(-32768, 32768, int(big.sum()))
+        coeff.append(torch.from_numpy(lv.astype(np.int16)).to(device))
+        planes.append(torch.from_numpy(rng.integers(
+            0, 1 << bd, (hh, ww)).astype(np.int16)).to(device))
+        for y0 in range(0, hh, 32):
+            for x0 in range(0, ww, 32):
+                inside = y0 + 32 <= hh and x0 + 32 <= ww
+                lg = int(rng.integers(2, 6)) if inside else 2
+                n = 1 << lg
+                for y in range(y0, min(y0 + 32, hh - n + 1), n):
+                    for x in range(x0, min(x0 + 32, ww - n + 1), n):
+                        qp = (int(rng.choice([0, qp_max])) if extreme
+                              else int(rng.integers(0, qp_max + 1)))
+                        rows.append((x, y, qp, tu_kind(
+                            c, lg, int(rng.integers(0, 3)))))
+    return coeff, planes, np.array(rows, np.int32), (bd, bd, bd)
 
 
 def check_decode_kernels(device, captured, reps):
     """mc_block_grid and dequant_idct against their plain versions on the
     card: synthetic inputs that reach every phase, the clamp and the
-    saturation, then the captured calls of a 1080p P picture; times at
-    those shapes."""
+    saturation, then the captured calls (MC of a 1080p P picture, the
+    residuals of every inter picture of the 1080p encode and vfy_sweep);
+    times at the 1080p P picture's shapes."""
     import numpy as np
     import torch
 
     from turingcodec_tpu_torch.ops.inter import (mc_block_grid,
                                                  mc_block_grid_ref)
-    from turingcodec_tpu_torch.ops.transform import (
-        dequant_inverse_transform, dequant_inverse_transform_ref)
+    from turingcodec_tpu_torch.ops.transform import (dequant_idct_add,
+                                                     dequant_idct_add_ref)
     rng = np.random.default_rng(11)
 
     def up(a, dtype=np.int32):
@@ -521,60 +573,61 @@ def check_decode_kernels(device, captured, reps):
     log(f"kernel vs plain, mc_block_grid on the 1080p P picture's "
         f"{len(captured['mc'])} calls: equal")
 
+    def residual(name, args):
+        """The kernel and its plain version on copies of the same planes;
+        returns max |diff| and the samples the kernel changed."""
+        coeff, planes, table, bds = args
+        got = dequant_idct_add(coeff, [p.clone() for p in planes], table, bds)
+        want = dequant_idct_add_ref(coeff, [p.clone() for p in planes],
+                                    table, bds)
+        err = max(equal_on_card(name, g, w_) for g, w_ in zip(got, want))
+        return err, sum(int((g != p).sum()) for g, p in zip(got, planes))
+
     dq_errs = []
-    for bd in (8, 10):
-        for log2 in (2, 3, 4, 5):
-            n, b = 1 << log2, 640
-            lv = rng.integers(-32768, 32769, (b, n, n))
-            lv[::3] = rng.integers(-64, 65, (len(lv[::3]), n, n))
-            lv[1, 0, :2] = (-32768, 32768)
-            qp = np.arange(b) % 64
-            for mode in (0, 1):
-                dq_errs.append(equal_on_card(
-                    f"dequant_idct N={n} {bd}-bit mode {mode}",
-                    dequant_inverse_transform(up(lv), up(qp), bd, log2, mode),
-                    dequant_inverse_transform_ref(up(lv), up(qp), bd, log2,
-                                                  mode)))
-    log("kernel vs plain, dequant_idct N=4..32, 8/10-bit, QP 0..63, "
-        "levels to +-32768, modes 0 and 1: equal")
-    for a in captured["dq"]:
-        dq_errs.append(equal_on_card(
-            "dequant_idct 1080p", dequant_inverse_transform(*a),
-            dequant_inverse_transform_ref(*a)))
-    log(f"kernel vs plain, dequant_idct on the 1080p P picture's "
-        f"{len(captured['dq'])} buckets: equal")
+    for bd in (8, 10, 12):
+        for extreme in (False, True):
+            args = residual_synthetic(rng, bd, 1080, 1920, device, extreme)
+            err, changed = residual(f"dequant_idct synthetic {bd}-bit", args)
+            dq_errs.append(err)
+            check(changed, "the synthetic residuals changed nothing")
+            log(f"kernel vs plain, dequant_idct {bd}-bit 1920x1080, "
+                f"{len(args[2])} TUs of sizes 4..32 and modes 0..2 on 3 "
+                f"components, TUs on every edge, "
+                f"{'levels at -32768/-32767/32767/0, QPs at both ends' if extreme else f'QP 0..{51 + 6 * (bd - 8)}'}"
+                f": equal ({changed} samples changed)")
+    per_stream = {}
+    for stream, args in captured["dq"]:
+        dq_errs.append(residual(f"dequant_idct {stream}", args)[0])
+        per_stream[stream] = per_stream.get(stream, 0) + 1
+    log(f"kernel vs plain, dequant_idct on every inter picture's call: "
+        f"{per_stream}: equal")
 
     out = {}
-    for name, calls, fn, ref, errs, size, bnd, kname in (
-            ("mc_block_grid", captured["mc"], mc_block_grid,
-             mc_block_grid_ref, mc_errs, lambda a: (a[6], a[1].numel()),
-             mc_bound, "mc_block_grid"),
-            ("dequant_idct", captured["dq"], dequant_inverse_transform,
-             dequant_inverse_transform_ref, dq_errs,
-             lambda a: a[0].numel(), dequant_bound, "dequant_idct")):
-        check(calls, f"no {name} call captured at 1080p")
-        big = max(calls, key=size)
+    p_calls = [a for st, a in captured["dq"] if st == "the 1080p encode"]
+    check(captured["mc"] and p_calls, "no 1080p call captured")
+    for name, big, fn, ref, errs, bnd in (
+            ("mc_block_grid", max(captured["mc"], key=lambda a: (
+                a[6], a[1].numel())), mc_block_grid, mc_block_grid_ref,
+             mc_errs, mc_bound),
+            ("dequant_idct", max(p_calls, key=lambda a: len(a[2])),
+             dequant_idct_add, dequant_idct_add_ref, dq_errs,
+             dequant_bound)):
         ms = timed_ms(lambda: fn(*big), device, reps)
         plain_ms = timed_ms(lambda: ref(*big), device, max(1, reps // 4))
-        pic_ms = timed_ms(lambda: [fn(*a) for a in calls], device, reps)
-        pic_plain = timed_ms(lambda: [ref(*a) for a in calls], device,
-                             max(1, reps // 4))
         bound_ms, bound_by = bnd(big)
-        shape = tuple(big[0].shape if name == "dequant_idct" else (
-            len(big[0]), len(big[0][0]), big[1].shape[1], big[6], big[6]))
-        log(f"{name} at its largest 1080p call {shape}: kernel {ms:.4f} ms, "
-            f"plain torch {plain_ms:.4f} ms; all {len(calls)} calls of the "
-            f"P picture: kernel {pic_ms:.4f} ms, plain {pic_plain:.4f} ms "
-            f"(median, CUDA events around the wrappers); bound of the "
-            f"largest call {bound_ms * 1e3:.2f} us ({bound_by})")
+        if name == "dequant_idct":
+            what = (f"{name} at the 1080p P picture's call ({len(big[2])} "
+                    f"TUs)")
+        else:
+            what = (f"{name} at its largest 1080p call "
+                    f"{(len(big[0]), len(big[0][0]), big[1].shape[1])}")
+        log(f"{what}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
+            f"(median, CUDA events around the wrapper); bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_by})")
         out[name] = {
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "kname": kname,
-            "timed": {
-                f"{name} at its largest 1080p call {shape}":
-                    lambda fn=fn, big=big: fn(*big),
-                f"{name}, all {len(calls)} calls of the 1080p picture":
-                    lambda fn=fn, calls=calls: [fn(*a) for a in calls]}}
+            "bound_ms": bound_ms, "bound_by": bound_by, "kname": name,
+            "timed": {what: lambda fn=fn, big=big: fn(*big)}}
     return out
 
 
@@ -631,13 +684,18 @@ def idct_ops(n: int) -> int:
 
 
 def dequant_bound(args):
-    """Bound of one dequant_idct call: levels and QPs in, residuals out; one
-    INT32 multiply per coefficient to dequantise and, for the inverse DCT,
-    an n-point partial butterfly per row and per column."""
-    levels, _qp, _bd, log2, mode = args
-    b, n = levels.shape[0], 1 << log2
-    ops = b * n * n + (b * 2 * n * idct_ops(n) if mode == 0 else b * n * n)
-    return bound(2 * b * n * n * 4 + b * 4, ops)
+    """Bound of one dequant_idct call, from its own table: per coded sample
+    2 bytes of level read, 2 of predicted sample read and 2 written, and
+    the table's 16 bytes per TU; one dequantizing INT32 multiply per sample
+    and, for each inverse-DCT TU (mode 0), an n-point partial butterfly per
+    row and per column."""
+    from turingcodec_tpu_torch.ops.transform import TU_KIND, tu_fields
+    _coeff, _planes, table, _bds = args
+    _comp, log2, mode = tu_fields(table[:, TU_KIND])
+    n = 1 << log2.astype(int)
+    samples = int((n * n).sum())
+    ops = samples + sum(2 * int(k) * idct_ops(int(k)) for k in n[mode == 0])
+    return bound(6 * samples + 16 * len(table), ops)
 
 
 def reset_launches():
@@ -656,8 +714,9 @@ def decode_main_path(device, frames, bitstream):
     """The decoder's device pipeline on the main path: vfy_sweep (B
     pictures, SAO) and static_test (every block full-pel) md5-exact through
     Decoder(device), then the 1080p encode decoded on the card (kernel
-    counts read around this run) equal to the host decode. Returns the
-    kernels' launches in the 1080p device decode."""
+    counts read around this run) equal to the host decode, and the decode
+    rates in turns. Returns the kernels' launches in the 1080p device
+    decode and the residual stage's timing decode (residual_stage)."""
     import hashlib
 
     import numpy as np
@@ -685,10 +744,18 @@ def decode_main_path(device, frames, bitstream):
 
     n = len(frames)
     dp.pictures = dp.envelope_host = 0
+    # the pictures with coded inter TUs: each takes one residual launch
+    tables, real_table = [], dp._residual_table
+    dp._residual_table = lambda plan: tables.append(
+        len(real_table(plan))) or real_table(plan)
     reset_launches()
-    got, dec, t_dev = decode_planes(bitstream, dev)
+    try:
+        got, dec, t_dev = decode_planes(bitstream, dev)
+    finally:
+        dp._residual_table = real_table
     launches = read_launches()
     pictures, envelope = dp.pictures, dp.envelope_host
+    coded = sum(1 for t in tables if t)
     want, dec_h, t_host = decode_planes(bitstream, None)
     check(len(got) == n and dec.hash_failures == 0
           and dec_h.hash_failures == 0, "1080p decode: frames or hashes")
@@ -700,19 +767,89 @@ def decode_main_path(device, frames, bitstream):
           f"on the host")
     # each inter picture takes one luma and one Cb+Cr launch over the lists
     # its blocks use (6 before: one per list and component)
+    # one residual launch per picture with coded inter TUs (9 per inter
+    # picture before: one per (component, size, mode) bucket)
     check(0 < launches["mc_block_grid"] <= 3 * (n - 1)
-          and launches["dequant_idct"] > 0 and launches["dense_me"] == 0,
-          f"launches {launches}")
+          and 0 < coded <= n - 1 and launches["dequant_idct"] == coded
+          and launches["dense_me"] == 0,
+          f"launches {launches}, {coded} pictures with coded inter TUs")
     t_dev2 = decode_planes(bitstream, dev)[2]
     t_host2 = decode_planes(bitstream, None)[2]
     h, w = frames[0][0].shape
     log(f"decode {n} frames {w}x{h} with device={dev}: equal to the host "
         f"decode, 0 hash failures, {pictures} pictures through the "
-        f"pipeline, 0 on the host; launches {launches}")
+        f"pipeline, 0 on the host; launches {launches}; {coded} pictures "
+        f"with coded inter TUs")
     log(f"decode fps, host clock, in turns card/host/card/host: "
         f"{n / t_dev:.4f} / {n / t_host:.4f} / {n / t_dev2:.4f} / "
         f"{n / t_host2:.4f}")
-    return launches
+    return launches, residual_stage(dev, bitstream)
+
+
+def residual_stage(dev, bitstream):
+    """One more card decode, after the timed ones so that it cannot touch
+    them, with a sync on each side of every `_residuals_device` call: the
+    residual stage's host-clock ms per picture. Returns each inter
+    picture's (plan, planes as MC left them) for residual_device_us."""
+    import torch
+
+    from turingcodec_tpu_torch.decode import device_pipeline as dp
+    real = dp._residuals_device
+    times, pics = [], []
+
+    def timed(plan, planes):
+        pics.append((plan, [p.clone() for p in planes]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(plan, planes)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    dp._residuals_device = timed
+    try:
+        decode_planes(bitstream, dev)
+    finally:
+        dp._residuals_device = real
+    log(f"residual stage, host clock with a sync on each side: "
+        f"{sum(times) / len(times) * 1e3:.4f} ms per picture (mean of "
+        f"{len(times)}; {', '.join(f'{t * 1e3:.3f}' for t in times)} ms)")
+    return [(plan, planes) for plan, planes in pics
+            if len(dp._residual_table(plan))]
+
+
+def residual_device_us(pics, n: int = 20):
+    """Device time of the residual stage per inter picture: every kernel
+    and every copy that `_residuals_device` enqueues, by torch.profiler,
+    over n passes of the captured pictures (the planes take the residual
+    again on each pass: the same work). Returns (kernel us, copy us,
+    kernel launches) per picture."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from turingcodec_tpu_torch.decode import device_pipeline as dp
+    for plan, planes in pics:
+        dp._residuals_device(plan, planes)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            for plan, planes in pics:
+                dp._residuals_device(plan, planes)
+        torch.cuda.synchronize()
+    kern = copy = count = 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t <= 0:
+            continue
+        if e.key.startswith(("Memcpy", "Memset")):
+            copy += t
+        else:
+            kern += t
+            count += e.count
+    per = n * len(pics)
+    return kern / per, copy / per, count / per
 
 
 def main() -> int:
@@ -767,8 +904,8 @@ def main() -> int:
     # 7. decoder kernels against their plain versions on the card
     dec_kern = check_decode_kernels(device, captured, reps=20)
 
-    # 8. main path: the decode on the card
-    dec_launches = decode_main_path(device, frames, bitstream)
+    # 8. main path: the decode on the card; then the residual stage timed
+    dec_launches, res_pics = decode_main_path(device, frames, bitstream)
 
     # 9. device time per launch of each kernel at the main path's shapes
     rows = [dict(name="dense_me_argmin", source="dense_me.cu",
@@ -783,6 +920,10 @@ def main() -> int:
                  launches=dec_launches["dequant_idct"],
                  **dec_kern["dequant_idct"])]
     device_times(rows)
+    kern_us, copy_us, per = residual_device_us(res_pics)
+    log(f"residual stage on the card per inter picture of the 1080p decode "
+        f"({len(res_pics)} pictures): {kern_us:.2f} us of kernels in {per} "
+        f"launches, {copy_us:.2f} us of copies (profiler)")
 
     log(card)
     # no single PyTorch call computes any of the three functions (a

@@ -6,8 +6,9 @@ arithmetic.
 Covers ops/inter.mc_block_grid, ops/quant.dequant_batch,
 ops/transform.inverse_transform_batch and dequant_inverse_transform (the
 CUDA kernels' wrappers take their plain versions for CPU tensors),
-device_recon._combine_uni_bi and device_pipeline._scatter_blocks /
-_block_grid_add."""
+device_recon._combine_uni_bi, device_pipeline._scatter_blocks and
+ops/transform._block_grid_add (the add and clip of the residual kernel's
+plain version)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -232,7 +233,7 @@ def test_block_grid_add_matches_jax(n):
     want = np.asarray(jpipe._block_grid_add(
         jnp.asarray(plane), jnp.asarray(xs), jnp.asarray(ys),
         jnp.asarray(res), n, 1023))
-    got = tpipe._block_grid_add(T(plane.copy()), T(xs), T(ys), T(res), n,
-                                1023)
+    got = ttransform._block_grid_add(T(plane.copy()), T(xs), T(ys), T(res),
+                                     n, 1023)
     assert got.dtype == torch.int16
     np.testing.assert_array_equal(got.numpy(), want)

@@ -203,8 +203,8 @@ def test_transform_skip_inter_residuals(monkeypatch):
     the port (--tskip tries it on 4x4 chroma TBs of 8x8 inter CUs) and
     hold the pipeline's decode against the JAX package's host decode."""
     from turingcodec_tpu.decode.decoder import decode_to_yuv
-    from turingcodec_tpu_torch.decode import device_recon
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
+    from turingcodec_tpu_torch.ops.transform import TU_KIND, tu_fields
     rng = np.random.RandomState(5)
     base = rng.randint(0, 256, (80, 80)).astype(np.int16)
     enc = Encoder(EncoderConfig(width=64, height=64, qp=27, rd_candidates=2,
@@ -216,17 +216,17 @@ def test_transform_skip_inter_residuals(monkeypatch):
         out += [nal for (_i, nal, _r) in enc.push_frame(f)]
     out += [nal for (_i, nal, _r) in enc.flush()]
     stream = b"".join(out)
-    buckets = []
-    real = device_recon._residual_groups
-    monkeypatch.setattr(dp, "_residual_groups",
-                        lambda plan: buckets.extend(real(plan)) or real(plan))
+    tables = []
+    real = dp._residual_table
+    monkeypatch.setattr(dp, "_residual_table",
+                        lambda plan: tables.append(real(plan)) or tables[-1])
     dec = Decoder(device="cpu")
     md5 = hashlib.md5()
     for f in dec.decode_stream(stream):
         for p in f.planes:
             md5.update(p.astype("uint8").tobytes())
     assert dec.hash_failures == 0
-    assert any(mode == 1 for (_c, _l, mode) in buckets)
+    assert any((tu_fields(t[:, TU_KIND])[2] == 1).any() for t in tables)
     assert md5.hexdigest() == decode_to_yuv(stream)[0]
 
 

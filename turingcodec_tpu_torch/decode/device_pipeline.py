@@ -23,9 +23,10 @@ import numpy as np
 import torch
 
 from turingcodec_tpu_torch.decode.device_recon import (
-    _block_index, _inter_blocks, _predict, _residual_groups, _residuals)
+    _inter_blocks, _predict, _residual_table)
 from turingcodec_tpu_torch.ops.deblock import deblock_planes_device
 from turingcodec_tpu_torch.ops.sao import sao_picture_device
+from turingcodec_tpu_torch.ops.transform import dequant_idct_add
 
 # pictures the pipeline decoded, and pictures it left to the host path
 # because they lie outside its envelope (counted by the decoder's
@@ -78,15 +79,6 @@ def _scatter_blocks(plane, by, bx, blocks, bs):
     return plane
 
 
-def _block_grid_add(plane, xs, ys, res, n, max_v):
-    """Add residual (B, n, n) blocks at sample coords (xs, ys) (n-aligned,
-    disjoint) and clip, in place; returns the plane."""
-    rows, cols = _block_index(xs, ys, n)
-    cur = plane[rows, cols].to(torch.int32)
-    plane[rows, cols] = (cur + res).clamp(0, max_v).to(plane.dtype)
-    return plane
-
-
 def _mc_device(plan, geom, ref_lists, planes):
     """Whole-picture MC into the device planes (device_recon twin with the
     scatter on the device)."""
@@ -105,27 +97,21 @@ def _mc_device(plan, geom, ref_lists, planes):
 
 
 def _residuals_device(plan, planes):
-    """Size-bucketed dequant + inverse transform with the add/clip on the
-    device (device_recon._inter_residuals_device twin)."""
+    """Every coded inter TU's dequant + inverse transform + add/clip into
+    the device planes, in place, as one dequant_idct_add call over the
+    picture's TU table (device_recon._inter_residuals_device twin). The
+    level planes go up once; nothing runs for a picture without coded
+    inter TUs."""
+    table = _residual_table(plan)
+    if not len(table):
+        return planes
     sps = plan.sps
     device = planes[0].device
-    coeffs = {0: (plan.coeff_y, sps.bit_depth_y),
-              1: (plan.coeff_cb, sps.bit_depth_c),
-              2: (plan.coeff_cr, sps.bit_depth_c)}
-    on_dev = {}
-    for (comp, log2, mode), items in sorted(_residual_groups(plan).items()):
-        coeffp, bd = coeffs[comp]
-        if comp not in on_dev:
-            on_dev[comp] = _upload(coeffp, device)
-        xyq = torch.from_numpy(np.asarray(items, np.int32).T.copy()).to(
-            device)
-        n = 1 << log2
-        rows, cols = _block_index(xyq[0], xyq[1], n)
-        levels = on_dev[comp][rows, cols].to(torch.int32)
-        res = _residuals(levels, xyq[2], bd, log2, mode)
-        planes[comp] = _block_grid_add(planes[comp], xyq[0], xyq[1], res, n,
-                                       (1 << bd) - 1)
-    return planes
+    coeffs = [_upload(c, device)
+              for c in (plan.coeff_y, plan.coeff_cb, plan.coeff_cr)]
+    return dequant_idct_add(coeffs, planes, table,
+                            (sps.bit_depth_y, sps.bit_depth_c,
+                             sps.bit_depth_c))
 
 
 def decode_picture_device(pr, device):

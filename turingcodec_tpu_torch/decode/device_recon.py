@@ -1,16 +1,17 @@
 """Inter reconstruction on a torch device: whole-picture motion compensation
-at min-block granularity plus size-bucketed batched residuals, consuming
-the plan's numpy tensors (port of `turingcodec_tpu/decode/device_recon.py`).
+at min-block granularity plus the picture's residuals in one call,
+consuming the plan's numpy tensors (port of
+`turingcodec_tpu/decode/device_recon.py`).
 
 The host CABAC parse fills the PicturePlan; the device reconstructs every
 inter CU in a handful of uniform batched calls: MC as one luma and one
 Cb/Cr block grid over the lists that some block uses
-(ops/inter.mc_block_grid),
-residuals as per-(component, size, mode) (B, n, n) dequant + inverse
-transform batches (ops/transform.dequant_inverse_transform). Intra CUs,
-deblock and SAO follow on the host. This staged form pulls each result
-back to the host planes; decode/device_pipeline.py chains the same stages
-on the device.
+(ops/inter.mc_block_grid), and the residuals of every coded inter TU of
+all three components as one dequant + inverse transform + add call
+(ops/transform.dequant_idct_add) over a TU table that `_residual_table`
+builds with numpy from the parser's records. Intra CUs, deblock and SAO
+follow on the host. This staged form pulls each result back to the host
+planes; decode/device_pipeline.py chains the same stages on the device.
 
 Bit-exact with decode/recon_vec.py; the decoder selects it with a device
 and TURING_TPU_DEVICE_RECON=1. Batches take their exact size: eager torch
@@ -21,9 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from turingcodec_tpu_torch import native
 from turingcodec_tpu_torch.hevc.tables import chroma_qp_from_luma
 from turingcodec_tpu_torch.ops.inter import mc_block_grid
-from turingcodec_tpu_torch.ops.transform import dequant_inverse_transform
+from turingcodec_tpu_torch.ops.transform import dequant_idct_add, tu_kind
 
 
 def _combine_uni_bi(p0, p1, on0, on1, bd):
@@ -130,7 +132,9 @@ def _residual_groups(plan):
     """Inter TUs with coded residuals, bucketed: {(component, log2 size,
     mode): [(x, y, qp), ...]} in component samples; mode 0 = dequant +
     inverse DCT, 1 = transform skip (dequant + shift), 2 = transquant
-    bypass (raw residual)."""
+    bypass (raw residual). The plain walk of `plan.cu_list` (JAX
+    `device_pipeline._residuals_device`, line for line) that the tests
+    hold `_residual_table` against; nothing on the decode path calls it."""
     sps = plan.sps
     groups = {}
     for cu in plan.cu_list:
@@ -178,37 +182,75 @@ def _residual_groups(plan):
     return groups
 
 
-def _block_index(xs, ys, n):
-    """(rows, cols) index arrays of B n x n blocks at (xs, ys); works for
-    numpy arrays and torch tensors alike."""
-    if isinstance(xs, torch.Tensor):
-        ar = torch.arange(n, device=xs.device)
-        xs, ys = xs.long(), ys.long()
-    else:
-        ar = np.arange(n)
-    return (ys[:, None, None] + ar[None, :, None],
-            xs[:, None, None] + ar[None, None, :])
+def _residual_table(plan):
+    """The TU table of ops/transform.dequant_idct_add for every coded inter
+    TU of the picture: (T, 4) int32 rows (x, y, qp, kind) in component
+    samples, with the QP offset for the bit depth; the same TUs as
+    `_residual_groups`, built with numpy from the parser's records
+    (`native._recon_records`, which builds them from `cu_list` when the
+    Python parser made it)."""
+    cu, tu = native._recon_records(plan, 0)
+    if cu is None:
+        return np.zeros((0, 4), np.int32)
+    sps = plan.sps
+    # records: cu (x0, y0, log2, part, skip, tqb, ntus, 0), tu (x0, y0,
+    # log2, blk_idx, x_base, y_base, cbf_y, cbf_cb, cbf_cr)
+    ntus = cu[:, 6].astype(np.int64)
+    owner = np.repeat(np.arange(len(cu)), ntus)
+    tu = tu[:len(owner)]
+    keep = cu[owner, 4] == 0                     # skipped CUs: no residual
+    tu, owner = tu[keep], owner[keep]
+    cx0, cy0 = cu[owner, 0], cu[owner, 1]
+    tqb = cu[owner, 5] != 0
+    qpy = plan.qp_y[cy0 >> 2, cx0 >> 2].astype(np.int32)
+    ctb = sps.ctb_log2_size_y
+    sl = plan.slice_idx[cy0 >> ctb, cx0 >> ctb]
+    off_c = sps.qp_bd_offset_c
+    cqt = native._cqt_table(sps)                 # indexed by qPi + off_c
+    qp_c = [cqt[np.clip(qpy + off[sl], -off_c, 57) + off_c] + off_c
+            for off in native._slice_qp_offsets(plan)]
 
-
-def _residuals(levels, qp, bd, log2, mode):
-    """(B, n, n) int32 residuals of one bucket (see _residual_groups)."""
-    if mode == 2:  # transquant bypass: residual = parsed coefficients
-        return levels
-    return dequant_inverse_transform(levels, qp, bd, log2, mode)
+    x0, y0, log2, blk, xb, yb = (tu[:, i] for i in range(6))
+    parts = []
+    on = tu[:, 6] != 0
+    mode = np.where(tqb, 2, plan.transform_skip_y[y0 >> 2, x0 >> 2] != 0)
+    parts.append(np.stack([x0, y0, qpy + sps.qp_bd_offset_y,
+                           tu_kind(0, log2, mode)], 1)[on])
+    # chroma: a TU above 4x4 carries its own; a split 8x8 carries its
+    # chroma at the fourth 4x4 (blk_idx 3), at the 8x8's origin
+    big = log2 > 2
+    has_c = big | (blk == 3)
+    cx = np.where(big, x0, xb) >> 1
+    cy = np.where(big, y0, yb) >> 1
+    cl = np.where(big, log2 - 1, 2)
+    for comp, skip_map in ((1, plan.transform_skip_cb),
+                           (2, plan.transform_skip_cr)):
+        on = has_c & (tu[:, 6 + comp] != 0)
+        mode = np.where(tqb, 2, skip_map[cy >> 1, cx >> 1] != 0)
+        parts.append(np.stack([cx, cy, qp_c[comp - 1],
+                               tu_kind(comp, cl, mode)], 1)[on])
+    return np.concatenate(parts).astype(np.int32)
 
 
 def _inter_residuals_device(plan, recon, device):
+    """The picture's residuals on `device`, added into the [y, cb, cr]
+    int16 host planes: one upload of the level and predicted planes, one
+    dequant_idct_add call, one pull."""
+    table = _residual_table(plan)
+    if not len(table):
+        return
     sps = plan.sps
-    planes = {0: (plan.coeff_y, recon[0], sps.bit_depth_y),
-              1: (plan.coeff_cb, recon[1], sps.bit_depth_c),
-              2: (plan.coeff_cr, recon[2], sps.bit_depth_c)}
-    for (comp, log2, mode), items in _residual_groups(plan).items():
-        coeffp, rplane, bd = planes[comp]
-        n = 1 << log2
-        xs, ys, qpa = np.asarray(items, np.int32).T.copy()
-        rows, cols = _block_index(xs, ys, n)
-        levels = torch.from_numpy(coeffp[rows, cols].astype(np.int32))
-        res = _residuals(levels.to(device), torch.from_numpy(qpa).to(device),
-                         bd, log2, mode).cpu().numpy()
-        blk = rplane[rows, cols].astype(np.int32) + res
-        rplane[rows, cols] = np.clip(blk, 0, (1 << bd) - 1)
+    host = [plan.coeff_y, plan.coeff_cb, plan.coeff_cr] + list(recon)
+    # one transfer up (the concatenation is a copy: on device="cpu" the
+    # tensors never alias the host planes) and one down
+    flat = torch.from_numpy(np.concatenate(
+        [np.asarray(a, np.int16).ravel() for a in host])).to(device)
+    views = [v.view(a.shape) for v, a in zip(
+        flat.split([a.size for a in host]), host)]
+    planes = dequant_idct_add(views[:3], views[3:], table,
+                              (sps.bit_depth_y, sps.bit_depth_c,
+                               sps.bit_depth_c))
+    out = torch.cat([p.reshape(-1) for p in planes]).cpu().numpy()
+    for plane, part in zip(recon, np.split(out, np.cumsum(
+            [p.size for p in recon])[:-1])):
+        plane[...] = part.reshape(plane.shape)

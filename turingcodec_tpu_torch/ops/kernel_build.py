@@ -7,7 +7,9 @@ with ctypes. A failed build raises; nothing falls back.
 
 The constant tables the kernels and their plain versions read (DCT
 matrices, filter taps, QP tables) stay in hevc/tables.py and friends;
-`table` puts each on a device once.
+`table` puts each on a device once, and `_tables` compiles into a kernel
+the tables it reads as immediates (the residual kernel's DCT coefficients:
+from the kernel's parameters they cost it a constant-cache miss each).
 """
 from __future__ import annotations
 
@@ -44,6 +46,24 @@ def _nvcc() -> str:
     return path
 
 
+def _tables(name: str) -> list:
+    """nvcc flags that compile into a kernel the constant tables it takes
+    at compile time, made from hevc/tables.py so that each table lives
+    there alone: a generated header of #defines, pre-included (nvcc splits
+    a -D value at its commas)."""
+    if name != "dequant_idct":
+        return []
+    from turingcodec_tpu_torch.hevc.tables import dct2_matrix
+    half = np.asarray(dct2_matrix(32))[:, :16].ravel().tolist()
+    header = os.path.join(BUILD_DIR, f"{name}_tables.h")
+    tmp = f"{header}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write("// generated by ops/kernel_build.py from hevc/tables.py\n"
+                f"#define TC_DCT32_HALF {', '.join(map(str, half))}\n")
+    os.replace(tmp, header)
+    return ["--pre-include", header]
+
+
 def build(name: str, force: bool = False) -> str:
     """Compile csrc/<name>.cu if its library is missing or stale (or
     always, with force); returns the library's path."""
@@ -54,7 +74,7 @@ def build(name: str, force: bool = False) -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp, src]
+    cmd = [_nvcc()] + NVCC_FLAGS + _tables(name) + ["-o", tmp, src]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{r.stdout}{r.stderr}")

@@ -2,9 +2,10 @@
 
 Shapes are (B, N, N) int32 levels with one QP per batch element, so one
 call covers a mixed-QP batch. On the card the decoder does not call
-`dequant_batch` alone: `ops/transform.dequant_inverse_transform` fuses it
-with the inverse transform in the CUDA kernel `csrc/dequant_idct.cu`, and
-this function is that kernel's plain version of the first half.
+`dequant_batch`: `ops/transform.dequant_idct_add` dequantizes every coded
+TU of a picture inside the CUDA kernel `csrc/dequant_idct.cu`, with the
+inverse transform and the add, and this function is the first step of
+that kernel's plain version.
 """
 from __future__ import annotations
 
