@@ -5,13 +5,16 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain torch version on the card (the dense-ME
 sweep also through its fused entry point, on odd-sized frames with seeds
-at +-36, at 8, 10 and 12 bits), holds every encoder analysis stage on the
-card against its host twin at 1080p, then drives the main path: decode
-tests/streams/vfy_sweep.hevc (md5 against tests/streams/GOLDEN.json),
-upscale it 3x to 1920x1080, encode 8 frames at the fast low-delay
-operating point with the analysis stage on the card and on the host, check
-byte-identical bitstreams, and decode the result hash-clean. Then the
-decoder's device pipeline: every staged decode stage on the card against
+at +-36, at 8, 10 and 12 bits, with and without its SAD surface), holds
+every encoder analysis stage on the card against its host twin at 1080p
+(tools/device_enc_check.py; the surface against the native prepass's),
+then drives the main path: decode tests/streams/vfy_sweep.hevc (md5
+against tests/streams/GOLDEN.json), upscale it 3x to 1920x1080, encode 8
+frames at the fast low-delay operating point with the analysis stage on
+the card and on the host, with SAD surfaces and with TC_NO_ME_SURF, in
+turns (on, off, off, on), check byte-identical bitstreams and one surface
+installed per inter picture, and decode the result hash-clean. Then the decoder's
+device pipeline: every staged decode stage on the card against
 its host twin (on the 1080p encode and on vfy_sweep), the two decoder
 kernels against their plain versions (MC: synthetic inputs of two
 reference lists with every phase, full-pel, 8 and 10 bits, and the 1080p
@@ -23,9 +26,14 @@ the 1080p encode decoded on the card equal to the host decode, every
 picture through the pipeline, at most 3 MC launches per inter picture and
 one residual launch per picture with coded inter TUs. After the decode
 rates, one more decode times the residual stage (host clock, synchronised
-around it). Last, each kernel's device time per launch at the main path's
-shapes and the residual stage's device time per inter picture
-(torch.profiler). Any failed check raises and the exit code is non-zero.
+around it). Then the DSP op library at one 1080p picture's block counts:
+the forward transform and all-phase interpolation kernels against their
+plain versions (8 and 10 bits, extreme inputs, every size and phase,
+ragged batches), the torch ops on the card against the CPU,
+tools/kernels.py at its defaults (the path that launches the two
+kernels) and tools/testdecode.py on tests/streams, on the card. Last,
+each kernel's device time per launch at its path's shapes and the
+residual stage's device time per inter picture (torch.profiler). Any failed check raises and the exit code is non-zero.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the kernels' JSON record, and
@@ -43,7 +51,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("dense_me", "mc_block_grid", "dequant_idct")
+KERNELS = ("dense_me", "mc_block_grid", "dequant_idct", "fwd_transform",
+           "interp_all_phases")
 STREAM = os.path.join(ROOT, "tests", "streams", "vfy_sweep.hevc")
 GOLDEN = os.path.join(ROOT, "tests", "streams", "GOLDEN.json")
 N_FRAMES = 8
@@ -93,47 +102,6 @@ def timed_ms(fn, device, reps: int) -> float:
     return statistics.median(times)
 
 
-def wall_ms(fn, device, reps: int) -> float:
-    """Median host-clock time of fn() in ms, synchronised (host to host:
-    upload, compute and download as the encoder pays them)."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
-def decode_inputs(n_frames: int, upscale: int):
-    """Decode vfy_sweep with the port (md5 against the golden), and return
-    the first n_frames upscaled by nearest neighbour, as bench.py does."""
-    import numpy as np
-
-    from turingcodec_tpu_torch.decode.decoder import Decoder
-    dec = Decoder(device=None)
-    md5 = hashlib.md5()
-    frames = []
-    for f in dec.decode_stream(open(STREAM, "rb").read()):
-        check(f.hash_ok is not False, "vfy_sweep: hash SEI mismatch")
-        planes = [np.asarray(p) for p in f.planes]
-        for p in planes:
-            md5.update(p.astype(np.uint8).tobytes())
-        frames.append(planes)
-    want = json.load(open(GOLDEN))["vfy_sweep.hevc"]
-    check(md5.hexdigest() == want,
-          f"vfy_sweep md5 {md5.hexdigest()} != golden {want}")
-    log(f"decode vfy_sweep: {len(frames)} frames "
-        f"{frames[0][0].shape[1]}x{frames[0][0].shape[0]}, md5 {want} OK")
-    ones = np.ones((upscale, upscale), np.uint8)
-    ups = [[np.kron(p.astype(np.uint8), ones).astype(np.int16)
-            for p in planes] for planes in frames[:n_frames]]
-    return ups
-
-
 def bound(nbytes: float, ops: float):
     """(bound_ms, bound_by): the least time an H100 SXM could take, the
     larger of the bytes over the HBM rate and the integer operations over
@@ -168,11 +136,14 @@ def device_us(fn, name: str, n: int = 50):
     return total / n, count / n
 
 
-def dense_bound(b: int, plane_bytes: int):
+def dense_bound(b: int, plane_bytes: int, surf: bool = False):
     """Bound of one dense-ME sweep over b blocks: 289 x 256 absolute
     differences per block at one INT32 operation each; the two planes in,
-    the seeds in and [ox, oy, sad] out."""
-    return bound(2 * plane_bytes + 8 * b + 12 * b, 289 * 256 * b)
+    the seeds in and [ox, oy, sad] out, and the 289 int32 SADs per block
+    with the surface."""
+    return bound(2 * plane_bytes + 8 * b + 12 * b + (4 * 289 * b if surf
+                                                       else 0),
+                 289 * 256 * b)
 
 
 def check_kernel(device, orig, ref, reps):
@@ -189,6 +160,7 @@ def check_kernel(device, orig, ref, reps):
                                                     dense_me_argmin,
                                                     dense_me_argmin_ref,
                                                     dense_me_sweep)
+    from turingcodec_tpu_torch.tools.device_enc_check import wall_ms
 
     def compare(name, cur, pat):
         got = dense_me_argmin(cur, pat)
@@ -203,14 +175,18 @@ def check_kernel(device, orig, ref, reps):
 
     def compare_sweep(name, args):
         got = dense_me_sweep(*args)
+        got_s, surf = dense_me_sweep(*args, True)
         torch.cuda.synchronize()
         cb, patch = dense_inputs(*args)
-        want = dense_me_argmin_ref(cb, patch)
-        check(torch.equal(got, want) and torch.equal(
-            dense_me_argmin(cb, patch), want),
-            f"fused sweep differs from its plain version: {name}")
-        log(f"fused sweep vs plain, {name}: B={got.shape[0]} equal")
-        return int((got.long() - want.long()).abs().max())
+        want, want_s = dense_me_argmin_ref(cb, patch, True)
+        check(torch.equal(got, want) and torch.equal(got_s, want)
+              and torch.equal(surf, want_s)
+              and torch.equal(dense_me_argmin(cb, patch), want),
+              f"fused sweep differs from its plain version: {name}")
+        log(f"fused sweep vs plain, {name}: B={got.shape[0]} equal, "
+            f"and with its (B, 289) SAD surface")
+        return max(int((got.long() - want.long()).abs().max()),
+                   int((surf.long() - want_s.long()).abs().max()))
 
     rng = np.random.default_rng(7)
     b = 7
@@ -256,110 +232,89 @@ def check_kernel(device, orig, ref, reps):
     ms = timed_ms(lambda: dense_me_sweep(*args), device, reps)
     plain_ms = timed_ms(lambda: dense_me_argmin_ref(*dense_inputs(*args)),
                         device, max(1, reps // 4))
+    ms_s = timed_ms(lambda: dense_me_sweep(*args, True), device, reps)
+    plain_ms_s = timed_ms(
+        lambda: dense_me_argmin_ref(*dense_inputs(*args), True), device,
+        max(1, reps // 4))
     b = hb * wb
-    bound_ms, bound_by = dense_bound(b, o.numel() * o.element_size())
+    plane_bytes = o.numel() * o.element_size()
+    bound_ms, bound_by = dense_bound(b, plane_bytes)
+    bound_s = dense_bound(b, plane_bytes, True)
     log(f"dense_me_sweep at B={b}: kernel {ms:.4f} ms (median, CUDA events "
         f"around the wrapper), plain torch {plain_ms:.4f} ms; bound "
         f"{bound_ms * 1e3:.2f} us ({bound_by})")
+    log(f"dense_me_sweep with the surface at B={b}: kernel {ms_s:.4f} ms, "
+        f"plain torch {plain_ms_s:.4f} ms; bound {bound_s[0] * 1e3:.2f} us "
+        f"({bound_s[1]})")
+    # the surface's download as the encoder pays it: (B, 289) int32 into
+    # pageable host memory
+    surf = dense_me_sweep(*args, True)[1]
+    dl = wall_ms(lambda: surf.cpu(), device, reps)
+    log(f"surface download, {surf.numel() * 4 / 1e6:.2f} MB into pageable "
+        f"memory: {dl:.4f} ms (median, host clock, synchronised)")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "timed": {f"dense_me_sweep at B={b}":
-                      lambda: dense_me_sweep(*args)},
+                      (lambda: dense_me_sweep(*args), bound_ms),
+                      f"dense_me_sweep with the surface at B={b}":
+                      (lambda: dense_me_sweep(*args, True), bound_s[0])},
             "kname": "dense_me"}
 
 
-def check_stages(device, orig, ref, zscan, reps):
-    """Every analysis stage on the device against its host twin."""
-    import numpy as np
-
-    from turingcodec_tpu_torch import native
-    from turingcodec_tpu_torch.encode import device_analysis as da
-    h, w = orig.shape
-    times = {}
-
-    nat = native.dense_analysis(orig, ref, 8)
-    check(nat is not None, "native dense_analysis unavailable")
-    sm_n, dm_n, ds_n, wb_n, hb_n = nat[:5]
-    sm, wb, hb = da.seed_field_device(orig, ref, device)
-    check((wb, hb) == (wb_n, hb_n) and np.array_equal(sm, sm_n),
-          "seed field differs from the native host twin")
-    times["seed_field_device"] = wall_ms(
-        lambda: da.seed_field_device(orig, ref, device), device, reps)
-    sm, dm, ds, wb, hb = da.analysis_device(orig, ref, device)
-    check(np.array_equal(sm, sm_n) and np.array_equal(dm, dm_n)
-          and np.array_equal(ds, ds_n),
-          "seed/dense/SAD fields differ from the native host twin")
-    times["analysis_device"] = wall_ms(
-        lambda: da.analysis_device(orig, ref, device), device, reps)
-    log(f"seed + dense fields {w}x{h}: equal to the native host twin")
-
-    for bd in (8, 10):
-        plane = ((ref << (bd - 8)) + (orig & ((1 << (bd - 8)) - 1))
-                 ).astype(np.int16)
-        got = da.subpel_planes_device(plane, bd, device)
-        check(np.array_equal(got, da.subpel_planes_host(plane, bd)),
-              f"{bd}-bit subpel planes differ from the numpy twin")
-        log(f"subpel planes {bd}-bit: equal to the numpy twin")
-        times[f"subpel_planes_device_{bd}bit"] = wall_ms(
-            lambda: da.subpel_planes_device(plane, bd, device), device, reps)
-
-    got = da.rank_satd_tables_device(orig, zscan, 8, True, device)
-    want = da.rank_satd_tables_host(orig, zscan, 8, True)
-    check(sorted(got) == sorted(want), "rank-SATD table sizes differ")
-    for n in want:
-        check(np.array_equal(got[n], want[n]),
-              f"rank-SATD table n={n} differs from the numpy twin")
-    log("rank-SATD tables n=4..32: equal to the numpy twin")
-    times["rank_satd_tables_device"] = wall_ms(
-        lambda: da.rank_satd_tables_device(orig, zscan, 8, True, device),
-        device, reps)
-    for k, v in times.items():
-        log(f"stage {k} per {w}x{h} picture: {v:.3f} ms "
-            f"(median, host clock incl. transfers)")
-    return times
-
-
-def encode(frames, device):
-    """Encode at bench.py's operating point; returns (bitstream, fps)."""
-    from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
-    h, w = frames[0][0].shape
-    cfg = EncoderConfig(width=w, height=h, qp=QP, rd_candidates=1,
-                        search_range=32, gop_m=1, sao=False, rdoq=True,
-                        sdh=True, device=device)
-    enc = Encoder(cfg)
-    out = [enc.headers()]
-    t0 = time.perf_counter()
-    for fr in frames:
-        for (_i, nal, _r) in enc.push_frame([p.copy() for p in fr]):
-            out.append(nal)
-    for (_i, nal, _r) in enc.flush():
-        out.append(nal)
-    return b"".join(out), len(frames) / (time.perf_counter() - t0)
-
-
 def main_path(frames, device):
-    """The encode with the stage on the device and on the host; returns
-    (kernel launches in the device run, the device run's bitstream)."""
+    """The encode with the stage on the device and on the host, in turns,
+    with SAD surfaces and with TC_NO_ME_SURF in the order on, off, off, on;
+    returns (kernel launches in the first device run, its bitstream)."""
     from turingcodec_tpu_torch.decode.decoder import Decoder
-    reset_launches()
-    bs_dev, fps_dev = encode(frames, str(device))
-    counts = read_launches()
-    launches = counts.pop("dense_me")
-    bs_host, fps_host = encode(frames, None)
-    check(bs_dev == bs_host, "device and host bitstreams differ")
+    from turingcodec_tpu_torch.encode import device_analysis as da
+    from turingcodec_tpu_torch.tools.device_enc_check import encode
     n_p = len(frames) - 1   # low-delay P: one IDR, then P pictures
-    check(launches >= n_p and not any(counts.values()),
-          f"{launches} dense_me launches for {n_p} P pictures; {counts}")
+    fps = {(s, d): [] for s in ("on", "off") for d in ("card", "host")}
+    streams = set()
+    launches = None
+    for surf in ("on", "off", "off", "on"):
+        if surf == "off":
+            os.environ["TC_NO_ME_SURF"] = "1"
+        try:
+            reset_launches()
+            da.surfaces = 0
+            bs_dev, f_dev = encode(frames, str(device))
+            counts = read_launches()
+            check(da.surfaces == (n_p if surf == "on" else 0),
+                  f"{da.surfaces} SAD surfaces installed for {n_p} inter "
+                  f"pictures, surfaces {surf}")
+            bs_host, f_host = encode(frames, None)
+        finally:
+            os.environ.pop("TC_NO_ME_SURF", None)
+        check(bs_dev == bs_host, f"device and host bitstreams differ, "
+              f"surfaces {surf}")
+        streams.add(bs_dev)
+        fps[surf, "card"].append(f_dev)
+        fps[surf, "host"].append(f_host)
+        if launches is None:
+            launches = counts.pop("dense_me")
+            bitstream = bs_dev
+            check(launches >= n_p and not any(counts.values()),
+                  f"{launches} dense_me launches for {n_p} P pictures; "
+                  f"{counts}")
+    check(len(streams) == 1, "the bitstreams differ with TC_NO_ME_SURF")
+    log("encode fps in turns (surfaces on, off, off, on; card then host "
+        "each time): " + "; ".join(
+            f"surfaces {s} {d} " + " / ".join(f"{v:.4f}" for v in fps[s, d])
+            for s in ("on", "off") for d in ("card", "host"))
+        + f"; {n_p} surfaces installed per run with surfaces, all eight "
+        f"bitstreams identical")
     dec = Decoder(device=None)
-    n = sum(1 for _ in dec.decode_stream(bs_dev))
+    n = sum(1 for _ in dec.decode_stream(bitstream))
     check(n == len(frames) and dec.hash_failures == 0,
           f"decoded {n} frames, {dec.hash_failures} hash failures")
     h, w = frames[0][0].shape
     log(f"encode {len(frames)} frames {w}x{h}: device={device} "
-        f"{fps_dev:.4f} fps, host {fps_host:.4f} fps, {len(bs_dev)} bytes "
-        f"identical; dense_me launches {launches} (>= {n_p} P "
-        f"pictures); decoded {n} frames, 0 hash failures")
-    return launches, bs_dev
+        f"{fps['on', 'card'][0]:.4f} fps, host {fps['on', 'host'][0]:.4f} "
+        f"fps, {len(bitstream)} bytes identical; dense_me launches "
+        f"{launches} (>= {n_p} P pictures); decoded {n} frames, 0 hash "
+        f"failures")
+    return launches, bitstream
 
 
 def build_all():
@@ -627,25 +582,223 @@ def check_decode_kernels(device, captured, reps):
         out[name] = {
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "kname": name,
-            "timed": {what: lambda fn=fn, big=big: fn(*big)}}
+            "timed": {what: (lambda fn=fn, big=big: fn(*big), bound_ms)}}
     return out
+
+
+# one 1080p picture's block count per transform size, and the windows of
+# its 16x16 blocks: the DSP op library's full width
+BLOCKS_1080P = {2: 129600, 3: 32400, 4: 8160, 5: 2040}
+
+
+def fwd_bound(b: int, n: int, dst: bool):
+    """Bound of one forward transform call over b (n, n) blocks: int32 in
+    and out once; per block one n-point partial butterfly per row and per
+    column (idct_ops: the forward even-odd decomposition has the same
+    count), or the 4x4 DST's 16 multiply-adds per row and column."""
+    per_line = 16 if dst else idct_ops(n)
+    return bound(8 * b * n * n, b * 2 * n * per_line)
+
+
+def interp_bound(b: int, w: int, h: int):
+    """Bound of one all-phase interpolation over b windows: the int16
+    windows in, the (4, 4, h, w) int32 phases out; per window the three
+    horizontal phases' 8 taps over its h + 7 rows and, per output sample,
+    the three vertical phases' 8 taps over four horizontal sources."""
+    return bound(b * (h + 7) * (w + 7) * 2 + b * 16 * h * w * 4,
+                 b * (24 * (h + 7) * w + 96 * h * w))
+
+
+def cold_inputs(x, l2_bytes: int = 50 << 20):
+    """A function returning, call after call, one of enough copies of x
+    that together they overflow the card's 50 MB L2 cache four times: a
+    kernel timed on it reads its input from device memory, as one whose
+    input was not just written would (a 16.6 MB batch read again at once
+    would come from L2, faster than the bound counts)."""
+    copies = [x] + [x.clone() for _ in range(
+        max(1, -(-4 * l2_bytes // (x.numel() * x.element_size()))) - 1)]
+    turn = [0]
+
+    def next_copy():
+        turn[0] += 1
+        return copies[turn[0] % len(copies)]
+    return next_copy
+
+
+def check_dsp_ops(device, reps):
+    """The DSP op library at one 1080p picture's block counts: the forward
+    transform and all-phase interpolation kernels against their plain
+    versions on the card (8 and 10 bits, random and extreme inputs, every
+    size, the DST, every phase), the torch ops (metrics, quantization,
+    all-modes intra) on the card against the same code on the CPU; times
+    and bounds of the two kernels. Returns their kernels-line rows."""
+    import numpy as np
+    import torch
+
+    from turingcodec_tpu_torch.ops import inter, intra, metrics, quant
+    from turingcodec_tpu_torch.ops import transform as tr
+    rng = np.random.default_rng(13)
+
+    def up(a, dtype=np.int32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    fwd_errs, fwd_timed, fwd_row = [], {}, None
+    for bd in (8, 10):
+        hi = (1 << bd) - 1
+        for log2, b in BLOCKS_1080P.items():
+            n = 1 << log2
+            for dst in ((False, True) if log2 == 2 else (False,)):
+                for extreme in (False, True):
+                    if extreme:   # the HM range's ends, in a checkerboard
+                        res = np.where(rng.random((b, n, n)) < 0.5, hi, -hi)
+                        res[0] = hi
+                    else:
+                        res = rng.integers(-hi, hi + 1, (b, n, n))
+                    x = up(res)
+                    fwd_errs.append(equal_on_card(
+                        f"fwd_transform {n}x{n} {bd}-bit dst={dst}",
+                        tr.forward_transform_batch(x, bd, dst),
+                        tr.forward_transform_batch_ref(x, bd, dst)))
+                if bd == 8:
+                    what = (f"fwd_transform {'DST' if dst else 'DCT'} "
+                            f"{n}x{n} at B={b}")
+                    cold = cold_inputs(x)
+                    fwd_timed[what] = (
+                        lambda cold=cold, dst=dst: tr.forward_transform_batch(
+                            cold(), 8, dst), fwd_bound(b, n, dst)[0])
+                    if log2 == 5:
+                        fwd_row = (cold, b, n)
+        # a batch that leaves the last thread block part-filled
+        for log2 in BLOCKS_1080P:
+            x = up(rng.integers(-hi, hi + 1, (1001, 1 << log2, 1 << log2)))
+            fwd_errs.append(equal_on_card(
+                f"fwd_transform ragged {1 << log2} {bd}-bit",
+                tr.forward_transform_batch(x, bd),
+                tr.forward_transform_batch_ref(x, bd)))
+        log(f"kernel vs plain, fwd_transform {bd}-bit: DCT 4x4..32x32 and "
+            f"DST 4x4 at {BLOCKS_1080P} and at 1001 blocks, random and "
+            f"extreme residuals: equal")
+
+    ip_errs, ip_timed = [], {}
+    # the 1080p shapes, then a width that splits warps across windows and a
+    # batch that leaves the last thread block part-filled
+    for (w, h, b) in ((16, 16, 8160), (8, 8, 32400), (12, 20, 1001)):
+        for bd in (8, 10):
+            hi = (1 << bd) - 1
+            for extreme in (False, True):
+                if extreme:       # 0 / max checkerboards: the largest taps
+                    win = np.where(rng.random((b, h + 7, w + 7)) < 0.5, hi,
+                                   0)
+                else:
+                    win = rng.integers(0, hi + 1, (b, h + 7, w + 7))
+                x = up(win, np.int16)
+                ip_errs.append(equal_on_card(
+                    f"interp_all_phases {w}x{h} {bd}-bit",
+                    inter.interp_luma_all_phases(x, w, h, bd),
+                    inter.interp_luma_all_phases_ref(x, w, h, bd)))
+            if bd == 8:
+                ip_timed[f"interp_all_phases {w}x{h} at B={b}"] = (
+                    lambda x=x, w=w, h=h: inter.interp_luma_all_phases(
+                        x, w, h), interp_bound(b, w, h)[0])
+                if w == 16:
+                    ip_row = (x, b, w, h)
+        log(f"kernel vs plain, interp_all_phases {w}x{h} at B={b}, 8 and "
+            f"10 bits, random and extreme windows, all 16 phases: equal")
+
+    # the torch ops on the card against the same code on the CPU
+    for log2, b in BLOCKS_1080P.items():
+        n = 1 << log2
+        a = rng.integers(0, 1024, (b, n, n))
+        c = rng.integers(0, 1024, (b, n, n))
+        for name, fn in (("sad_batch", metrics.sad_batch),
+                         ("ssd_batch", metrics.ssd_batch),
+                         ("satd_batch", lambda p, q: metrics.satd_batch(
+                             p, q, 4 if n == 4 else 8))):
+            got = fn(up(a), up(c))
+            check(torch.equal(got.cpu(), fn(torch.from_numpy(a),
+                                             torch.from_numpy(c))),
+                  f"{name} {n}x{n} differs on the card")
+        coeff = rng.integers(-32768, 32768, (b, n, n))
+        qp = rng.integers(0, 64, b)
+        rnd = rng.integers(0, 1 << 20, b)
+        got = quant.quant_batch(up(coeff), up(qp), 10, log2, up(rnd))
+        check(torch.equal(got.cpu(), quant.quant_batch(
+            *[torch.from_numpy(np.asarray(v, np.int32))
+              for v in (coeff, qp)], 10, log2,
+            torch.from_numpy(rnd.astype(np.int32)))),
+            f"quant_batch {n}x{n} differs on the card")
+        refs = [rng.integers(0, 1024, (b, 2 * n + 1)) for _ in range(2)]
+        co = rng.integers(0, 1024, b)
+        got = intra.intra_predict_all_modes(up(refs[0]), up(refs[1]), up(co),
+                                            n, 10)
+        check(torch.equal(got.cpu(), intra.intra_predict_all_modes(
+            *[torch.from_numpy(v.astype(np.int32)) for v in refs + [co]],
+            n, 10)), f"intra_predict_all_modes n={n} differs on the card")
+    log(f"torch ops on the card equal to the CPU at {BLOCKS_1080P} blocks: "
+        f"sad/ssd/satd, quant_batch (mixed QPs), intra_predict_all_modes "
+        f"(35 modes, {got.numel() * 4 / 1e6:.0f} MB at n=32)")
+
+    rows = {}
+    cold, b, n = fwd_row
+    bnd = fwd_bound(b, n, False)
+    rows["fwd_transform"] = dict(
+        max_abs_err=max(fwd_errs), kname="fwd_transform",
+        ms=timed_ms(lambda: tr.forward_transform_batch(cold(), 8), device,
+                    reps),
+        plain_ms=timed_ms(lambda: tr.forward_transform_batch_ref(cold(), 8),
+                          device, max(1, reps // 4)),
+        bound_ms=bnd[0], bound_by=bnd[1], timed={
+            k: fwd_timed[k] for k in sorted(fwd_timed, key=lambda k: (
+                "32x32" not in k, k))})
+    x, b, w, h = ip_row
+    bnd = interp_bound(b, w, h)
+    rows["interp_all_phases"] = dict(
+        max_abs_err=max(ip_errs), kname="interp_all_phases",
+        ms=timed_ms(lambda: inter.interp_luma_all_phases(x, w, h), device,
+                    reps),
+        plain_ms=timed_ms(lambda: inter.interp_luma_all_phases_ref(x, w, h),
+                          device, max(1, reps // 4)),
+        bound_ms=bnd[0], bound_by=bnd[1], timed=ip_timed)
+    for k, r in rows.items():
+        log(f"{k} at its row's shape: kernel {r['ms']:.4f} ms, plain torch "
+            f"{r['plain_ms']:.4f} ms (median, CUDA events around the "
+            f"wrapper); bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    return rows
+
+
+def dsp_path(device):
+    """The DSP op library's own entry points on the card: tools/kernels.py
+    at its defaults (the two kernels' path: counts read around it) and
+    tools/testdecode.py on tests/streams. Returns the launches."""
+    from turingcodec_tpu_torch.tools import kernels, testdecode
+    reset_launches()
+    rc = kernels.main(["--device", str(device.type)])
+    launches = read_launches()
+    check(rc == 0, "tools/kernels.py reported a mismatch")
+    check(launches["fwd_transform"] and launches["interp_all_phases"]
+          and not (launches["dense_me"] or launches["mc_block_grid"]
+                   or launches["dequant_idct"]),
+          f"tools/kernels.py launches {launches}")
+    check(testdecode.main(["--device", str(device.type)]) == 0,
+          "tools/testdecode.py failed on tests/streams")
+    log(f"tools/kernels.py at its defaults and tools/testdecode.py on "
+        f"tests/streams, on the card: OK; launches {launches}")
+    return launches
 
 
 def device_times(rows):
     """Each kernel's device time per call at its main-path shapes (the
-    first shape is the one its row reports), with the share of the bound.
-    Runs after the main paths, so that the profiler's tracing cannot touch
-    their end-to-end timings."""
+    first shape is the one its row reports), with the share of each
+    shape's bound. Runs after the main paths, so that the profiler's
+    tracing cannot touch their end-to-end timings."""
     for r in rows:
-        for i, (what, fn) in enumerate(r.pop("timed").items()):
+        for i, (what, (fn, bound_ms)) in enumerate(r.pop("timed").items()):
             us, per = device_us(fn, r["kname"])
             if i == 0:
                 r["device_us"] = us
-                share = f", {r['bound_ms'] * 1e3 / us:.1%} of its bound"
-            else:
-                share = ""
             log(f"{what}: {us:.2f} us device time per call (profiler, {per} "
-                f"launches per call){share}")
+                f"launches per call), {bound_ms * 1e3 / us:.1%} of its "
+                f"{bound_ms * 1e3:.2f} us bound")
 
 
 def mc_bound(args):
@@ -702,12 +855,15 @@ def reset_launches():
     """Every kernel's launch count to 0."""
     from turingcodec_tpu_torch.ops import dense_me, inter, transform
     dense_me.launches = inter.launches = transform.launches = 0
+    inter.interp_launches = transform.fwd_launches = 0
 
 
 def read_launches():
     from turingcodec_tpu_torch.ops import dense_me, inter, transform
     return {"dense_me": dense_me.launches, "mc_block_grid": inter.launches,
-            "dequant_idct": transform.launches}
+            "dequant_idct": transform.launches,
+            "fwd_transform": transform.fwd_launches,
+            "interp_all_phases": inter.interp_launches}
 
 
 def decode_main_path(device, frames, bitstream):
@@ -771,7 +927,8 @@ def decode_main_path(device, frames, bitstream):
     # picture before: one per (component, size, mode) bucket)
     check(0 < launches["mc_block_grid"] <= 3 * (n - 1)
           and 0 < coded <= n - 1 and launches["dequant_idct"] == coded
-          and launches["dense_me"] == 0,
+          and launches["dense_me"] == launches["fwd_transform"]
+          == launches["interp_all_phases"] == 0,
           f"launches {launches}, {coded} pictures with coded inter TUs")
     t_dev2 = decode_planes(bitstream, dev)[2]
     t_host2 = decode_planes(bitstream, None)[2]
@@ -879,7 +1036,8 @@ def main() -> int:
     # 2. build: the CUDA kernels from source, and the native host core
     build_all()
 
-    frames = decode_inputs(N_FRAMES, 3)
+    from turingcodec_tpu_torch.tools import device_enc_check
+    frames = device_enc_check.decode_inputs(N_FRAMES, 3, log)
     orig, ref = frames[1][0], frames[0][0]
     h, w = orig.shape
     check((w, h) == (1920, 1080), f"upscaled input is {w}x{h}")
@@ -887,11 +1045,12 @@ def main() -> int:
     # 3. dense-ME kernel against its plain versions on the card
     kern = check_kernel(device, orig, ref, reps=20)
 
-    # 4. stages against their host twins
+    # 4. stages against their host twins (the surface against the native
+    # prepass's), by tools/device_enc_check.py
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
     geom = Encoder(EncoderConfig(width=w, height=h, qp=QP, rd_candidates=1,
                                  device=None)).geom
-    check_stages(device, orig, ref, geom.zscan, reps=5)
+    device_enc_check.analysis_checks(orig, ref, geom.zscan, device, 5, log)
 
     # 5. main path: the encode
     launches, bitstream = main_path(frames, device)
@@ -907,7 +1066,13 @@ def main() -> int:
     # 8. main path: the decode on the card; then the residual stage timed
     dec_launches, res_pics = decode_main_path(device, frames, bitstream)
 
-    # 9. device time per launch of each kernel at the main path's shapes
+    # 9. the DSP op library at full width: its two kernels against their
+    # plain versions, the torch ops against the CPU; then its own path,
+    # tools/kernels.py, and tools/testdecode.py on the card
+    dsp_kern = check_dsp_ops(device, reps=20)
+    dsp_launches = dsp_path(device)
+
+    # 10. device time per launch of each kernel at the main path's shapes
     rows = [dict(name="dense_me_argmin", source="dense_me.cu",
                  replaces="turingcodec_tpu/ops/pallas_kernels.py:71",
                  launches=launches, **kern),
@@ -918,7 +1083,15 @@ def main() -> int:
             dict(name="dequant_idct", source="dequant_idct.cu",
                  replaces="turingcodec_tpu/ops/transform.py:32",
                  launches=dec_launches["dequant_idct"],
-                 **dec_kern["dequant_idct"])]
+                 **dec_kern["dequant_idct"]),
+            dict(name="fwd_transform", source="fwd_transform.cu",
+                 replaces="turingcodec_tpu/ops/transform.py:51",
+                 launches=dsp_launches["fwd_transform"],
+                 **dsp_kern["fwd_transform"]),
+            dict(name="interp_all_phases", source="interp_all_phases.cu",
+                 replaces="turingcodec_tpu/ops/inter.py:23",
+                 launches=dsp_launches["interp_all_phases"],
+                 **dsp_kern["interp_all_phases"])]
     device_times(rows)
     kern_us, copy_us, per = residual_device_us(res_pics)
     log(f"residual stage on the card per inter picture of the 1080p decode "
@@ -926,9 +1099,11 @@ def main() -> int:
         f"launches, {copy_us:.2f} us of copies (profiler)")
 
     log(card)
-    # no single PyTorch call computes any of the three functions (a
+    # no single PyTorch call computes any of the five functions (a
     # penalised argmin over 289 SADs, a per-block filter phase, an integer
-    # dequantisation before two products), so library_ms is null
+    # dequantisation before two products, two integer products with a
+    # rounding shift between them, 16 filter phases with their shifts and
+    # exact-phase cases), so library_ms is null
     log(json.dumps({"kernels": [{
         "name": r["name"], "route": "cuda",
         "source": "turingcodec_tpu_torch/csrc/" + r["source"],

@@ -208,3 +208,35 @@ def test_sweep_rejects_bad_inputs(bad):
         orig = orig.t().contiguous().t()
     with pytest.raises((TypeError, ValueError)):
         dense_me_sweep(orig, ref, seeds, w, h, wb, hb)
+
+
+@pytest.mark.parametrize("name", sorted(SWEEPS))
+def test_dense_me_surface_matches_jax_and_brute_force(name):
+    """want_surf: the fused sweep's plain version returns the winners
+    unchanged and every block's 289 SADs at k = oy * 17 + ox, equal to the
+    JAX package's want_surf surface and to a brute force over the clamped
+    windows."""
+    orig, ref, seeds, w, h, wb, hb = _sweep_inputs(name)
+    _mv, _sad, surf = jda._dense_stage(jnp.asarray(orig), jnp.asarray(ref),
+                                       jnp.asarray(seeds), w, h, wb, hb,
+                                       want_surf=True)
+    by, bx = np.divmod(np.arange(hb * wb), wb)
+    a16, a32 = np.arange(16), np.arange(32)
+    sy = np.minimum(16 * by[:, None] + a16, h - 1)
+    sx = np.minimum(16 * bx[:, None] + a16, w - 1)
+    s = seeds.reshape(-1, 2)
+    wy = np.clip(16 * by[:, None] + s[:, 1:2] - 8 + a32, 0, h - 1)
+    wx = np.clip(16 * bx[:, None] + s[:, 0:1] - 8 + a32, 0, w - 1)
+    cur = orig[sy[:, :, None], sx[:, None, :]].astype(np.int64)
+    pat = ref[wy[:, :, None], wx[:, None, :]].astype(np.int64)
+    brute = np.stack([np.abs(cur - pat[:, oy:oy + 16, ox:ox + 16]).sum((1, 2))
+                      for oy in range(17) for ox in range(17)], 1)
+    np.testing.assert_array_equal(np.asarray(surf), brute)
+    args = [torch.from_numpy(a) for a in (orig, ref, seeds)]
+    res, got = dense_me_sweep(*args, w, h, wb, hb, True)
+    assert got.dtype == torch.int32 and got.shape == (hb * wb, 289)
+    np.testing.assert_array_equal(got.numpy(), brute)
+    assert torch.equal(res, dense_me_sweep(*args, w, h, wb, hb))
+    cb, pt = dense_inputs(*args, w, h, wb, hb)
+    res2, got2 = dense_me_argmin_ref(cb, pt, want_surf=True)
+    assert torch.equal(res2, res) and torch.equal(got2, got)

@@ -120,3 +120,82 @@ def test_no_lowres_switch_turns_the_stage_off(monkeypatch):
     assert not tda.device_enc_enabled(None)
     monkeypatch.setenv("TC_NO_LOWRES", "1")
     assert not tda.device_enc_enabled(dev)
+
+
+def test_dense_surface_matches_jax_and_native():
+    """want_surf: the (hb*wb, 289) SAD surface on the port's device path
+    equals the JAX package's want_surf surface and the native prepass's
+    out_surf (the table the host path's full-pel search reads), and the
+    other five values are those of want_surf=False."""
+    from turingcodec_tpu_torch import native
+    orig, ref = _dense_inputs()
+    got = tda.analysis_device(orig, ref, "cpu", want_surf=True)
+    want = jda.analysis_device(orig, ref, want_surf=True)
+    assert len(got) == 6 and got[3:5] == want[3:5]
+    assert got[5].dtype == np.int32 and got[5].shape == (77, 289)
+    for g, w in zip(got[:3] + got[5:], want[:3] + want[5:]):
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(got[:5], tda.analysis_device(orig, ref, "cpu")):
+        np.testing.assert_array_equal(g, w)
+    res = native.dense_analysis(orig, ref, 8)
+    assert res is not None and res[5] is not None
+    np.testing.assert_array_equal(got[5], res[5])
+
+
+def _enc_frames(n, w, h, seed=11):
+    rng = np.random.RandomState(seed)
+    base = rng.randint(0, 256, (h + 16, w + 16)).astype(np.int16)
+    return [[np.ascontiguousarray(base[i:i + h, i * 2:i * 2 + w]),
+             np.ascontiguousarray(base[:h // 2, :w // 2]),
+             np.ascontiguousarray(base[8:8 + h // 2, :w // 2])]
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("no_surf", [False, True])
+def test_encode_installs_one_surface_per_inter_picture(no_surf,
+                                                       monkeypatch):
+    """The low-delay encode with the stage on the device computes one
+    surface per inter picture (both lists hold the same picture, and share
+    it) and hands it to the native install for both lists, unless
+    TC_NO_ME_SURF is set, as on the host prepass; the bitstream is
+    byte-identical to the host path's either way."""
+    from turingcodec_tpu_torch import native
+    from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
+    if no_surf:
+        monkeypatch.setenv("TC_NO_ME_SURF", "1")
+    else:
+        monkeypatch.delenv("TC_NO_ME_SURF", raising=False)
+    installed = []
+    real = native.EncNative.install_seeds
+
+    def spy(self, fields):
+        installed.append({lx: f[4] for lx, f in fields.items()})
+        return real(self, fields)
+
+    monkeypatch.setattr(native.EncNative, "install_seeds", spy)
+    frames = _enc_frames(4, 128, 96)
+
+    def encode(device):
+        enc = Encoder(EncoderConfig(width=128, height=96, qp=32, gop_m=1,
+                                    sao=False, rdoq=True, sdh=True,
+                                    rd_candidates=2, search_range=32,
+                                    device=device))
+        out = [enc.headers()]
+        for f in frames:
+            out += [nal for (_i, nal, _r) in enc.push_frame(
+                [p.copy() for p in f])]
+        out += [nal for (_i, nal, _r) in enc.flush()]
+        return b"".join(out)
+
+    monkeypatch.setattr(tda, "surfaces", 0)
+    got = encode("cpu")
+    assert tda.surfaces == (0 if no_surf else 3)
+    inter = [d for d in installed if d]
+    assert len(inter) == 3 and all(sorted(d) == [0, 1] for d in inter)
+    for d in inter:
+        if no_surf:
+            assert d[0] is None and d[1] is None
+        else:
+            assert d[0].shape == (48, 289) and d[1] is d[0]
+    installed.clear()
+    assert got == encode(None)

@@ -130,6 +130,12 @@ assert "torch" in sys.modules
 import turingcodec_tpu_torch.ops.dense_me  # the kernels' modules loaded
 import turingcodec_tpu_torch.ops.inter
 import turingcodec_tpu_torch.ops.transform
+from turingcodec_tpu_torch.tools import device_enc_check, kernels, testdecode
+assert kernels.main(["--device", "cpu", "--batch", "4", "--iters", "1"]) == 0
+assert testdecode.main(["--device", "none"]) == 0
+from turingcodec_tpu_torch.encode.device_analysis import analysis_device
+assert analysis_device(base[:64, :64], base[4:68, 2:66], "cpu",
+                       want_surf=True)[5].shape == (16, 289)
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "turingcodec_tpu" or m.startswith("turingcodec_tpu.")]

@@ -45,6 +45,17 @@
 // and then across a block's 17 threads with a shared atomicMin: the key
 // orders by cost first and scan position second, so the min reproduces the
 // scan's strict-improvement tie-break in any order.
+//
+// The surface. With an output pointer for it, the kernel also writes every
+// block's 289 SADs, k = oy * 17 + ox (the layout of the JAX package's
+// want_surf program, turingcodec_tpu/encode/device_analysis.py:166-188, and
+// of enc_core dense_search_rows): the encoder's full-pel search then reads
+// its aligned probes from the table instead of computing them on the host.
+// A thread's 17 sums are one row of its block's surface; they go through
+// shared memory (the staged windows, read for the last time) so that the
+// CTA writes its kPer consecutive surfaces as one contiguous run with
+// coalesced stores: 8160 x 289 x 4 = 9.4 MB at 1080p, 2.8 us at 3.35 TB/s,
+// which the operations' 36 us still bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,18 +66,21 @@ constexpr int kPer = 7;                   // ME blocks per CTA (119 threads)
 constexpr int kWinStride = 36;            // floats per staged window row
 constexpr int kWinBlock = 32 * kWinStride + 4;
 constexpr int kSrcBlock = 16 * 16 + 4;
+constexpr int kSurf = 17 * 17;            // SADs per block's surface
+static_assert(kPer * kSurf <= kPer * kWinBlock, "surface exceeds s_win");
 
 // cost < 2^23 keeps the packed key (cost << 9) | k in 32 bits, and SADs
 // below 2^24 keep the float sums exact: both hold for 12-bit samples
 static_assert(((256 * 4095) << 2) + 16 < (1 << 23), "key overflow");
 static_assert(256 * 4095 < (1 << 24), "float SAD not exact");
 
-template <typename T, bool SEEDED>
+template <typename T, bool SEEDED, bool SURF>
 __global__ void __launch_bounds__(kThreads)
 dense_me_kernel(const T* __restrict__ src, int src_stride, int src_h,
                 int src_w, const T* __restrict__ ref, int ref_stride,
                 int ref_h, int ref_w, const int32_t* __restrict__ seeds,
-                int wb, int B, int32_t* __restrict__ out) {
+                int wb, int B, int32_t* __restrict__ out,
+                int32_t* __restrict__ surf) {
     __shared__ __align__(16) float s_win[kPer * kWinBlock];
     __shared__ __align__(16) float s_src[kPer * kSrcBlock];
     __shared__ int s_org[kPer][4];        // source y, x; window y, x
@@ -122,10 +136,11 @@ dense_me_kernel(const T* __restrict__ src, int src_stride, int src_h,
     const int j = t / 17;
     const int oy = t - j * 17;
     const int b = b0 + j;
-    if (j < kPer && b < B) {
+    const bool active = j < kPer && b < B;
+    float acc[17];
+    if (active) {
         const float* wrow = s_win + j * kWinBlock + oy * kWinStride;
         const float* srow = s_src + j * kSrcBlock;
-        float acc[17];
 #pragma unroll
         for (int ox = 0; ox < 17; ++ox) acc[ox] = 0.f;
 #pragma unroll 1
@@ -161,9 +176,23 @@ dense_me_kernel(const T* __restrict__ src, int src_stride, int src_h,
         }
         atomicMin(&s_key[j], key);
     }
+    int* s_surf = reinterpret_cast<int*>(s_win);
+    if (SURF) {
+        __syncthreads();             // every window read is done
+        if (active) {
+#pragma unroll
+            for (int ox = 0; ox < 17; ++ox)
+                s_surf[j * kSurf + oy * 17 + ox] = (int)acc[ox];
+        }
+    }
     __syncthreads();
 
-    if (j < kPer && b < B && oy == 0) {
+    if (SURF) {                      // the CTA's surfaces are one run
+        const int n = min(kPer, B - b0) * kSurf;
+        int32_t* dst = surf + (size_t)b0 * kSurf;
+        for (int i = t; i < n; i += kThreads) dst[i] = s_surf[i];
+    }
+    if (active && oy == 0) {
         const unsigned key = s_key[j];
         const int k = (int)(key & 511u);
         const int my = k / 17 - 8;
@@ -176,20 +205,33 @@ dense_me_kernel(const T* __restrict__ src, int src_stride, int src_h,
     }
 }
 
+template <typename T, bool SEEDED>
+void launch(const void* src, int src_stride, int src_h, int src_w,
+            const void* ref, int ref_stride, int ref_h, int ref_w,
+            const int32_t* seeds, int wb, int B, int32_t* out,
+            int32_t* surf, cudaStream_t stream) {
+    const unsigned grid = (unsigned)((B + kPer - 1) / kPer);
+    if (surf)
+        dense_me_kernel<T, SEEDED, true><<<grid, kThreads, 0, stream>>>(
+            (const T*)src, src_stride, src_h, src_w, (const T*)ref,
+            ref_stride, ref_h, ref_w, seeds, wb, B, out, surf);
+    else
+        dense_me_kernel<T, SEEDED, false><<<grid, kThreads, 0, stream>>>(
+            (const T*)src, src_stride, src_h, src_w, (const T*)ref,
+            ref_stride, ref_h, ref_w, seeds, wb, B, out, surf);
+}
+
 template <typename T>
 void launch(const void* src, int src_stride, int src_h, int src_w,
             const void* ref, int ref_stride, int ref_h, int ref_w,
             const int32_t* seeds, int wb, int B, int32_t* out,
-            cudaStream_t stream) {
-    const unsigned grid = (unsigned)((B + kPer - 1) / kPer);
+            int32_t* surf, cudaStream_t stream) {
     if (seeds)
-        dense_me_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-            (const T*)src, src_stride, src_h, src_w, (const T*)ref,
-            ref_stride, ref_h, ref_w, seeds, wb, B, out);
+        launch<T, true>(src, src_stride, src_h, src_w, ref, ref_stride,
+                        ref_h, ref_w, seeds, wb, B, out, surf, stream);
     else
-        dense_me_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-            (const T*)src, src_stride, src_h, src_w, (const T*)ref,
-            ref_stride, ref_h, ref_w, seeds, wb, B, out);
+        launch<T, false>(src, src_stride, src_h, src_w, ref, ref_stride,
+                         ref_h, ref_w, seeds, wb, B, out, surf, stream);
 }
 
 }  // namespace
@@ -197,25 +239,27 @@ void launch(const void* src, int src_stride, int src_h, int src_w,
 // src: (src_h, src_w) plane, row stride src_stride; ref: (ref_h, ref_w),
 // row stride ref_stride; samples int16 (elem_bytes 2) or int32 (4), at most
 // 12 bits. seeds: (B, 2) int32 [sx, sy] of a grid wb blocks wide, or NULL
-// for the patches layout (see above). out: (B, 3) int32 [ox, oy, sad]. All
-// on the device. Launches on `stream` and returns cudaGetLastError() (0 on
+// for the patches layout (see above). out: (B, 3) int32 [ox, oy, sad];
+// surf: (B, 289) int32 SADs at k = oy * 17 + ox, or NULL for none. All on
+// the device. Launches on `stream` and returns cudaGetLastError() (0 on
 // success, cudaErrorInvalidValue for another elem_bytes); never
 // synchronises.
 extern "C" int dense_me_launch(const void* src, int src_stride, int src_h,
                                int src_w, const void* ref, int ref_stride,
                                int ref_h, int ref_w, const void* seeds,
                                int wb, int B, int elem_bytes, void* out,
-                               void* stream) {
+                               void* surf, void* stream) {
     if (B > 0) {
         const int32_t* s = (const int32_t*)seeds;
         int32_t* o = (int32_t*)out;
+        int32_t* sf = (int32_t*)surf;
         cudaStream_t st = (cudaStream_t)stream;
         if (elem_bytes == 2)
             launch<int16_t>(src, src_stride, src_h, src_w, ref, ref_stride,
-                            ref_h, ref_w, s, wb, B, o, st);
+                            ref_h, ref_w, s, wb, B, o, sf, st);
         else if (elem_bytes == 4)
             launch<int32_t>(src, src_stride, src_h, src_w, ref, ref_stride,
-                            ref_h, ref_w, s, wb, B, o, st);
+                            ref_h, ref_w, s, wb, B, o, sf, st);
         else
             return (int)cudaErrorInvalidValue;
     }

@@ -11,7 +11,10 @@ the host path (integer arithmetic, same tie-breaks):
   then a half-res +/-2 refinement;
 - the dense full-pel +/-8 ME field around the seeds (enc_core
   dense_search_rows twin), through the hand-written kernel
-  ops/dense_me.dense_me_sweep, which reads the planes directly;
+  ops/dense_me.dense_me_sweep, which reads the planes directly, with
+  every block's 17x17 SAD surface unless TC_NO_ME_SURF is set (the
+  switch the host prepass reads): the full-pel search reads its aligned
+  probes from it on both paths;
 - the 15 subpel planes of each reference (enc_core sp_build_plane twin);
 - the source-referenced 35-mode rank-SATD tables (intra_search
   _mode_satds twin).
@@ -32,8 +35,13 @@ import numpy as np
 import torch
 
 from turingcodec_tpu_torch.ops.dense_me import dense_me_sweep, edge_pad
+from turingcodec_tpu_torch.ops.metrics import _wht_last
 
 _STATIC = {}  # per-geometry index tensors, keyed by shape and device
+# SAD surfaces computed for the encoder's install since import (or since a
+# caller reset it to 0): one per distinct reference plane of an inter
+# picture, which both lists share when they hold the same picture
+surfaces = 0
 
 
 def resolve_device(device) -> Optional[torch.device]:
@@ -130,30 +138,37 @@ def seed_field(orig: torch.Tensor, ref: torch.Tensor, wb: int, hb: int):
     return torch.stack([bsx, bsy], -1).to(torch.int32)
 
 
-def _dense_stage(orig, ref, seeds, w, h, wb, hb):
+def _dense_stage(orig, ref, seeds, w, h, wb, hb, want_surf=False):
     """Twin of enc_core dense_search_rows: per 16x16 block, the exhaustive
     +/-8 full-pel SAD winner around the lowres seed, through the
-    dense_me_sweep kernel. Returns ((hb, wb, 2) MVs, (hb, wb) SADs)."""
-    res = dense_me_sweep(orig, ref, seeds, w, h, wb, hb)
+    dense_me_sweep kernel. Returns ((hb, wb, 2) MVs, (hb, wb) SADs), and
+    with want_surf also the (hb*wb, 289) SAD surface."""
+    res = dense_me_sweep(orig, ref, seeds, w, h, wb, hb, want_surf)
+    res, surf = res if want_surf else (res, None)
     off = res[:, :2].reshape(hb, wb, 2)
-    return seeds + off, res[:, 2].reshape(hb, wb)
+    out = (seeds + off, res[:, 2].reshape(hb, wb))
+    return out + (surf,) if want_surf else out
 
 
 def _np32(t: torch.Tensor) -> np.ndarray:
     return t.to(torch.int32).cpu().numpy()
 
 
-def analysis_device(orig_y: np.ndarray, ref_y: np.ndarray, device):
+def analysis_device(orig_y: np.ndarray, ref_y: np.ndarray, device,
+                    want_surf: bool = False):
     """One reference plane's (seed, dense, sad) fields on `device`:
     ((hb, wb, 2), (hb, wb, 2), (hb, wb)) int32 numpy plus wb, hb —
-    integer-exact with the host lowres_prepass + dense_prepass."""
+    integer-exact with the host lowres_prepass + dense_prepass. With
+    want_surf, a sixth value: the dense sweep's (hb*wb, 289) int32 SAD
+    surface, native.dense_analysis's out_surf."""
     h, w = orig_y.shape
     wb, hb = block_dims(w, h)
     orig = upload(orig_y, device, torch.int16)
     ref = upload(ref_y, device, torch.int16)
     seeds = seed_field(orig, ref, wb, hb)
-    dense, dsad = _dense_stage(orig, ref, seeds, w, h, wb, hb)
-    return _np32(seeds), _np32(dense), _np32(dsad), wb, hb
+    dense = _dense_stage(orig, ref, seeds, w, h, wb, hb, want_surf)
+    out = (_np32(seeds), _np32(dense[0]), _np32(dense[1]), wb, hb)
+    return out + (_np32(dense[2]),) if want_surf else out
 
 
 def seed_field_device(orig_y: np.ndarray, ref_y: np.ndarray, device):
@@ -448,21 +463,6 @@ def rank_satd_tables_host(plane, zscan, bd, strong, sizes=(4, 8, 16, 32)):
     return out
 
 
-def _wht_last(x: torch.Tensor) -> torch.Tensor:
-    """Natural-order (Sylvester) Walsh-Hadamard transform along the last
-    dim by add/sub butterflies: x @ H, exact in integers (torch has no
-    integer matmul on CUDA)."""
-    n = x.shape[-1]
-    lead = x.shape[:-1]
-    h = 1
-    while h < n:
-        y = x.reshape(lead + (n // (2 * h), 2, h))
-        a, b = y[..., 0, :], y[..., 1, :]
-        x = torch.stack((a + b, a - b), -2).reshape(lead + (n,))
-        h *= 2
-    return x
-
-
 def _rank_static(w, h, n, zscan_np, device):
     """Per-geometry index tensors of the rank program for one size."""
     from turingcodec_tpu_torch.decode.reconstruct import _HVD_THRES
@@ -669,13 +669,18 @@ def install_subpel_fields(enc) -> Optional[dict]:
 
 
 def install_seed_fields(enc, orig) -> Optional[dict]:
-    """Run the encoder analysis (lowres pre-ME + dense full-pel ME field)
-    on enc.device for the encoder's list-0/1 ref-0 planes and prefill the
-    Python caches; returns {list: (seed_mv, dense_mv|None, wb, hb, None)}
-    for the native install, or None when the stage does not apply."""
+    """Run the encoder analysis (lowres pre-ME + dense full-pel ME field
+    and its SAD surface) on enc.device for the encoder's list-0/1 ref-0
+    planes and prefill the Python caches; returns {list: (seed_mv,
+    dense_mv|None, wb, hb, surf|None)} for the native install, or None when
+    the stage does not apply. The surface comes with the dense field unless
+    TC_NO_ME_SURF is set, as on the host prepass; lists that share a plane
+    share its surface."""
+    global surfaces
     if enc.sh.is_i or getattr(enc, "search_range", 0) < 16:
         return None
     want_dense = not os.environ.get("TC_NO_DENSEME")
+    want_surf = want_dense and not os.environ.get("TC_NO_ME_SURF")
     fields = {}
     done = {}
     for lx in (0, 1):
@@ -685,17 +690,22 @@ def install_seed_fields(enc, orig) -> Optional[dict]:
         plane = refs[0].planes[0]
         k = id(plane)
         if k not in done:
+            surf = None
             if want_dense:
-                sm, dm, ds, wb, hb = analysis_device(
-                    np.asarray(orig[0]), np.asarray(plane), enc.device)
+                sm, dm, ds, wb, hb, *rest = analysis_device(
+                    np.asarray(orig[0]), np.asarray(plane), enc.device,
+                    want_surf)
+                if want_surf:
+                    surf = rest[0]
+                    surfaces += 1
             else:
                 sm, wb, hb = seed_field_device(
                     np.asarray(orig[0]), np.asarray(plane), enc.device)
                 dm = ds = None
-            done[k] = (sm, dm, ds, wb, hb)
-        sm, dm, ds, wb, hb = done[k]
+            done[k] = (sm, dm, ds, wb, hb, surf)
+        sm, dm, ds, wb, hb, surf = done[k]
         enc._lr_seed_cache[k] = (sm, wb, hb)
         if dm is not None:
-            enc._dense_cache[k] = (dm, ds, wb, hb, None)
-        fields[lx] = (sm, dm, wb, hb, None)
+            enc._dense_cache[k] = (dm, ds, wb, hb, surf)
+        fields[lx] = (sm, dm, wb, hb, surf)
     return fields or None

@@ -6,8 +6,10 @@ what bounds it on an H100) replaces the Pallas TPU kernel
 `turingcodec_tpu/ops/pallas_kernels.py::dense_me_argmin`. Two wrappers
 launch it:
 
-- `dense_me_sweep(orig, ref, seeds, w, h, wb, hb)`, the encoder's entry
-  point, reads the sample planes directly around the seeds;
+- `dense_me_sweep(orig, ref, seeds, w, h, wb, hb, want_surf)`, the
+  encoder's entry point, reads the sample planes directly around the
+  seeds, and with `want_surf` also returns every block's 17x17 SAD surface
+  (the table the encoder's full-pel search reads its aligned probes from);
 - `dense_me_argmin(cur, patches)` keeps the Pallas kernel's interface
   (materialised blocks and windows).
 
@@ -94,11 +96,12 @@ def _check_sweep(orig, ref, seeds, w, h, wb, hb) -> None:
         raise ValueError("contiguous inputs required")
 
 
-def dense_me_argmin_ref(cur: torch.Tensor,
-                        patches: torch.Tensor) -> torch.Tensor:
+def dense_me_argmin_ref(cur: torch.Tensor, patches: torch.Tensor,
+                        want_surf: bool = False):
     """Plain torch version: all 289 window SADs, then the min of the packed
     key (cost << 9) | k with k = oy * 17 + ox, whose ties resolve to the
-    first offset in (oy, ox) scan order."""
+    first offset in (oy, ox) scan order. With want_surf, also the (B, 289)
+    int32 SADs themselves."""
     b = _check(cur, patches)
     win = patches.unfold(1, 16, 1).unfold(2, 16, 1)   # (B, 17, 17, 16, 16)
     c = cur[:, None]
@@ -110,9 +113,10 @@ def dense_me_argmin_ref(cur: torch.Tensor,
     k = torch.arange(289, device=cur.device)
     key = (((sad << 2) + pen) << 9) | k
     kbest = key.min(1).values & 511
-    return torch.stack([kbest % 17 - 8, kbest // 17 - 8,
-                        sad.gather(1, kbest[:, None])[:, 0]],
-                       1).to(torch.int32)
+    res = torch.stack([kbest % 17 - 8, kbest // 17 - 8,
+                       sad.gather(1, kbest[:, None])[:, 0]],
+                      1).to(torch.int32)
+    return (res, sad.to(torch.int32)) if want_surf else res
 
 
 def _launcher():
@@ -123,30 +127,34 @@ def _launcher():
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p] + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 2)
+                       + [ctypes.c_void_p] * 3)
         _LAUNCH = fn
     return _LAUNCH
 
 
-def _launch(src, src_hw, ref, ref_hw, seeds, wb, b) -> torch.Tensor:
-    """One kernel launch over contiguous planes on a CUDA device."""
+def _launch(src, src_hw, ref, ref_hw, seeds, wb, b, want_surf=False):
+    """One kernel launch over contiguous planes on a CUDA device; returns
+    the (b, 3) winners, and the (b, 289) surface with want_surf."""
     global launches
     if src.device.type != "cuda":
         raise ValueError(f"unsupported device {src.device}")
     out = torch.empty((b, 3), dtype=torch.int32, device=src.device)
+    surf = (torch.empty((b, 289), dtype=torch.int32, device=src.device)
+            if want_surf else None)
     if b == 0:
-        return out
+        return (out, surf) if want_surf else out
     fn = _launcher()
     stream = torch.cuda.current_stream(src.device).cuda_stream
     with torch.cuda.device(src.device):
         rc = fn(src.data_ptr(), src_hw[1], src_hw[0], src_hw[1],
                 ref.data_ptr(), ref_hw[1], ref_hw[0], ref_hw[1],
                 None if seeds is None else seeds.data_ptr(), wb, b,
-                src.element_size(), out.data_ptr(), stream)
+                src.element_size(), out.data_ptr(),
+                None if surf is None else surf.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"dense_me launch failed: CUDA error {rc}")
     launches += 1
-    return out
+    return (out, surf) if want_surf else out
 
 
 def dense_me_argmin(cur: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
@@ -165,8 +173,8 @@ def dense_me_argmin(cur: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
 
 
 def dense_me_sweep(orig: torch.Tensor, ref: torch.Tensor,
-                   seeds: torch.Tensor, w: int, h: int, wb: int,
-                   hb: int) -> torch.Tensor:
+                   seeds: torch.Tensor, w: int, h: int, wb: int, hb: int,
+                   want_surf: bool = False):
     """Twin of enc_core dense_search_rows: dense_me_argmin over every
     16x16 block of the wb x hb grid, read straight from the planes.
 
@@ -175,10 +183,12 @@ def dense_me_sweep(orig: torch.Tensor, ref: torch.Tensor,
     the source at (16 by, 16 bx) and the window at (16 by + sy - 8,
     16 bx + sx - 8), both with every coordinate clamped into the planes
     (the edge replication of dense_inputs). Returns (hb*wb, 3) int32
-    [ox, oy, sad]. CPU tensors take the plain version; CUDA tensors launch
-    the kernel, and a failed build or launch raises."""
+    [ox, oy, sad]; with want_surf, that and the (hb*wb, 289) int32 SAD
+    surface, k = oy * 17 + ox for the offset (ox - 8, oy - 8). CPU tensors
+    take the plain version; CUDA tensors launch the kernel, and a failed
+    build or launch raises."""
     _check_sweep(orig, ref, seeds, w, h, wb, hb)
     if orig.device.type == "cpu":
         return dense_me_argmin_ref(*dense_inputs(orig, ref, seeds, w, h, wb,
-                                                 hb))
-    return _launch(orig, (h, w), ref, (h, w), seeds, wb, hb * wb)
+                                                 hb), want_surf)
+    return _launch(orig, (h, w), ref, (h, w), seeds, wb, hb * wb, want_surf)

@@ -8,18 +8,27 @@ decode/inter_pred.py; havoc/pred_inter.cpp parity).
 an H100). `mc_block_grid_ref` is the plain torch version of the same
 function: the wrapper takes it for CPU tensors, and the kernel is held
 against it on the card.
+
+`interp_luma_all_phases` gives all 16 quarter-sample phases of a batch of
+luma windows (the encoder side's sub-sample refinement): CUDA tensors
+launch `csrc/interp_all_phases.cu`, which replaces the int32 einsums of
+`turingcodec_tpu/ops/inter.py::interp_luma_all_phases`; CPU tensors take
+the plain torch version `interp_luma_all_phases_ref`.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from turingcodec_tpu_torch.hevc.tables import CHROMA_FILTER, LUMA_FILTER
 from turingcodec_tpu_torch.ops import kernel_build
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset it to 0):
+# mc_block_grid's, and interp_luma_all_phases's
 launches = 0
+interp_launches = 0
 # what one launch takes (csrc kMaxGroups, kMaxPlanes): up to 4 (list,
 # component) groups and 64 reference planes in all (2 lists x 2 chroma
 # components x 16, the most an HEVC list holds)
@@ -27,6 +36,7 @@ MAX_GROUPS = 4
 MAX_PLANES = 64
 
 _LAUNCH = None
+_INTERP_LAUNCH = None
 
 
 def _filter_on(taps: int, device) -> torch.Tensor:
@@ -178,4 +188,107 @@ def mc_block_grid(planes, ref_sel: torch.Tensor, xi: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"mc_block_grid launch failed: CUDA error {rc}")
     launches += 1
+    return out
+
+
+def _check_interp(win: torch.Tensor, w: int, h: int, bit_depth: int):
+    if win.dtype != torch.int16:
+        raise TypeError(f"int16 windows required, got {win.dtype}")
+    if win.dim() != 3 or tuple(win.shape[1:]) != (h + 7, w + 7) \
+            or w < 1 or h < 1:
+        raise ValueError(f"(B, {h + 7}, {w + 7}) windows required, got "
+                         f"{tuple(win.shape)}")
+    if not 8 <= bit_depth <= 12:
+        raise ValueError(f"bit depth {bit_depth} unsupported")
+    if not win.is_contiguous():
+        raise ValueError("contiguous windows required")
+
+
+def interp_luma_all_phases_ref(win: torch.Tensor, w: int, h: int,
+                               bit_depth: int = 8) -> torch.Tensor:
+    """Plain torch version of interp_luma_all_phases: the horizontal pass
+    at the four x phases over every window row, the vertical pass at the
+    four y phases over those, then the three exact-phase patches, in
+    int32."""
+    _check_interp(win, w, h, bit_depth)
+    shift1 = bit_depth - 8
+    shift3 = 14 - bit_depth
+    win = win.to(torch.int32)
+    f = _filter_on(8, win.device)                      # (4 phases, 8 taps)
+
+    def fir(slices, phase):
+        acc = slices(0) * f[phase, 0]
+        for k in range(1, 8):
+            acc = acc + slices(k) * f[phase, k]
+        return acc
+
+    # htmp[:, px]: (B, h + 7, w), the horizontal pass of every row
+    htmp = torch.stack([fir(lambda k: win[:, :, k:k + w], p) >> shift1
+                        for p in range(4)], 1)
+    out = torch.stack([torch.stack([
+        fir(lambda k: htmp[:, px, k:k + h], py) >> 6 for px in range(4)], 1)
+        for py in range(4)], 1)                        # (B, 4y, 4x, h, w)
+    # the exact-phase cases: (0, x > 0) H only, (y > 0, 0) V only, (0, 0)
+    out[:, 0] = htmp[:, :, 3:3 + h]
+    out[:, :, 0] = torch.stack([
+        fir(lambda k: win[:, k:k + h, 3:3 + w], py) >> shift1
+        for py in range(4)], 1)
+    out[:, 0, 0] = win[:, 3:3 + h, 3:3 + w] << shift3
+    return out
+
+
+def _interp_launcher():
+    global _INTERP_LAUNCH
+    if _INTERP_LAUNCH is None:
+        fn = kernel_build.load("interp_all_phases").interp_all_phases_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 2)
+        _INTERP_LAUNCH = fn
+    return _INTERP_LAUNCH
+
+
+def interp_luma_all_phases(win: torch.Tensor, w: int, h: int,
+                           bit_depth: int = 8) -> torch.Tensor:
+    """(B, h+7, w+7) int16 windows -> (B, 4, 4, h, w) int32 14-bit
+    predictions of the block at the window's (3, 3) for every (yfrac,
+    xfrac) quarter-sample phase, bit-exact with decode.inter_pred.
+    interp_luma per phase; bit depths 8..12. CPU tensors take the plain
+    version; CUDA tensors launch the kernel once, and a failed build or
+    launch raises."""
+    global interp_launches
+    _check_interp(win, w, h, bit_depth)
+    if win.device.type == "cpu":
+        return interp_luma_all_phases_ref(win, w, h, bit_depth)
+    if win.device.type != "cuda":
+        raise ValueError(f"unsupported device {win.device}")
+    b = win.shape[0]
+    out = torch.empty((b, 4, 4, h, w), dtype=torch.int32, device=win.device)
+    if b == 0:
+        return out
+    filt = _filter_on(8, win.device)
+    fn = _interp_launcher()
+    stream = torch.cuda.current_stream(win.device).cuda_stream
+    with torch.cuda.device(win.device):
+        rc = fn(win.data_ptr(), filt.data_ptr(), b, w, h, bit_depth,
+                out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"interp_all_phases launch failed: CUDA error "
+                           f"{rc}")
+    interp_launches += 1
+    return out
+
+
+def interp_luma_all_phases_np(win: np.ndarray, w: int, h: int,
+                              bit_depth: int = 8) -> np.ndarray:
+    """numpy oracle via the scalar decoder op on an inner window."""
+    from turingcodec_tpu_torch.decode.inter_pred import interp_luma
+    b = win.shape[0]
+    out = np.zeros((b, 4, 4, h, w), np.int64)
+    for i in range(b):
+        # a reference picture whose window sits at (3, 3)
+        for fy in range(4):
+            for fx in range(4):
+                out[i, fy, fx] = interp_luma(win[i], 3, 3, fx, fy, w, h,
+                                             bit_depth)
     return out

@@ -8,8 +8,9 @@ with ctypes. A failed build raises; nothing falls back.
 The constant tables the kernels and their plain versions read (DCT
 matrices, filter taps, QP tables) stay in hevc/tables.py and friends;
 `table` puts each on a device once, and `_tables` compiles into a kernel
-the tables it reads as immediates (the residual kernel's DCT coefficients:
-from the kernel's parameters they cost it a constant-cache miss each).
+the tables it reads as immediates (the DCT coefficients of the residual
+kernel and of the forward transform, and the forward DST: from the
+kernel's parameters they cost it a constant-cache miss each).
 """
 from __future__ import annotations
 
@@ -51,15 +52,20 @@ def _tables(name: str) -> list:
     at compile time, made from hevc/tables.py so that each table lives
     there alone: a generated header of #defines, pre-included (nvcc splits
     a -D value at its commas)."""
-    if name != "dequant_idct":
+    from turingcodec_tpu_torch.hevc.tables import DST4, dct2_matrix
+    tables = {"TC_DCT32_HALF": np.asarray(dct2_matrix(32))[:, :16],
+              "TC_DST4": np.asarray(DST4)}
+    wanted = {"dequant_idct": ("TC_DCT32_HALF",),
+              "fwd_transform": ("TC_DCT32_HALF", "TC_DST4")}.get(name)
+    if not wanted:
         return []
-    from turingcodec_tpu_torch.hevc.tables import dct2_matrix
-    half = np.asarray(dct2_matrix(32))[:, :16].ravel().tolist()
     header = os.path.join(BUILD_DIR, f"{name}_tables.h")
     tmp = f"{header}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
-        f.write("// generated by ops/kernel_build.py from hevc/tables.py\n"
-                f"#define TC_DCT32_HALF {', '.join(map(str, half))}\n")
+        f.write("// generated by ops/kernel_build.py from hevc/tables.py\n")
+        for key in wanted:
+            vals = ", ".join(map(str, tables[key].ravel().tolist()))
+            f.write(f"#define {key} {vals}\n")
     os.replace(tmp, header)
     return ["--pre-include", header]
 

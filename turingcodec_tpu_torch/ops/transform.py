@@ -1,5 +1,12 @@
-"""HEVC transforms: the forward transform the host encoder needs (numpy),
-and the decoder's inverse transform as torch code with its CUDA kernel.
+"""HEVC transforms: the batched forward transform with its CUDA kernel
+(and the numpy one the host encoder needs), and the decoder's inverse
+transform as torch code with its CUDA kernel.
+
+`forward_transform_batch` transforms a (B, N, N) batch of residual blocks
+of one size: CUDA tensors launch `csrc/fwd_transform.cu`, which replaces
+the int32 einsums of `turingcodec_tpu/ops/transform.py::
+forward_transform_batch`; CPU tensors take the plain torch version
+`forward_transform_batch_ref`.
 
 `dequant_idct_add` is the decoder's residual stage for one picture: for
 every coded inter TU of all three components it dequantizes the levels
@@ -32,8 +39,10 @@ from turingcodec_tpu_torch.hevc.tables import DST4, LEVEL_SCALE, dct2_matrix
 from turingcodec_tpu_torch.ops import kernel_build
 from turingcodec_tpu_torch.ops.quant import dequant_batch
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset it to 0):
+# dequant_idct_add's, and forward_transform_batch's
 launches = 0
+fwd_launches = 0
 
 # TU table columns, and the kind field's layout: mode in bits 0-1, log2
 # size in bits 2-4, component in bits 5-6 (csrc/dequant_idct.cu reads it)
@@ -42,6 +51,7 @@ MODES = (0, 1, 2)
 LOG2_SIZES = (2, 3, 4, 5)
 
 _LAUNCH = None
+_FWD_LAUNCH = None
 
 
 def tu_kind(comp, log2, mode):
@@ -73,6 +83,84 @@ def forward_transform_np(res: np.ndarray, bit_depth: int = 8,
     c = m @ t
     c = (c + (1 << (shift2 - 1))) >> shift2
     return c.astype(np.int32)
+
+
+def _check_fwd(res: torch.Tensor, bit_depth: int, use_dst: bool) -> int:
+    """Raises on anything the kernel does not take; returns log2 N."""
+    if res.dtype != torch.int32:
+        raise TypeError(f"int32 residuals required, got {res.dtype}")
+    n = res.shape[-1] if res.dim() == 3 else 0
+    if res.dim() != 3 or res.shape[1] != n or n not in (4, 8, 16, 32):
+        raise ValueError(f"(B, N, N) residuals with N in 4..32 required, "
+                         f"got {tuple(res.shape)}")
+    if use_dst and n != 4:
+        raise ValueError(f"the DST is 4x4 only, got N = {n}")
+    if not 8 <= bit_depth <= 12:
+        raise ValueError(f"bit depth {bit_depth} unsupported")
+    if not res.is_contiguous():
+        raise ValueError("contiguous residuals required")
+    return n.bit_length() - 1
+
+
+def forward_transform_batch_ref(res: torch.Tensor, bit_depth: int = 8,
+                                use_dst: bool = False) -> torch.Tensor:
+    """Plain torch version of forward_transform_batch: the two matrix
+    products in float64 (exact: every sum stays below 2^53 for int32
+    inputs), each wrapped to int32 as the JAX program's int32 einsum is,
+    with the rounding shifts in int32."""
+    log2n = _check_fwd(res, bit_depth, use_dst)
+    m = kernel_build.table(_matrix(1 << log2n, use_dst),
+                           res.device).to(torch.float64)
+    shift1 = log2n + bit_depth - 9
+    shift2 = log2n + 6
+    # int64 -> int32 keeps the value modulo 2^32, as JAX's int32 einsum
+    t = torch.matmul(res.to(torch.float64), m.T).to(torch.int64).to(
+        torch.int32)
+    t = (t + (1 << (shift1 - 1))) >> shift1
+    c = torch.matmul(m, t.to(torch.float64)).to(torch.int64).to(torch.int32)
+    return (c + (1 << (shift2 - 1))) >> shift2
+
+
+def _fwd_launcher():
+    global _FWD_LAUNCH
+    if _FWD_LAUNCH is None:
+        fn = kernel_build.load("fwd_transform").fwd_transform_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        _FWD_LAUNCH = fn
+    return _FWD_LAUNCH
+
+
+def forward_transform_batch(res: torch.Tensor, bit_depth: int = 8,
+                            use_dst: bool = False) -> torch.Tensor:
+    """(B, N, N) int32 residuals -> (B, N, N) int32 transform coefficients.
+
+    HM-style forward transform (encoder side), N in 4..32 (the DCT) or 4
+    (use_dst, the DST), bit depths 8..12: two stages with shift1 = log2 N
+    + bit_depth - 9 and shift2 = log2 N + 6, no clip between them. CPU
+    tensors take the plain version; CUDA tensors launch the kernel once
+    for the batch, and a failed build or launch raises."""
+    global fwd_launches
+    log2n = _check_fwd(res, bit_depth, use_dst)
+    if res.device.type == "cpu":
+        return forward_transform_batch_ref(res, bit_depth, use_dst)
+    if res.device.type != "cuda":
+        raise ValueError(f"unsupported device {res.device}")
+    if res.data_ptr() % 16:
+        raise ValueError("residuals must be 16-byte aligned")
+    out = torch.empty_like(res)
+    if res.shape[0] == 0:
+        return out
+    fn = _fwd_launcher()
+    stream = torch.cuda.current_stream(res.device).cuda_stream
+    with torch.cuda.device(res.device):
+        rc = fn(res.data_ptr(), out.data_ptr(), res.shape[0], log2n,
+                int(use_dst), bit_depth, stream)
+    if rc != 0:
+        raise RuntimeError(f"fwd_transform launch failed: CUDA error {rc}")
+    fwd_launches += 1
+    return out
 
 
 def _clip16(x: torch.Tensor) -> torch.Tensor:
