@@ -11,9 +11,9 @@ every encoder analysis stage on the card against its host twin at 1080p
 then drives the main path: decode tests/streams/vfy_sweep.hevc (md5
 against tests/streams/GOLDEN.json), upscale it 3x to 1920x1080, encode 8
 frames at the fast low-delay operating point with the analysis stage on
-the card and on the host, with SAD surfaces and with TC_NO_ME_SURF, in
-turns (on, off, off, on), check byte-identical bitstreams and one surface
-installed per inter picture, and decode the result hash-clean. Then the decoder's
+the card and on the host (byte-identical bitstreams, one SAD surface
+installed per inter picture), once more on the card with TC_NO_ME_SURF
+(the same bytes, no surface), and decode the result hash-clean. Then the decoder's
 device pipeline: every staged decode stage on the card against
 its host twin (on the 1080p encode and on vfy_sweep), the two decoder
 kernels against their plain versions (MC: synthetic inputs of two
@@ -31,7 +31,8 @@ the forward transform and all-phase interpolation kernels against their
 plain versions (8 and 10 bits, extreme inputs, every size and phase,
 ragged batches), the torch ops on the card against the CPU,
 tools/kernels.py at its defaults (the path that launches the two
-kernels) and tools/testdecode.py on tests/streams, on the card. Last,
+kernels, and the residual kernel) and tools/testdecode.py on
+tests/streams, on the card. Last,
 each kernel's device time per launch at its path's shapes and the
 residual stage's device time per inter picture (torch.profiler). Any failed check raises and the exit code is non-zero.
 
@@ -262,58 +263,44 @@ def check_kernel(device, orig, ref, reps):
 
 
 def main_path(frames, device):
-    """The encode with the stage on the device and on the host, in turns,
-    with SAD surfaces and with TC_NO_ME_SURF in the order on, off, off, on;
-    returns (kernel launches in the first device run, its bitstream)."""
+    """The encode with the stage on the device (kernel counts read around
+    it) and on the host, with SAD surfaces; then on the device with
+    TC_NO_ME_SURF. Returns (dense_me launches of the first run, its
+    bitstream)."""
     from turingcodec_tpu_torch.decode.decoder import Decoder
     from turingcodec_tpu_torch.encode import device_analysis as da
     from turingcodec_tpu_torch.tools.device_enc_check import encode
     n_p = len(frames) - 1   # low-delay P: one IDR, then P pictures
-    fps = {(s, d): [] for s in ("on", "off") for d in ("card", "host")}
-    streams = set()
-    launches = None
-    for surf in ("on", "off", "off", "on"):
-        if surf == "off":
-            os.environ["TC_NO_ME_SURF"] = "1"
-        try:
-            reset_launches()
-            da.surfaces = 0
-            bs_dev, f_dev = encode(frames, str(device))
-            counts = read_launches()
-            check(da.surfaces == (n_p if surf == "on" else 0),
-                  f"{da.surfaces} SAD surfaces installed for {n_p} inter "
-                  f"pictures, surfaces {surf}")
-            bs_host, f_host = encode(frames, None)
-        finally:
-            os.environ.pop("TC_NO_ME_SURF", None)
-        check(bs_dev == bs_host, f"device and host bitstreams differ, "
-              f"surfaces {surf}")
-        streams.add(bs_dev)
-        fps[surf, "card"].append(f_dev)
-        fps[surf, "host"].append(f_host)
-        if launches is None:
-            launches = counts.pop("dense_me")
-            bitstream = bs_dev
-            check(launches >= n_p and not any(counts.values()),
-                  f"{launches} dense_me launches for {n_p} P pictures; "
-                  f"{counts}")
-    check(len(streams) == 1, "the bitstreams differ with TC_NO_ME_SURF")
-    log("encode fps in turns (surfaces on, off, off, on; card then host "
-        "each time): " + "; ".join(
-            f"surfaces {s} {d} " + " / ".join(f"{v:.4f}" for v in fps[s, d])
-            for s in ("on", "off") for d in ("card", "host"))
-        + f"; {n_p} surfaces installed per run with surfaces, all eight "
-        f"bitstreams identical")
+    reset_launches()
+    da.surfaces = 0
+    bitstream, fps = encode(frames, str(device), QP)
+    counts = read_launches()
+    surfaces = da.surfaces
+    launches = counts.pop("dense_me")
+    bs_host, fps_host = encode(frames, None, QP)
+    os.environ["TC_NO_ME_SURF"] = "1"
+    try:
+        da.surfaces = 0
+        bs_off = encode(frames, str(device), QP)[0]
+    finally:
+        os.environ.pop("TC_NO_ME_SURF", None)
+    check(bitstream == bs_host, "device and host bitstreams differ")
+    check(surfaces == n_p and da.surfaces == 0,
+          f"{surfaces} SAD surfaces installed for {n_p} inter pictures, "
+          f"{da.surfaces} with TC_NO_ME_SURF")
+    check(bs_off == bitstream, "the bitstream differs with TC_NO_ME_SURF")
+    check(launches >= n_p and not any(counts.values()),
+          f"{launches} dense_me launches for {n_p} P pictures; {counts}")
     dec = Decoder(device=None)
     n = sum(1 for _ in dec.decode_stream(bitstream))
     check(n == len(frames) and dec.hash_failures == 0,
           f"decoded {n} frames, {dec.hash_failures} hash failures")
     h, w = frames[0][0].shape
-    log(f"encode {len(frames)} frames {w}x{h}: device={device} "
-        f"{fps['on', 'card'][0]:.4f} fps, host {fps['on', 'host'][0]:.4f} "
-        f"fps, {len(bitstream)} bytes identical; dense_me launches "
-        f"{launches} (>= {n_p} P pictures); decoded {n} frames, 0 hash "
-        f"failures")
+    log(f"encode {len(frames)} frames {w}x{h}: device={device} {fps:.4f} "
+        f"fps, host {fps_host:.4f} fps, {len(bitstream)} bytes identical, "
+        f"{surfaces} SAD surfaces installed, the same bytes on the card "
+        f"with TC_NO_ME_SURF; dense_me launches {launches} (>= {n_p} P "
+        f"pictures); decoded {n} frames, 0 hash failures")
     return launches, bitstream
 
 
@@ -768,16 +755,17 @@ def check_dsp_ops(device, reps):
 
 def dsp_path(device):
     """The DSP op library's own entry points on the card: tools/kernels.py
-    at its defaults (the two kernels' path: counts read around it) and
-    tools/testdecode.py on tests/streams. Returns the launches."""
+    at its defaults (the path of the two kernels and of the residual
+    kernel: counts read around it) and tools/testdecode.py on
+    tests/streams. Returns the launches."""
     from turingcodec_tpu_torch.tools import kernels, testdecode
     reset_launches()
     rc = kernels.main(["--device", str(device.type)])
     launches = read_launches()
     check(rc == 0, "tools/kernels.py reported a mismatch")
     check(launches["fwd_transform"] and launches["interp_all_phases"]
-          and not (launches["dense_me"] or launches["mc_block_grid"]
-                   or launches["dequant_idct"]),
+          and launches["dequant_idct"]
+          and not (launches["dense_me"] or launches["mc_block_grid"]),
           f"tools/kernels.py launches {launches}")
     check(testdecode.main(["--device", str(device.type)]) == 0,
           "tools/testdecode.py failed on tests/streams")

@@ -199,3 +199,36 @@ def test_encode_installs_one_surface_per_inter_picture(no_surf,
             assert d[0].shape == (48, 289) and d[1] is d[0]
     installed.clear()
     assert got == encode(None)
+
+
+def test_encode_keeps_no_installed_surface(monkeypatch):
+    """The native core copies the fields it is given, so a picture's seed
+    and dense fields and its 289-SAD surface die with the picture: over a
+    six-picture encode with the stage on the device, at most the last
+    inter picture's surface is still alive."""
+    import gc
+    import weakref
+
+    from turingcodec_tpu_torch import native
+    from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
+    monkeypatch.delenv("TC_NO_ME_SURF", raising=False)
+    refs = []
+    real = native.EncNative.install_seeds
+
+    def spy(self, fields):
+        surfs = {id(f[4]): f[4] for f in fields.values() if f[4] is not None}
+        refs.extend(weakref.ref(s) for s in surfs.values())
+        return real(self, fields)
+
+    monkeypatch.setattr(native.EncNative, "install_seeds", spy)
+    enc = Encoder(EncoderConfig(width=128, height=96, qp=32, gop_m=1,
+                                sao=False, rdoq=True, sdh=True,
+                                rd_candidates=1, search_range=32,
+                                device="cpu"))
+    enc.headers()
+    for f in _enc_frames(6, 128, 96):
+        enc.push_frame([p.copy() for p in f])
+    enc.flush()
+    gc.collect()
+    assert len(refs) == 5
+    assert sum(r() is not None for r in refs) <= 1

@@ -22,9 +22,40 @@ def test_kernels_self_test_passes_on_the_cpu(capsys):
                          "--iters", "1"]) == 0
     out = capsys.readouterr().out
     assert "ALL OK" in out and "FAIL" not in out
-    for row in ("forward_dct_32x32", "quant_16x16", "satd8_16x16",
+    for row in ("forward_dct_32x32", "dequant_idct_4x4",
+                "dequant_idct_32x32", "quant_16x16", "satd8_16x16",
                 "intra35_32x32", "interp16_luma_16x16", "satd8_native"):
         assert row in out
+
+
+def test_kernels_residual_rows_take_the_kernels_entry_point(monkeypatch):
+    """The residual rows go through dequant_idct_add, the entry point that
+    launches csrc/dequant_idct.cu on the card, for each TU size."""
+    from turingcodec_tpu_torch.ops import transform
+    calls = []
+    real = transform.dequant_idct_add
+
+    def spy(coeff, planes, table, bds):
+        calls.append(len(table))
+        return real(coeff, planes, table, bds)
+
+    monkeypatch.setattr(transform, "dequant_idct_add", spy)
+    assert kernels.main(["--device", "cpu", "--batch", "5",
+                         "--iters", "1"]) == 0
+    # the check and the warm-up and timed calls of _bench, per size
+    assert calls == [5] * 12
+
+
+@pytest.mark.cuda
+def test_kernels_self_test_launches_the_kernels_on_the_card(capsys):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from turingcodec_tpu_torch.ops import inter, transform
+    transform.launches = transform.fwd_launches = inter.interp_launches = 0
+    assert kernels.main(["--batch", "64", "--iters", "1"]) == 0
+    assert "ALL OK" in capsys.readouterr().out
+    assert transform.launches == 12 and transform.fwd_launches == 12
+    assert inter.interp_launches == 3
 
 
 @pytest.mark.parametrize("device", ["none", "cpu"])
@@ -78,3 +109,20 @@ def test_device_enc_check_analysis_on_the_cpu():
     assert device_enc_check.analysis_checks(orig, ref, zscan, "cpu", 0,
                                             lines.append) == {}
     assert any("SAD surface" in ln for ln in lines)
+
+
+def test_device_enc_check_encode_turns_on_the_cpu():
+    """Four turns with SAD surfaces and with TC_NO_ME_SURF, the stage on
+    the device and on the host: eight identical bitstreams, one surface per
+    inter picture with surfaces (encode_turns checks both)."""
+    rng = np.random.RandomState(3)
+    base = rng.randint(0, 256, (112, 160)).astype(np.int16)
+    frames = [[np.ascontiguousarray(base[i:i + 96, 2 * i:2 * i + 128]),
+               base[:48, :64].copy(), base[8:56, :64].copy()]
+              for i in range(3)]
+    lines = []
+    fps = device_enc_check.encode_turns(frames, "cpu", lines.append)
+    assert sorted(fps) == [("off", "device"), ("off", "host"),
+                           ("on", "device"), ("on", "host")]
+    assert all(len(v) == 2 and min(v) > 0 for v in fps.values())
+    assert "all eight bitstreams identical" in lines[0]

@@ -1235,23 +1235,20 @@ class EncNative:
     def install_seeds(self, fields):
         """Install device-computed encoder analysis fields
         (encode/device_analysis.py):
-        {list: (seed_mv (hb, wb, 2), dense_mv|None, wb, hb)}."""
-        self._keep_seeds = getattr(self, "_keep_seeds", [])
+        {list: (seed_mv (hb, wb, 2), dense_mv|None, wb, hb[, surf|None])}.
+        The native core copies each array, so none is kept here."""
         for lx, f in fields.items():
             sm, dm, wb, hb = f[:4]
             surf = f[4] if len(f) > 4 else None
             arr = np.ascontiguousarray(sm, np.int16).reshape(-1)
-            self._keep_seeds.append(arr)
             self.lib.tc_enc_install_seeds(
                 lx, ctypes.c_void_p(arr.ctypes.data), wb, hb)
             if dm is not None:
                 darr = np.ascontiguousarray(dm, np.int16).reshape(-1)
-                self._keep_seeds.append(darr)
                 self.lib.tc_enc_install_dense(
                     lx, ctypes.c_void_p(darr.ctypes.data), wb, hb)
                 if surf is not None:
                     sarr = np.ascontiguousarray(surf, np.int32)
-                    self._keep_seeds.append(sarr)
                     self.lib.tc_enc_install_densesurf(
                         lx, ctypes.c_void_p(sarr.ctypes.data), wb, hb)
 

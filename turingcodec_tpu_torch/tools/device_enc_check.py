@@ -11,13 +11,16 @@ exact integers:
   and surface);
 - the subpel planes at 8 and 10 bits and the rank-SATD tables against
   their numpy twins;
-- an encode of the first 4 frames with the stage on the device,
-  byte-identical to the host path's (device=None).
+- an encode of the first --frames frames (4) with the stage on the
+  device, byte-identical to the host path's (device=None), with one SAD
+  surface installed per inter picture.
 Each stage's time per picture (host clock, transfers included) is
-printed beside it.
+printed beside it. --turns encodes in four turns instead, with SAD
+surfaces and with TC_NO_ME_SURF (on, off, off, on), on the device and on
+the host each turn, and prints the frame rates.
 
 Usage: python -m turingcodec_tpu_torch.tools.device_enc_check
-           [--device {cuda,cpu}] [--upscale N]
+           [--device {cuda,cpu}] [--upscale N] [--frames N] [--turns]
 
 --device cuda (the default) runs the stage on the GPU and raises without
 one; cpu runs the same torch code with the kernels' plain versions.
@@ -165,12 +168,12 @@ def analysis_checks(orig, ref, zscan, device, reps: int = 3, log=print):
     return times
 
 
-def encode(frames, device):
-    """Encode at bench.py's fast low-delay operating point (QP 30);
-    returns (bitstream, frames/s)."""
+def encode(frames, device, qp: int = 30):
+    """Encode at bench.py's fast low-delay operating point (QP 30 unless
+    given); returns (bitstream, frames/s)."""
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
     h, w = frames[0][0].shape
-    cfg = EncoderConfig(width=w, height=h, qp=30, rd_candidates=1,
+    cfg = EncoderConfig(width=w, height=h, qp=qp, rd_candidates=1,
                         search_range=32, gop_m=1, sao=False, rdoq=True,
                         sdh=True, device=device)
     enc = Encoder(cfg)
@@ -184,6 +187,41 @@ def encode(frames, device):
     return b"".join(out), len(frames) / (time.perf_counter() - t0)
 
 
+def encode_turns(frames, device, log=print):
+    """The encode with the stage on `device` and on the host, with SAD
+    surfaces and with TC_NO_ME_SURF, in turns (on, off, off, on); checks
+    every bitstream identical and one surface per inter picture with
+    surfaces. Returns {(surfaces, "device" | "host"): [frames/s, ...]}."""
+    from turingcodec_tpu_torch.encode import device_analysis as da
+    n_p = len(frames) - 1   # low-delay P: one IDR, then P pictures
+    fps = {(s, d): [] for s in ("on", "off") for d in ("device", "host")}
+    streams = set()
+    for surf in ("on", "off", "off", "on"):
+        if surf == "off":
+            os.environ["TC_NO_ME_SURF"] = "1"
+        try:
+            da.surfaces = 0
+            bs, f_dev = encode(frames, str(device))
+            check(da.surfaces == (n_p if surf == "on" else 0),
+                  f"{da.surfaces} SAD surfaces installed for {n_p} inter "
+                  f"pictures, surfaces {surf}")
+            bs_host, f_host = encode(frames, None)
+        finally:
+            os.environ.pop("TC_NO_ME_SURF", None)
+        streams |= {bs, bs_host}
+        fps[surf, "device"].append(f_dev)
+        fps[surf, "host"].append(f_host)
+    check(len(streams) == 1, "the bitstreams differ between turns")
+    h, w = frames[0][0].shape
+    log(f"encode {len(frames)} frames {w}x{h} fps in turns (surfaces on, "
+        f"off, off, on; device={device} then host each time): " + "; ".join(
+            f"surfaces {s} {d} " + " / ".join(f"{v:.4f}" for v in fps[s, d])
+            for s in ("on", "off") for d in ("device", "host"))
+        + f"; {n_p} surfaces per run with them, all eight bitstreams "
+        f"identical")
+    return fps
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="turingcodec_tpu_torch "
                                       "device_enc_check")
@@ -193,6 +231,11 @@ def main(argv=None):
     ap.add_argument("--upscale", type=int, default=1,
                     help="nearest-neighbour upscale of vfy_sweep's 640x360 "
                          "frames (3 gives 1920x1080)")
+    ap.add_argument("--frames", type=int, default=4,
+                    help="frames to encode (vfy_sweep has 8)")
+    ap.add_argument("--turns", action="store_true",
+                    help="encode in turns with SAD surfaces and with "
+                         "TC_NO_ME_SURF, on the device and on the host")
     args = ap.parse_args(argv)
 
     import torch
@@ -202,13 +245,17 @@ def main(argv=None):
     device = da.resolve_device(args.device)
     if device.type == "cuda":
         print(f"device: {torch.cuda.get_device_name(device)}")
-    frames = decode_inputs(4, args.upscale)
+    frames = decode_inputs(args.frames, args.upscale)
     orig, ref = frames[1][0], frames[0][0]
     h, w = orig.shape
     zscan = Encoder(EncoderConfig(width=w, height=h, qp=30,
                                   rd_candidates=1, device=None)).geom.zscan
     analysis_checks(orig, ref, zscan, device)
 
+    if args.turns:
+        encode_turns(frames, device)
+        print("OK")
+        return 0
     da.surfaces = 0
     got, fps = encode(frames, str(device))
     surfaces = da.surfaces

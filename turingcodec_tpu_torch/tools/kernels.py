@@ -6,10 +6,12 @@ kernels are checked against their C template.
 Usage: python -m turingcodec_tpu_torch.tools.kernels [--batch N]
            [--iters N] [--device {cuda,cpu}]
 
---device cuda (the default) runs the ops on the GPU, the forward transform
-and the all-phase interpolation through their CUDA kernels, and raises
-without a GPU; cpu runs the same ops with the kernels' plain versions.
-Exits 1 on any mismatch.
+--device cuda (the default) runs the ops on the GPU, the forward transform,
+the all-phase interpolation and the decoder's residual stage (dequantization,
+inverse DCT, add and clip of a batch of TUs: the `dequant_idct_NxN` rows,
+where the JAX tool times the inverse DCT and the dequantization apart)
+through their CUDA kernels, and raises without a GPU; cpu runs the same ops
+with the kernels' plain versions. Exits 1 on any mismatch.
 """
 from __future__ import annotations
 
@@ -57,10 +59,10 @@ def main(argv=None):
         intra_predict_all_modes, intra_predict_all_modes_np)
     from turingcodec_tpu_torch.ops.metrics import (sad_batch, satd_batch,
                                                    satd_np, ssd_batch)
-    from turingcodec_tpu_torch.ops.quant import dequant_batch, quant_batch
+    from turingcodec_tpu_torch.ops.quant import quant_batch
     from turingcodec_tpu_torch.ops.transform import (
-        forward_transform_batch, forward_transform_np,
-        inverse_transform_batch)
+        dequant_idct_add, forward_transform_batch, forward_transform_np,
+        tu_kind)
 
     dev = resolve_device(args.device)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -81,29 +83,48 @@ def main(argv=None):
         print(f"{label:<28} {'OK ' if ok else 'FAIL'} {t * 1e3:8.3f} ms  "
               f"{rate / 1e9:8.2f} G{unit}/s")
 
-    # transforms
+    # forward transforms
     for log2 in (2, 3, 4, 5):
         n = 1 << log2
         d = rng.integers(-500, 500, (b, n, n)).astype(np.int32)
         dd = up(d)
-        got = inverse_transform_batch(dd, 8, False).cpu().numpy()
-        ok = all(np.array_equal(got[i], inverse_transform(d[i], 8, False))
-                 for i in range(min(b, 8)))
-        t = _bench(inverse_transform_batch, (dd, 8, False), args.iters, dev)
-        report(f"inverse_dct_{n}x{n}", ok, t, b * n * n, "samp")
         got = forward_transform_batch(dd, 8, False).cpu().numpy()
         ok = all(np.array_equal(got[i], forward_transform_np(d[i], 8, False))
                  for i in range(min(b, 8)))
         t = _bench(forward_transform_batch, (dd, 8, False), args.iters, dev)
         report(f"forward_dct_{n}x{n}", ok, t, b * n * n, "samp")
 
-    # quant / dequant
+    # residuals: b TUs of one size at mixed QPs, tiled over a luma plane,
+    # dequantized, inverse transformed and added to the predicted samples
+    # in one dequant_idct_add call (one kernel launch on the card); every
+    # TU against the numpy oracle
+    small = np.zeros((4, 4), np.int16)
+    for log2 in (2, 3, 4, 5):
+        n = 1 << log2
+        cols = int(np.ceil(np.sqrt(b)))
+        lv = rng.integers(-8, 9, (-(-b // cols) * n, cols * n)).astype(
+            np.int16)
+        pred = rng.integers(0, 256, lv.shape).astype(np.int16)
+        xs, ys = np.arange(b) % cols * n, np.arange(b) // cols * n
+        qps = rng.integers(0, 52, b)
+        table = np.stack([xs, ys, qps, np.full(b, tu_kind(0, log2, 0))],
+                         1).astype(np.int32)
+        want = [np.clip(pred[y:y + n, x:x + n] + inverse_transform(
+            dequant_block(lv[y:y + n, x:x + n], int(q), 8, log2), 8, False),
+            0, 255) for x, y, q in zip(xs, ys, qps)]
+        coeff = [up(lv), up(small), up(small)]
+        planes = [up(pred.copy()), up(small.copy()), up(small.copy())]
+        got = dequant_idct_add(coeff, planes, table, (8, 8, 8))[0]
+        got = got.cpu().numpy()
+        ok = all(np.array_equal(got[y:y + n, x:x + n], w_)
+                 for x, y, w_ in zip(xs, ys, want))
+        t = _bench(dequant_idct_add, (coeff, planes, table, (8, 8, 8)),
+                   args.iters, dev)
+        report(f"dequant_idct_{n}x{n}", ok, t, b * n * n, "samp")
+
+    # quant
     lv = rng.integers(-3000, 3000, (b, 16, 16)).astype(np.int32)
     qp = np.full(b, 26, np.int32)
-    got = dequant_batch(up(lv), up(qp), 8, 4).cpu().numpy()
-    ok = np.array_equal(got[0], dequant_block(lv[0], 26, 8, 4))
-    t = _bench(dequant_batch, (up(lv), up(qp), 8, 4), args.iters, dev)
-    report("dequant_16x16", ok, t, b * 256, "coef")
     rnd = np.full(b, 171 << 6, np.int32)
     t = _bench(quant_batch, (up(lv), up(qp), 8, 4, up(rnd)), args.iters,
                dev)
