@@ -32,9 +32,22 @@ plain versions (8 and 10 bits, extreme inputs, every size and phase,
 ragged batches), the torch ops on the card against the CPU,
 tools/kernels.py at its defaults (the path that launches the two
 kernels, and the residual kernel) and tools/testdecode.py on
-tests/streams, on the card. Last,
-each kernel's device time per launch at its path's shapes and the
-residual stage's device time per inter picture (torch.profiler). Any failed check raises and the exit code is non-zero.
+tests/streams, on the card. Then the encoder's configuration matrix
+(tools/signature.py, 15 rows, the 10-bit one included) on the card
+against the goldens pinned from the JAX package; the GOP-batched stages
+at 1080p on the 8-frame encode (analysis_step over 8 x 2040 blocks, MC
+of the 7 inter pictures in one launch, the residuals of every coded luma
+TU, deblocking, SAO of vfy_sweep's pictures, the batched seed and dense
+analysis of 7 pairs) against per-frame calls on the card and their plain
+versions or host twins; tools/scaling.py, bdrate's run_ours on vfy_sweep
+at its four QPs (identical bytes on the card and the host) and
+entry.dryrun on the card. The dense-ME sweep is also held at 14 bits
+(its 64-bit key) on 1080p planes whose costs straddle 2^23. Last, each
+kernel's device time per launch at its path's shapes, the kernels and
+device time of each batched stage against its per-frame calls, and the
+residual stage's device time per inter picture (torch.profiler). Every
+kernel's launches are read around each path that runs it. Any failed
+check raises and the exit code is non-zero.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi reports them, the kernels' JSON record, and
@@ -164,7 +177,7 @@ def check_kernel(device, orig, ref, reps):
     from turingcodec_tpu_torch.tools.device_enc_check import wall_ms
 
     def compare(name, cur, pat):
-        got = dense_me_argmin(cur, pat)
+        got = dense_me_argmin(cur, pat, bit_depth=12)
         torch.cuda.synchronize()
         want = dense_me_argmin_ref(cur, pat)
         err = int((got.to(torch.int64) - want).abs().max()) \
@@ -174,15 +187,16 @@ def check_kernel(device, orig, ref, reps):
         log(f"kernel vs plain, {name}: B={cur.shape[0]} equal")
         return err
 
-    def compare_sweep(name, args):
-        got = dense_me_sweep(*args)
-        got_s, surf = dense_me_sweep(*args, True)
+    def compare_sweep(name, args, bd):
+        got = dense_me_sweep(*args, bit_depth=bd)
+        got_s, surf = dense_me_sweep(*args, True, bit_depth=bd)
         torch.cuda.synchronize()
         cb, patch = dense_inputs(*args)
         want, want_s = dense_me_argmin_ref(cb, patch, True)
         check(torch.equal(got, want) and torch.equal(got_s, want)
               and torch.equal(surf, want_s)
-              and torch.equal(dense_me_argmin(cb, patch), want),
+              and torch.equal(dense_me_argmin(cb, patch, bit_depth=bd),
+                              want),
               f"fused sweep differs from its plain version: {name}")
         log(f"fused sweep vs plain, {name}: B={got.shape[0]} equal, "
             f"and with its (B, 289) SAD surface")
@@ -222,18 +236,21 @@ def check_kernel(device, orig, ref, reps):
             (-36, -36), (36, 36), (36, -36), (-36, 36)
         errs.append(compare_sweep(
             f"{ww}x{hh} {bd}-bit, seeds to +-36",
-            (o, r, torch.from_numpy(s).to(device), ww, hh, wb, hb)))
+            (o, r, torch.from_numpy(s).to(device), ww, hh, wb, hb), bd))
 
     h, w = orig.shape
     wb, hb = da.block_dims(w, h)
     o = da.upload(orig, device, torch.int16)
     r = da.upload(ref, device, torch.int16)
     args = (o, r, da.seed_field(o, r, wb, hb), w, h, wb, hb)
-    errs.append(compare_sweep(f"{w}x{h} frame pair", args))
-    ms = timed_ms(lambda: dense_me_sweep(*args), device, reps)
+    errs.append(compare_sweep(f"{w}x{h} frame pair", args, 8))
+    wide = wide_key(device, w, h, compare_sweep)
+    errs.append(wide["err"])
+    ms = timed_ms(lambda: dense_me_sweep(*args, bit_depth=8), device, reps)
     plain_ms = timed_ms(lambda: dense_me_argmin_ref(*dense_inputs(*args)),
                         device, max(1, reps // 4))
-    ms_s = timed_ms(lambda: dense_me_sweep(*args, True), device, reps)
+    ms_s = timed_ms(lambda: dense_me_sweep(*args, True, bit_depth=8),
+                    device, reps)
     plain_ms_s = timed_ms(
         lambda: dense_me_argmin_ref(*dense_inputs(*args), True), device,
         max(1, reps // 4))
@@ -249,17 +266,57 @@ def check_kernel(device, orig, ref, reps):
         f"({bound_s[1]})")
     # the surface's download as the encoder pays it: (B, 289) int32 into
     # pageable host memory
-    surf = dense_me_sweep(*args, True)[1]
+    surf = dense_me_sweep(*args, True, bit_depth=8)[1]
     dl = wall_ms(lambda: surf.cpu(), device, reps)
     log(f"surface download, {surf.numel() * 4 / 1e6:.2f} MB into pageable "
         f"memory: {dl:.4f} ms (median, host clock, synchronised)")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "timed": {f"dense_me_sweep at B={b}":
-                      (lambda: dense_me_sweep(*args), bound_ms),
+                      (lambda: dense_me_sweep(*args, bit_depth=8), bound_ms),
                       f"dense_me_sweep with the surface at B={b}":
-                      (lambda: dense_me_sweep(*args, True), bound_s[0])},
+                      (lambda: dense_me_sweep(*args, True, bit_depth=8),
+                       bound_s[0]),
+                      f"dense_me_sweep 14-bit (64-bit key) at B={b}":
+                      (wide["fn"], bound_ms)},
             "kname": "dense_me"}
+
+
+def wide_key(device, w, h, compare_sweep):
+    """dense_me above 12 bits: 14-bit planes at one picture's size whose
+    winning costs straddle 2^23 (sources in the upper half of the range,
+    references in the lower), the 64-bit key against the plain version
+    (winners and surface); the 32-bit instance, given the same planes
+    against its contract, to show what the key repairs (its first
+    differing block is logged). Returns the max |diff| and a timed call."""
+    import numpy as np
+    import torch
+
+    from turingcodec_tpu_torch.encode import device_analysis as da
+    from turingcodec_tpu_torch.ops.dense_me import (dense_inputs,
+                                                    dense_me_argmin_ref,
+                                                    dense_me_sweep)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    o = torch.from_numpy(rng.integers(8192, 16384, (h, w)).astype(
+        np.int16)).to(device)
+    r = torch.from_numpy(rng.integers(0, 8192, (h, w)).astype(
+        np.int16)).to(device)
+    wb, hb = da.block_dims(w, h)
+    args = (o, r, da.seed_field(o, r, wb, hb), w, h, wb, hb)
+    err = compare_sweep(f"{w}x{h} 14-bit, costs across 2^23", args, 14)
+    want = dense_me_argmin_ref(*dense_inputs(*args))
+    cost = (want[:, 2].long() << 2) + want[:, :2].abs().sum(1)
+    narrow = dense_me_sweep(*args, bit_depth=12)
+    bad = (narrow != want).any(1).nonzero()[:, 0]
+    first = (f"block {int(bad[0])}: [ox, oy, sad] {narrow[bad[0]].tolist()} "
+             f"against {want[bad[0]].tolist()}" if len(bad) else "none")
+    log(f"dense_me 64-bit key, {w}x{h} 14-bit: equal to the plain version "
+        f"(winning costs {int(cost.min())}..{int(cost.max())}, 2^23 = "
+        f"{1 << 23}); the 32-bit instance on the same planes differs in "
+        f"{len(bad)} of {want.shape[0]} blocks, first {first} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"err": err, "fn": lambda: dense_me_sweep(*args, bit_depth=14)}
 
 
 def main_path(frames, device):
@@ -997,6 +1054,318 @@ def residual_device_us(pics, n: int = 20):
     return kern / per, copy / per, count / per
 
 
+def driven(path: dict, fn):
+    """fn() with every launch count set to 0 just before it and read just
+    after, added to `path`; returns fn's result."""
+    reset_launches()
+    out = fn()
+    for k, v in read_launches().items():
+        path[k] = path.get(k, 0) + v
+    return out
+
+
+def signature_phase(device):
+    """The encoder's configuration matrix (tools/signature.py) with the
+    analysis stage and the decode on the card, against the goldens pinned
+    from the JAX package; its 10-bit row is dense_me's first 10-bit run
+    inside an encode. Returns the path's launches."""
+    from turingcodec_tpu_torch.tools import signature
+    t0 = time.perf_counter()
+    path = {}
+    fails = driven(path, lambda: signature.run(device=str(device), log=log))
+    check(fails == 0, f"signature matrix on the card: {fails} failures")
+    check(path["dense_me"] and path["mc_block_grid"]
+          and path["dequant_idct"], f"signature launches {path}")
+    log(f"signature matrix, {len(signature.CONFIGS)} rows on the card: "
+        f"every golden and recon == decode ({time.perf_counter() - t0:.1f} "
+        f"s); launches {path}")
+    return path
+
+
+def gop_blocks(plane):
+    """A 1920x1080 plane as its 2040 32x32 blocks (the bottom row of
+    blocks edge-replicated to 1088)."""
+    import numpy as np
+    p = np.pad(plane, ((0, (-plane.shape[0]) % 32), (0, 0)), "edge")
+    hh, ww = p.shape
+    return p.reshape(hh // 32, 32, ww // 32, 32).transpose(0, 2, 1, 3) \
+        .reshape(-1, 32, 32)
+
+
+def coded_tus(plan, log2: int):
+    """Every coded luma TU of size 2^log2 of a picture: (levels (N, n, n)
+    int32, QPs (N,) int32)."""
+    import numpy as np
+    n, step = 1 << log2, (1 << log2) // 4
+    tu, cbf = np.asarray(plan.tu_log2), np.asarray(plan.cbf_y)
+    ys, xs = np.nonzero(((tu == log2) & (cbf != 0))[::step, ::step])
+    coeff, qp = np.asarray(plan.coeff_y), np.asarray(plan.qp_y)
+    lv = [coeff[n * y:n * y + n, n * x:n * x + n] for y, x in zip(ys, xs)]
+    return (np.asarray(lv, np.int32).reshape(-1, n, n),
+            qp[ys * step, xs * step].astype(np.int32))
+
+
+def gop_stages(device, frames, bitstream, reps):
+    """The GOP-batched stages at 1080p on the 8-frame upscaled encode,
+    each against per-frame calls on the card and against its plain
+    version or host twin: analysis_step over 8 x 2040 32x32 blocks, MC of
+    the 7 inter pictures in one launch, the residuals of every coded luma
+    TU (one launch per size), deblocking of the 8 pictures, SAO of
+    vfy_sweep's SAO pictures, and analysis_frames_batched over 7 pairs.
+    Returns (the path's launches, profile jobs for phase 10)."""
+    import numpy as np
+    import torch
+
+    from turingcodec_tpu_torch import native
+    from turingcodec_tpu_torch.encode import device_analysis as da
+    from turingcodec_tpu_torch.ops.deblock import deblock_device
+    from turingcodec_tpu_torch.ops.inter import (mc_block_grid,
+                                                 mc_block_grid_ref)
+    from turingcodec_tpu_torch.ops.sao import _sao_plane
+    from turingcodec_tpu_torch.ops.transform import dequant_inverse_transform
+    from turingcodec_tpu_torch.parallel import gop_decode as gd
+    from turingcodec_tpu_torch.parallel.mesh import analysis_step
+    from turingcodec_tpu_torch.tools.scaling import (gather_workloads,
+                                                     stack_workloads)
+    t_all = time.perf_counter()
+    path, jobs = {}, []
+    f = len(frames)
+
+    def timing(what, batched, per_frame, n):
+        ms_b = timed_ms(batched, device, reps)
+        ms_p = timed_ms(per_frame, device, reps)
+        log(f"{what}: batched {ms_b:.4f} ms, {n} per-frame calls "
+            f"{ms_p:.4f} ms (median, CUDA events)")
+        jobs.append((what, batched, per_frame, n))
+
+    # the encoder analysis step over 8 x 2040 blocks
+    t0 = time.perf_counter()
+    ctus = np.stack([gop_blocks(fr[0]) for fr in frames])[:, None]
+    preds = np.stack([gop_blocks(frames[max(i - 1, 0)][0])
+                      for i in range(f)])[:, None]
+    c_h, p_h = (torch.from_numpy(a.astype(np.int32)) for a in (ctus, preds))
+    c_d, p_d = c_h.to(device), p_h.to(device)
+    got = driven(path, lambda: analysis_step(c_d, p_d, QP))
+    plain = analysis_step(c_h, p_h, QP)
+    for i in range(f):
+        one = analysis_step(c_d[i:i + 1], p_d[i:i + 1], QP)
+        check(all(torch.equal(g[i:i + 1], o) for g, o in zip(got[:2], one)),
+              "analysis_step differs from its per-frame call")
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, plain)),
+          "analysis_step differs from its plain version")
+    log(f"analysis_step over {tuple(ctus.shape[:3])} 32x32 blocks: equal to "
+        f"the per-frame calls and the plain version (CPU); rate total "
+        f"{int(got[2])}, distortion total {int(got[3])} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    timing(f"analysis_step, {f} x {ctus.shape[2]} blocks",
+           lambda: analysis_step(c_d, p_d, QP),
+           lambda: [analysis_step(c_d[i:i + 1], p_d[i:i + 1], QP)
+                    for i in range(f)], f)
+
+    # MC of the inter pictures, one launch
+    t0 = time.perf_counter()
+    works = gather_workloads(bitstream, f - 1)
+    check(len(works) == f - 1, f"{len(works)} inter pictures")
+    refs, cols, nb = stack_workloads(works)
+    r_d = torch.from_numpy(refs).to(device)
+    a_d = [torch.from_numpy(cols[k]).to(device)
+           for k in ("sel", "xi", "yi", "xf", "yf")]
+    before = path.get("mc_block_grid", 0)
+    got = driven(path, lambda: gd.gop_mc(r_d, *a_d))
+    check(path["mc_block_grid"] - before == 1, "GOP MC took more launches")
+    per_pic = []
+    for i, wk in enumerate(works):
+        a = [torch.from_numpy(np.asarray(wk[k], np.int32)[None]).to(device)
+             for k in ("sel", "xi", "yi", "xf", "yf")]
+        planes = [[torch.from_numpy(wk["refs"]).to(device)]]
+        per_pic.append((planes, a))
+        want = mc_block_grid(planes, *a, 4, 8, 8)[0, 0]
+        check(torch.equal(got[i, :nb[i]], want)
+              and torch.equal(want, mc_block_grid_ref(planes, *a, 4, 8,
+                                                      8)[0, 0]),
+              "GOP MC differs from the per-picture call or the plain one")
+    log(f"GOP MC, {len(works)} inter pictures x {cols['sel'].shape[1]} "
+        f"blocks ({sum(nb)} real) in one mc_block_grid launch: equal to "
+        f"the per-picture calls and their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
+    timing(f"GOP MC, {len(works)} pictures", lambda: gd.gop_mc(r_d, *a_d),
+           lambda: [mc_block_grid(pl, *a, 4, 8, 8) for pl, a in per_pic],
+           len(works))
+
+    # residuals of every coded luma TU, one launch per size
+    t0 = time.perf_counter()
+    pics = gd.capture_pictures(bitstream)
+    check(len(pics) == f, f"{len(pics)} pictures captured")
+    for log2 in (2, 3, 4, 5):
+        n = 1 << log2
+        tus = [coded_tus(p["plan"], log2) for p in pics]
+        m = max(len(q) for _, q in tus)
+        if m == 0:
+            continue
+        blocks = np.zeros((f, m, n, n), np.int32)
+        qps = np.full((f, m), 30, np.int32)
+        blocks[:, :, 0, 0] = 64         # padding: a DC block at QP 30
+        for i, (lv, q) in enumerate(tus):
+            blocks[i, :len(q)], qps[i, :len(q)] = lv, q
+        b_d, q_d = (torch.from_numpy(a).to(device) for a in (blocks, qps))
+        got = driven(path, lambda: gd.gop_residual(b_d, q_d, 8, log2))
+        for i in range(f):
+            check(torch.equal(got[i:i + 1], gd.gop_residual(
+                b_d[i:i + 1], q_d[i:i + 1], 8, log2))
+                and torch.equal(got[i].cpu(), dequant_inverse_transform(
+                    torch.from_numpy(blocks[i]), torch.from_numpy(qps[i]), 8,
+                    log2, 0)),
+                f"GOP residual {n}x{n} differs from the per-frame call or "
+                f"the plain version")
+        log(f"GOP residual {n}x{n}: {f} pictures x {m} coded TUs "
+            f"({sum(len(q) for _, q in tus)} real) in one dequant_idct "
+            f"launch: equal to the per-frame calls and the plain version")
+        if log2 == 3:
+            timing(f"GOP residual 8x8, {f} x {m} TUs",
+                   lambda b_d=b_d, q_d=q_d: gd.gop_residual(b_d, q_d, 8, 3),
+                   lambda b_d=b_d, q_d=q_d: [gd.gop_residual(
+                       b_d[i:i + 1], q_d[i:i + 1], 8, 3) for i in range(f)],
+                   f)
+    log(f"GOP residuals: {time.perf_counter() - t0:.1f} s")
+
+    # deblocking of the 8 pictures, under torch.func.vmap
+    t0 = time.perf_counter()
+    args, geo = gd.deblock_inputs(pics, device)
+    got = gd.gop_deblock(*args, *geo)
+    per = [((args[0][i], args[1][i], args[2][i], tuple(m[i] for m in args[3]),
+             tuple(v[i] for v in args[4]), *geo, bool(args[5][i])))
+           for i in range(f)]
+    for i, a in enumerate(per):
+        one = deblock_device(*a)
+        check(all(torch.equal(o, g[i]) for o, g in zip(one, got))
+              and all(np.array_equal(g[i].cpu().numpy(), pics[i]["post"][k])
+                      for k, g in enumerate(got)),
+              "GOP deblocking differs from the per-frame call or the host")
+    h, w = frames[0][0].shape
+    log(f"GOP deblock, {f} pictures {w}x{h}: equal to the per-frame calls "
+        f"and the host decoder's planes ({time.perf_counter() - t0:.1f} s)")
+    timing(f"GOP deblock, {f} pictures", lambda: gd.gop_deblock(*args, *geo),
+           lambda per=per: [deblock_device(*a) for a in per], f)
+
+    # SAO of vfy_sweep's SAO pictures, each component
+    t0 = time.perf_counter()
+    with open(STREAM, "rb") as fh:
+        sao_pics = [p for p in gd.capture_pictures(fh.read())
+                    if p["sao"] is not None]
+    check(sao_pics, "vfy_sweep has no SAO picture")
+    for c_idx in range(3):
+        stacked, (ctb, bd, sub), per = gd.sao_inputs(sao_pics, c_idx, device)
+        got = gd.gop_sao(*stacked, ctb=ctb, bd=bd, sub=sub)
+        for i, a in enumerate(per):
+            check(torch.equal(_sao_plane(*a), got[i])
+                  and np.array_equal(got[i].cpu().numpy(),
+                                     sao_pics[i]["sao"][c_idx]),
+                  "GOP SAO differs from the per-frame call or the host")
+        if c_idx == 0:
+            timing(f"GOP SAO luma, {len(per)} pictures 640x360",
+                   lambda st=stacked, c=(ctb, bd, sub): gd.gop_sao(
+                       *st, ctb=c[0], bd=c[1], sub=c[2]),
+                   lambda per=per: [_sao_plane(*a) for a in per], len(per))
+    log(f"GOP SAO, {len(sao_pics)} vfy_sweep pictures, 3 components: equal "
+        f"to the per-frame calls and the host decoder's planes "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # the batched seed and dense analysis over 7 (orig, ref) pairs
+    t0 = time.perf_counter()
+    origs = np.stack([fr[0] for fr in frames[1:]])
+    refs_a = np.stack([fr[0] for fr in frames[:-1]])
+    before = path.get("dense_me", 0)
+    got = driven(path, lambda: da.analysis_frames_batched(origs, refs_a,
+                                                          device, 8))
+    check(path["dense_me"] - before == len(origs),
+          "analysis_frames_batched: not one sweep per pair")
+    for i in range(len(origs)):
+        one = da.analysis_device(origs[i], refs_a[i], device, bit_depth=8)
+        nat = native.dense_analysis(origs[i], refs_a[i], 8)
+        check(all(np.array_equal(g[i], o) and np.array_equal(g[i], n_)
+                  for g, o, n_ in zip(got[:3], one[:3], nat[:3])),
+              "analysis_frames_batched differs from the per-pair call or "
+              "the native host twin")
+    log(f"analysis_frames_batched over {len(origs)} {w}x{h} pairs "
+        f"({len(origs)} dense_me launches): equal to the per-pair calls and "
+        f"the native host twin ({time.perf_counter() - t0:.1f} s)")
+    timing(f"analysis_frames_batched, {len(origs)} pairs",
+           lambda: da.analysis_frames_batched(origs, refs_a, device, 8),
+           lambda: [da.analysis_device(origs[i], refs_a[i], device,
+                                       bit_depth=8)
+                    for i in range(len(origs))], len(origs))
+    for k in ("dense_me", "mc_block_grid", "dequant_idct", "fwd_transform"):
+        check(path.get(k), f"GOP stages launched no {k}: {path}")
+    log(f"GOP stages: {time.perf_counter() - t_all:.1f} s; launches {path}")
+    return path, jobs
+
+
+def tools_phase(device):
+    """tools/scaling.py and entry.py on the card, and bdrate's run_ours on
+    vfy_sweep at its four QPs on the card and the host (identical bytes).
+    Returns the path's launches."""
+    from turingcodec_tpu_torch import entry
+    from turingcodec_tpu_torch.tools import bdrate, scaling
+    t0 = time.perf_counter()
+    path = {}
+    check(driven(path, lambda: scaling.main(["--frames", "8"])) == 0,
+          "tools/scaling.py: batched MC differs from the per-picture calls")
+    clip = bdrate.decode_clip()
+    for qp in bdrate.QPS:
+        card, recs, dt = driven(path, lambda: bdrate.encode_ours(
+            clip, qp, "fast", 1, str(device)))
+        host = bdrate.encode_ours(clip, qp, "fast", 1, None)[0]
+        check(card == host, f"bdrate run_ours at QP {qp}: card and host "
+                            f"bytes differ")
+        psnr = sum(bdrate.psnr_y(recs[i][0], clip[i][0])
+                   for i in range(len(clip))) / len(clip)
+        log(f"bdrate run_ours vfy_sweep fast-LDP QP {qp}: {len(card)} bytes "
+            f"identical on the card and the host, PSNR-Y {psnr:.3f} dB, "
+            f"{len(clip) / dt:.2f} fps on the card")
+    step, args = entry.entry(str(device))
+    levels, rate, satd = driven(path, lambda: step(*args))
+    check(levels.shape == (8, 32, 32) and rate.shape == satd.shape == (8,),
+          "entry step shapes")
+    driven(path, lambda: entry.dryrun(4, 2, str(device), log))
+    for k in ("dense_me", "mc_block_grid", "dequant_idct", "fwd_transform"):
+        check(path.get(k), f"tools launched no {k}: {path}")
+    log(f"tools scaling, bdrate and entry on the card: "
+        f"{time.perf_counter() - t0:.1f} s; launches {path}")
+    return path
+
+
+def profile_counts(jobs, n: int = 3):
+    """Each batched stage against its F per-frame calls: CUDA kernels
+    launched per call and their device time (torch.profiler over n calls
+    after a warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def count(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = kernels = 0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0)
+            if t > 0 and not e.key.startswith(("Memcpy", "Memset")):
+                us += t
+                kernels += e.count
+        return kernels / n, us / n
+
+    for what, batched, per_frame, f in jobs:
+        kb, ub = count(batched)
+        kp, up = count(per_frame)
+        log(f"{what}: batched {kb:.0f} kernels, {ub:.2f} us device time per "
+            f"call; {f} per-frame calls {kp:.0f} kernels, {up:.2f} us "
+            f"(profiler)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1060,7 +1429,17 @@ def main() -> int:
     dsp_kern = check_dsp_ops(device, reps=20)
     dsp_launches = dsp_path(device)
 
-    # 10. device time per launch of each kernel at the main path's shapes
+    # 10. the configuration matrix on the card (tools/signature.py)
+    sig_launches = signature_phase(device)
+
+    # 11. the GOP-batched stages at 1080p against per-frame calls and their
+    # plain versions; then the tools over them and the entry points
+    gop_launches, gop_jobs = gop_stages(device, frames, bitstream, reps=5)
+    tool_launches = tools_phase(device)
+
+    # 12. device time per launch of each kernel at the main path's shapes;
+    # kernels and device time of each batched stage against its per-frame
+    # calls
     rows = [dict(name="dense_me_argmin", source="dense_me.cu",
                  replaces="turingcodec_tpu/ops/pallas_kernels.py:71",
                  launches=launches, **kern),
@@ -1081,6 +1460,7 @@ def main() -> int:
                  launches=dsp_launches["interp_all_phases"],
                  **dsp_kern["interp_all_phases"])]
     device_times(rows)
+    profile_counts(gop_jobs)
     kern_us, copy_us, per = residual_device_us(res_pics)
     log(f"residual stage on the card per inter picture of the 1080p decode "
         f"({len(res_pics)} pictures): {kern_us:.2f} us of kernels in {per} "
@@ -1099,7 +1479,14 @@ def main() -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
-        "device_us": r["device_us"], "bound_us": r["bound_ms"] * 1e3}
+        "device_us": r["device_us"], "bound_us": r["bound_ms"] * 1e3,
+        "launches_by_path": {
+            "encode": launches if r["kname"] == "dense_me" else 0,
+            "decode": dec_launches[r["kname"]],
+            "dsp_tools": dsp_launches[r["kname"]],
+            "signature": sig_launches[r["kname"]],
+            "gop_stages": gop_launches[r["kname"]],
+            "scaling_bdrate_entry": tool_launches[r["kname"]]}}
         for r in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,18 @@ def _all_ties(b=7):
             np.full((b, 32, 32), 77, np.int32))
 
 
+def _straddle_14bit(b=7):
+    """14-bit blocks whose costs straddle 2^23: the winner at (0, 0) costs
+    just below it, most other offsets just above, where a 32-bit key
+    (cost << 9) | k wraps to small values and would win."""
+    rng = np.random.default_rng(5)
+    cur = np.full((b, 16, 16), 16383, np.int32)
+    pat = np.full((b, 32, 32), 16383 - 8400, np.int32)
+    pat[:, 8:24, 8:24] = 16383 - 8000
+    pat += rng.integers(-3, 1, pat.shape).astype(np.int32)
+    return cur, pat
+
+
 def _brute(cur, pat):
     want = np.zeros((cur.shape[0], 3), np.int64)
     for i in range(cur.shape[0]):
@@ -54,7 +66,10 @@ def _brute(cur, pat):
 
 
 CASES = {"planted": _planted, "all_ties": _all_ties,
-         "planted_10bit": lambda: _planted(seed=3, hi=1024)}
+         "planted_10bit": lambda: _planted(seed=3, hi=1024),
+         "planted_14bit": lambda: _planted(seed=9, hi=1 << 14),
+         "straddle_14bit": _straddle_14bit}
+BITS = {"planted_10bit": 10, "planted_14bit": 14, "straddle_14bit": 14}
 
 
 @pytest.fixture(scope="module")
@@ -73,9 +88,21 @@ def pallas_results():
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_dense_me_matches_pallas_interpret(case, pallas_results):
     cur, pat = CASES[case]()
-    got = dense_me_argmin(torch.from_numpy(cur), torch.from_numpy(pat))
+    got = dense_me_argmin(torch.from_numpy(cur), torch.from_numpy(pat),
+                          bit_depth=BITS.get(case, 8))
     assert got.dtype == torch.int32 and got.shape == (cur.shape[0], 3)
     np.testing.assert_array_equal(got.numpy(), pallas_results[case])
+    if case == "straddle_14bit":
+        # the winner costs just below 2^23; the same keys taken modulo 2^32,
+        # as a 32-bit (cost << 9) | k holds them, have their min elsewhere
+        assert (got[:, :2] == 0).all() and (got[:, 2] << 2 < 1 << 23).all()
+        k = np.arange(289)
+        sad = np.stack([np.abs(cur - pat[:, oy:oy + 16, ox:ox + 16])
+                        .sum((-2, -1)) for oy in range(17)
+                        for ox in range(17)], 1).astype(np.int64)
+        pen = np.abs(k % 17 - 8) + np.abs(k // 17 - 8)
+        key32 = ((((sad << 2) + pen) << 9) | k) & 0xffffffff
+        assert (key32.argmin(1) != 8 * 17 + 8).all()
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -94,7 +121,7 @@ def test_dense_me_ref_matches_brute_force(case):
 def test_cpu_tensors_take_the_plain_version_without_a_launch():
     cur, pat = _planted()
     before = dense_me.launches
-    dense_me_argmin(torch.from_numpy(cur), torch.from_numpy(pat))
+    dense_me_argmin(torch.from_numpy(cur), torch.from_numpy(pat), bit_depth=8)
     assert dense_me.launches == before
 
 
@@ -108,13 +135,26 @@ def test_wrapper_rejects_bad_inputs(bad):
     else:
         cur = cur.transpose(1, 2)
     with pytest.raises((TypeError, ValueError)):
-        dense_me_argmin(cur, pat)
+        dense_me_argmin(cur, pat, bit_depth=8)
+
+
+@pytest.mark.parametrize("bd", [0, 17])
+def test_wrappers_reject_bit_depths_the_kernel_cannot_hold(bd):
+    """The float SADs are exact up to 16 bits, and the encoder admits no
+    more: the wrappers refuse other depths before any launch."""
+    cur, pat = (torch.from_numpy(a) for a in _planted())
+    with pytest.raises(ValueError, match="bit depth"):
+        dense_me_argmin(cur, pat, bit_depth=bd)
+    orig, ref, seeds, w, h, wb, hb = _sweep_inputs("odd_8bit")
+    with pytest.raises(ValueError, match="bit depth"):
+        dense_me_sweep(*(torch.from_numpy(a) for a in (orig, ref, seeds)),
+                       w, h, wb, hb, bit_depth=bd)
 
 
 # frames whose sizes are not multiples of 16 (1080 = 67 * 16 + 8), with
 # seeds to +-36, the lowres pre-ME's reach, at the grid's corners
 SWEEPS = {"odd_8bit": (40, 57, 8, 1), "odd_10bit": (35, 70, 10, 2),
-          "one_block": (9, 13, 8, 3)}
+          "one_block": (9, 13, 8, 3), "odd_14bit": (33, 50, 14, 4)}
 
 
 def _sweep_inputs(name):
@@ -162,13 +202,13 @@ def test_dense_me_sweep_matches_jax_dense_stage(name, monkeypatch):
     for dtype in (torch.int16, torch.int32):
         o, r = (torch.from_numpy(a).to(dtype) for a in (orig, ref))
         s = torch.from_numpy(seeds)
-        got = dense_me_sweep(o, r, s, w, h, wb, hb)
+        got = dense_me_sweep(o, r, s, w, h, wb, hb, bit_depth=SWEEPS[name][2])
         assert got.dtype == torch.int32 and got.shape == (hb * wb, 3)
         np.testing.assert_array_equal(got.numpy(), want)
         np.testing.assert_array_equal(
             dense_me_argmin_ref(*dense_inputs(o, r, s, w, h, wb, hb)).numpy(),
             want)
-    tmv, tsad = tda._dense_stage(o, r, s, w, h, wb, hb)
+    tmv, tsad = tda._dense_stage(o, r, s, w, h, wb, hb, bit_depth=SWEEPS[name][2])
     np.testing.assert_array_equal(tmv.numpy(), np.asarray(mv))
     np.testing.assert_array_equal(tsad.numpy(), np.asarray(sad))
 
@@ -186,7 +226,7 @@ def test_sweep_off_the_cpu_launches_or_raises(monkeypatch):
     monkeypatch.setattr(dense_me, "dense_inputs", no_windows)
     before = dense_me.launches
     with pytest.raises(ValueError, match="unsupported device"):
-        dense_me_sweep(*meta, w, h, wb, hb)
+        dense_me_sweep(*meta, w, h, wb, hb, bit_depth=8)
     assert dense_me.launches == before
 
 
@@ -207,7 +247,7 @@ def test_sweep_rejects_bad_inputs(bad):
     else:
         orig = orig.t().contiguous().t()
     with pytest.raises((TypeError, ValueError)):
-        dense_me_sweep(orig, ref, seeds, w, h, wb, hb)
+        dense_me_sweep(orig, ref, seeds, w, h, wb, hb, bit_depth=8)
 
 
 @pytest.mark.parametrize("name", sorted(SWEEPS))
@@ -233,10 +273,11 @@ def test_dense_me_surface_matches_jax_and_brute_force(name):
                       for oy in range(17) for ox in range(17)], 1)
     np.testing.assert_array_equal(np.asarray(surf), brute)
     args = [torch.from_numpy(a) for a in (orig, ref, seeds)]
-    res, got = dense_me_sweep(*args, w, h, wb, hb, True)
+    bd = SWEEPS[name][2]
+    res, got = dense_me_sweep(*args, w, h, wb, hb, True, bit_depth=bd)
     assert got.dtype == torch.int32 and got.shape == (hb * wb, 289)
     np.testing.assert_array_equal(got.numpy(), brute)
-    assert torch.equal(res, dense_me_sweep(*args, w, h, wb, hb))
+    assert torch.equal(res, dense_me_sweep(*args, w, h, wb, hb, bit_depth=bd))
     cb, pt = dense_inputs(*args, w, h, wb, hb)
     res2, got2 = dense_me_argmin_ref(cb, pt, want_surf=True)
     assert torch.equal(res2, res) and torch.equal(got2, got)

@@ -30,7 +30,7 @@ CFG = dict(width=128, height=96, qp=32, gop_m=4, sao=False, rdoq=True,
 
 
 def _encode(mod, frames, **kw):
-    enc = mod.Encoder(mod.EncoderConfig(**CFG, **kw))
+    enc = mod.Encoder(mod.EncoderConfig(**{**CFG, **kw}))
     out = [enc.headers()]
     for f in frames:
         for (_i, nal, _r) in enc.push_frame([p.copy() for p in f]):
@@ -63,7 +63,7 @@ def test_port_encode_matches_jax_device_encode(jax_stream, device,
     calls = []
     sweep = tda.dense_me_sweep
     monkeypatch.setattr(tda, "dense_me_sweep",
-                        lambda *a: calls.append(1) or sweep(*a))
+                        lambda *a, **k: calls.append(1) or sweep(*a, **k))
     got = _encode(tenc, _frames(5, 128, 96), device=device)
     assert got == jax_stream
     # the stage ran once per inter picture and reference list, or never
@@ -71,6 +71,30 @@ def test_port_encode_matches_jax_device_encode(jax_stream, device,
     dec = Decoder(device=None)
     n = sum(1 for _ in dec.decode_stream(got))
     assert n == 5 and dec.hash_failures == 0
+
+
+@pytest.mark.parametrize("bd", [13, 14, 16])
+def test_port_encodes_deep_samples_as_jax_does(bd):
+    """The JAX encoder takes samples up to 16 bits (its analysis planes
+    are int16) and the port encodes them too, byte-identical on the host
+    path and with the analysis stage on a device, whose dense sweep takes
+    the 64-bit key above 12 bits."""
+    import turingcodec_tpu.encode.encoder as jenc
+    import turingcodec_tpu_torch.encode.encoder as tenc
+    frames = [[(p.astype(np.int32) << (bd - 8)) for p in f]
+              for f in _frames(3, 128, 96)]
+    cfg = dict(bit_depth=bd, gop_m=1)
+    old = os.environ.get("TURING_TPU_DEVICE_ENC")
+    os.environ["TURING_TPU_DEVICE_ENC"] = "1"
+    try:
+        want = _encode(jenc, frames, **cfg)
+    finally:
+        if old is None:
+            os.environ.pop("TURING_TPU_DEVICE_ENC")
+        else:
+            os.environ["TURING_TPU_DEVICE_ENC"] = old
+    assert _encode(tenc, frames, device=None, **cfg) == want
+    assert _encode(tenc, frames, device="cpu", **cfg) == want
 
 
 @pytest.mark.parametrize("tool", ["encode", "decode"])
@@ -136,6 +160,24 @@ assert testdecode.main(["--device", "none"]) == 0
 from turingcodec_tpu_torch.encode.device_analysis import analysis_device
 assert analysis_device(base[:64, :64], base[4:68, 2:66], "cpu",
                        want_surf=True)[5].shape == (16, 289)
+# the batched stages, their tools and the entry points
+from turingcodec_tpu_torch import entry
+from turingcodec_tpu_torch.encode.device_analysis import (
+    analysis_frames_batched)
+from turingcodec_tpu_torch.parallel import gop_decode, mesh
+from turingcodec_tpu_torch.tools import bdrate, scaling, signature
+assert analysis_frames_batched(np.stack([base[:64, :64]] * 2),
+                               np.stack([base[4:68, 2:66]] * 2), "cpu",
+                               8)[1].shape == (2, 4, 4, 2)
+assert scaling.main(["--device", "cpu", "--frames", "2"]) == 0
+step, args = entry.entry("cpu")
+assert step(*args)[0].shape == (8, 32, 32)
+assert mesh.make_mesh(2, 1, "cpu").shape == {"frame": 2, "row": 1}
+yuv, md5 = signature.decode_input(device=None)
+assert md5 == signature.golden_md5()
+assert signature.run_row("all-intra-q32", yuv, "cpu") == (
+    *signature.want_of("all-intra-q32"), True)
+assert bdrate.bd_rate([1, 2, 3], [30, 33, 36], [1, 2, 3], [30, 33, 36]) == 0
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "turingcodec_tpu" or m.startswith("turingcodec_tpu.")]

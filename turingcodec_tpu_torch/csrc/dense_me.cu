@@ -46,6 +46,15 @@
 // orders by cost first and scan position second, so the min reproduces the
 // scan's strict-improvement tie-break in any order.
 //
+// Bit depth. The packed key needs cost < 2^23 in 32 bits, which holds for
+// samples of at most 12 bits. Above that (the encoder admits up to 16 bits,
+// and sends its planes as int16, so |w - c| < 2^16 at any depth) a 32-bit
+// key overflows where the JAX kernel keeps cost in int32, and the min would
+// pick another offset. A second instance (WIDE) packs the same key into 64
+// bits and reduces it with a 64-bit shared atomicMin; the float SADs stay
+// exact up to 16 bits (256 x 65535 < 2^24). The <= 12-bit instance that the
+// encoder's 8- and 10-bit pictures run is unchanged.
+//
 // The surface. With an output pointer for it, the kernel also writes every
 // block's 289 SADs, k = oy * 17 + ox (the layout of the JAX package's
 // want_surf program, turingcodec_tpu/encode/device_analysis.py:166-188, and
@@ -60,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -71,21 +82,26 @@ constexpr int kSurf = 17 * 17;            // SADs per block's surface
 static_assert(kPer * kSurf <= kPer * kWinBlock, "surface exceeds s_win");
 
 // cost < 2^23 keeps the packed key (cost << 9) | k in 32 bits, and SADs
-// below 2^24 keep the float sums exact: both hold for 12-bit samples
+// below 2^24 keep the float sums exact: both hold for 12-bit samples; the
+// 64-bit key of the WIDE instance and the float sums hold for 16 bits
 static_assert(((256 * 4095) << 2) + 16 < (1 << 23), "key overflow");
 static_assert(256 * 4095 < (1 << 24), "float SAD not exact");
+static_assert(((256ull * 65535) << 2) + 16 < (1ull << 55), "wide key overflow");
+static_assert(256 * 65535 < (1 << 24), "float SAD not exact at 16 bits");
 
-template <typename T, bool SEEDED>
+template <typename T, bool SEEDED, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 dense_me_kernel(const T* __restrict__ src, int src_stride, int src_h,
                 int src_w, const T* __restrict__ ref, int ref_stride,
                 int ref_h, int ref_w, const int32_t* __restrict__ seeds,
                 int wb, int B, int32_t* __restrict__ out,
                 int32_t* __restrict__ surf) {
+    using Key = typename std::conditional<WIDE, unsigned long long,
+                                          unsigned>::type;
     __shared__ __align__(16) float s_win[kPer * kWinBlock];
     __shared__ __align__(16) float s_src[kPer * kSrcBlock];
     __shared__ int s_org[kPer][4];        // source y, x; window y, x
-    __shared__ unsigned s_key[kPer];
+    __shared__ Key s_key[kPer];
 
     const int t = threadIdx.x;
     const int b0 = blockIdx.x * kPer;
@@ -104,7 +120,7 @@ dense_me_kernel(const T* __restrict__ src, int src_stride, int src_h,
             s_org[t][2] = 32 * b;
             s_org[t][3] = 0;
         }
-        s_key[t] = 0xffffffffu;
+        s_key[t] = ~Key(0);
     }
     __syncthreads();
 
@@ -167,13 +183,12 @@ dense_me_kernel(const T* __restrict__ src, int src_stride, int src_h,
                 for (int x = 0; x < 16; ++x)
                     acc[ox] += fabsf(w[ox + x] - c[x]);
         }
-        unsigned key = 0xffffffffu;
-        const unsigned pen_y = (unsigned)abs(oy - 8);
+        Key key = ~Key(0);
+        const Key pen_y = (Key)abs(oy - 8);
 #pragma unroll
         for (int ox = 0; ox < 17; ++ox) {
-            const unsigned cost = ((unsigned)acc[ox] << 2) + pen_y
-                                  + (unsigned)abs(ox - 8);
-            key = min(key, (cost << 9) | (unsigned)(oy * 17 + ox));
+            const Key cost = ((Key)acc[ox] << 2) + pen_y + (Key)abs(ox - 8);
+            key = min(key, (cost << 9) | (Key)(oy * 17 + ox));
         }
         atomicMin(&s_key[j], key);
     }
@@ -194,40 +209,54 @@ dense_me_kernel(const T* __restrict__ src, int src_stride, int src_h,
         for (int i = t; i < n; i += kThreads) dst[i] = s_surf[i];
     }
     if (active && oy == 0) {
-        const unsigned key = s_key[j];
+        const Key key = s_key[j];
         const int k = (int)(key & 511u);
         const int my = k / 17 - 8;
         const int mx = k % 17 - 8;
-        const unsigned cost = key >> 9;
+        const Key cost = key >> 9;
         out[(size_t)b * 3 + 0] = mx;
         out[(size_t)b * 3 + 1] = my;
         out[(size_t)b * 3 + 2] =
-            (int32_t)((cost - (unsigned)(abs(mx) + abs(my))) >> 2);
+            (int32_t)((cost - (Key)(abs(mx) + abs(my))) >> 2);
     }
 }
 
-template <typename T>
+template <typename T, bool WIDE>
 void launch(const void* src, int src_stride, int src_h, int src_w,
             const void* ref, int ref_stride, int ref_h, int ref_w,
             const int32_t* seeds, int wb, int B, int32_t* out,
             int32_t* surf, cudaStream_t stream) {
     const unsigned grid = (unsigned)((B + kPer - 1) / kPer);
     if (seeds)
-        dense_me_kernel<T, true><<<grid, kThreads, 0, stream>>>(
+        dense_me_kernel<T, true, WIDE><<<grid, kThreads, 0, stream>>>(
             (const T*)src, src_stride, src_h, src_w, (const T*)ref,
             ref_stride, ref_h, ref_w, seeds, wb, B, out, surf);
     else
-        dense_me_kernel<T, false><<<grid, kThreads, 0, stream>>>(
+        dense_me_kernel<T, false, WIDE><<<grid, kThreads, 0, stream>>>(
             (const T*)src, src_stride, src_h, src_w, (const T*)ref,
             ref_stride, ref_h, ref_w, seeds, wb, B, out, surf);
+}
+
+template <typename T>
+void launch_key(bool wide, const void* src, int src_stride, int src_h,
+                int src_w, const void* ref, int ref_stride, int ref_h,
+                int ref_w, const int32_t* seeds, int wb, int B, int32_t* out,
+                int32_t* surf, cudaStream_t stream) {
+    if (wide)
+        launch<T, true>(src, src_stride, src_h, src_w, ref, ref_stride,
+                        ref_h, ref_w, seeds, wb, B, out, surf, stream);
+    else
+        launch<T, false>(src, src_stride, src_h, src_w, ref, ref_stride,
+                         ref_h, ref_w, seeds, wb, B, out, surf, stream);
 }
 
 }  // namespace
 
 // src: (src_h, src_w) plane, row stride src_stride; ref: (ref_h, ref_w),
-// row stride ref_stride; samples int16 (elem_bytes 2) or int32 (4), at most
-// 12 bits. seeds: (B, 2) int32 [sx, sy] of a grid wb blocks wide, or NULL
-// for the patches layout (see above). out: (B, 3) int32 [ox, oy, sad];
+// row stride ref_stride; samples int16 (elem_bytes 2) or int32 (4) whose
+// differences stay below 2^12 (wide == 0: the 32-bit key) or 2^16 (wide != 0:
+// the 64-bit key). seeds: (B, 2) int32 [sx, sy] of a grid wb blocks wide, or
+// NULL for the patches layout (see above). out: (B, 3) int32 [ox, oy, sad];
 // surf: (B, 289) int32 SADs at k = oy * 17 + ox, or NULL for none. All on
 // the device. Launches on `stream` and returns cudaGetLastError() (0 on
 // success, cudaErrorInvalidValue for another elem_bytes); never
@@ -235,19 +264,21 @@ void launch(const void* src, int src_stride, int src_h, int src_w,
 extern "C" int dense_me_launch(const void* src, int src_stride, int src_h,
                                int src_w, const void* ref, int ref_stride,
                                int ref_h, int ref_w, const void* seeds,
-                               int wb, int B, int elem_bytes, void* out,
-                               void* surf, void* stream) {
+                               int wb, int B, int elem_bytes, int wide,
+                               void* out, void* surf, void* stream) {
     if (B > 0) {
         const int32_t* s = (const int32_t*)seeds;
         int32_t* o = (int32_t*)out;
         int32_t* sf = (int32_t*)surf;
         cudaStream_t st = (cudaStream_t)stream;
         if (elem_bytes == 2)
-            launch<int16_t>(src, src_stride, src_h, src_w, ref, ref_stride,
-                            ref_h, ref_w, s, wb, B, o, sf, st);
+            launch_key<int16_t>(wide != 0, src, src_stride, src_h, src_w, ref,
+                                ref_stride, ref_h, ref_w, s, wb, B, o, sf,
+                                st);
         else if (elem_bytes == 4)
-            launch<int32_t>(src, src_stride, src_h, src_w, ref, ref_stride,
-                            ref_h, ref_w, s, wb, B, o, sf, st);
+            launch_key<int32_t>(wide != 0, src, src_stride, src_h, src_w, ref,
+                                ref_stride, ref_h, ref_w, s, wb, B, o, sf,
+                                st);
         else
             return (int)cudaErrorInvalidValue;
     }

@@ -15,6 +15,9 @@
 //   mode 1: r = clip16(((d << 7) + rnd2) >> (20 - bd))   (transform skip),
 //   mode 2: r = level                                    (transquant bypass),
 //   plane = clip(plane + r, 0, (1 << bd) - 1), in place.
+// A second instance (CLIP false) adds with the int16 clip instead of the
+// sample range's: over zero planes it leaves the residuals themselves,
+// which the batched GOP stage (parallel/gop_decode.py) returns.
 // Every sum stays below 2^27 in int32 (|d| <= 32768, |M| <= 90, N <= 32),
 // so the result is exact. Float32 would not be, and the tensor cores' int8
 // path does not take 16-bit operands, so this is integer work on the CUDA
@@ -192,7 +195,7 @@ __device__ __forceinline__ int dequant(int level, int qp, int bd, int log2,
 }
 
 // One thread block's TUs of one size: rows first .. first + count - 1.
-template <int LOG2>
+template <int LOG2, bool CLIP>
 __device__ __forceinline__ void tu_block(const Params& p,
                                          const int4* __restrict__ table,
                                          int first, int count, int* s_a,
@@ -301,7 +304,8 @@ __device__ __forceinline__ void tu_block(const Params& p,
             int o[kVec];
 #pragma unroll
             for (int q = 0; q < kVec; ++q)
-                o[q] = min(max(pr[q] + res[q], 0), max_v);
+                o[q] = CLIP ? min(max(pr[q] + res[q], 0), max_v)
+                            : clip16(pr[q] + res[q]);
             const size_t off = (size_t)(r.y + i / N % N) * pick(p.width, comp)
                                + r.x + i % N;
             *reinterpret_cast<short4*>(pick(p.plane, comp) + off) =
@@ -310,17 +314,18 @@ __device__ __forceinline__ void tu_block(const Params& p,
     }
 }
 
-template <int S>
+template <int S, bool CLIP>
 __device__ __forceinline__ void size_class(const Params& p,
                                            const int4* __restrict__ table,
                                            int* s_a, int* s_g, int4* s_tu) {
     constexpr int LOG2 = 5 - S;
     constexpr int TPB = tus_per_block(1 << LOG2);
     const int b = blockIdx.x - p.cta0[S];
-    tu_block<LOG2>(p, table, p.row0[S] + b * TPB,
+    tu_block<LOG2, CLIP>(p, table, p.row0[S] + b * TPB,
                    min(TPB, p.rows[S] - b * TPB), s_a, s_g, s_tu);
 }
 
+template <bool CLIP>
 __global__ void __launch_bounds__(kThreads)
 dequant_idct_add_kernel(const Params p, const int4* __restrict__ table) {
     __shared__ int s_a[kTileWords];
@@ -333,10 +338,10 @@ dequant_idct_add_kernel(const Params p, const int4* __restrict__ table) {
         if ((int)blockIdx.x >= p.cta0[s]) cls = s;
     });
     switch (cls) {
-        case 0: size_class<0>(p, table, s_a, s_g, s_tu); break;
-        case 1: size_class<1>(p, table, s_a, s_g, s_tu); break;
-        case 2: size_class<2>(p, table, s_a, s_g, s_tu); break;
-        default: size_class<3>(p, table, s_a, s_g, s_tu); break;
+        case 0: size_class<0, CLIP>(p, table, s_a, s_g, s_tu); break;
+        case 1: size_class<1, CLIP>(p, table, s_a, s_g, s_tu); break;
+        case 2: size_class<2, CLIP>(p, table, s_a, s_g, s_tu); break;
+        default: size_class<3, CLIP>(p, table, s_a, s_g, s_tu); break;
     }
 }
 
@@ -346,15 +351,16 @@ dequant_idct_add_kernel(const Params p, const int4* __restrict__ table) {
 // of Y, Cb, Cr then the predicted planes of Y, Cb, Cr (updated in place);
 // hw: (H, W) of each component; bit_depths: 3; table: (T, 4) int32 rows on
 // the device, sorted by size, largest first; counts: the rows of log2 5, 4,
-// 3 and 2; level_scale: 6. Every array but the planes and the table is on
-// the host. The wrapper (ops/transform.py) has checked that every TU lies in
+// 3 and 2; level_scale: 6; clip: nonzero clips each sum to the sample
+// range, 0 to the int16 range. Every array but the planes and the table is
+// on the host. The wrapper (ops/transform.py) has checked that every TU lies in
 // its plane and its QP in 0..51 + 6 * (bd - 8). Launches on `stream` and
 // returns cudaGetLastError() (0 on success, cudaErrorInvalidValue for a
 // negative count or a bit depth outside 8..12); never synchronises.
 extern "C" int dequant_idct_add_launch(const void* const* planes,
                                        const int* hw, const int* bit_depths,
                                        const void* table, const int* counts,
-                                       const int* level_scale,
+                                       const int* level_scale, int clip,
                                        void* stream) {
     Params p = {};
     for (int c = 0; c < 3; ++c) {
@@ -377,8 +383,12 @@ extern "C" int dequant_idct_add_launch(const void* const* planes,
         cta += (counts[s] + tpb - 1) / tpb;
     }
     p.cta0[kSizes] = cta;
-    if (cta > 0)
-        dequant_idct_add_kernel<<<cta, kThreads, 0, (cudaStream_t)stream>>>(
+    cudaStream_t st = (cudaStream_t)stream;
+    if (cta > 0 && clip)
+        dequant_idct_add_kernel<true><<<cta, kThreads, 0, st>>>(
+            p, (const int4*)table);
+    else if (cta > 0)
+        dequant_idct_add_kernel<false><<<cta, kThreads, 0, st>>>(
             p, (const int4*)table);
     return (int)cudaGetLastError();
 }

@@ -138,12 +138,15 @@ def seed_field(orig: torch.Tensor, ref: torch.Tensor, wb: int, hb: int):
     return torch.stack([bsx, bsy], -1).to(torch.int32)
 
 
-def _dense_stage(orig, ref, seeds, w, h, wb, hb, want_surf=False):
+def _dense_stage(orig, ref, seeds, w, h, wb, hb, want_surf=False,
+                 bit_depth=16):
     """Twin of enc_core dense_search_rows: per 16x16 block, the exhaustive
     +/-8 full-pel SAD winner around the lowres seed, through the
-    dense_me_sweep kernel. Returns ((hb, wb, 2) MVs, (hb, wb) SADs), and
-    with want_surf also the (hb*wb, 289) SAD surface."""
-    res = dense_me_sweep(orig, ref, seeds, w, h, wb, hb, want_surf)
+    dense_me_sweep kernel (the samples' bit_depth picks its key; 16 holds
+    any int16 planes). Returns ((hb, wb, 2) MVs, (hb, wb) SADs), and with
+    want_surf also the (hb*wb, 289) SAD surface."""
+    res = dense_me_sweep(orig, ref, seeds, w, h, wb, hb, want_surf,
+                         bit_depth=bit_depth)
     res, surf = res if want_surf else (res, None)
     off = res[:, :2].reshape(hb, wb, 2)
     out = (seeds + off, res[:, 2].reshape(hb, wb))
@@ -155,20 +158,80 @@ def _np32(t: torch.Tensor) -> np.ndarray:
 
 
 def analysis_device(orig_y: np.ndarray, ref_y: np.ndarray, device,
-                    want_surf: bool = False):
+                    want_surf: bool = False, bit_depth: int = 16):
     """One reference plane's (seed, dense, sad) fields on `device`:
     ((hb, wb, 2), (hb, wb, 2), (hb, wb)) int32 numpy plus wb, hb —
     integer-exact with the host lowres_prepass + dense_prepass. With
     want_surf, a sixth value: the dense sweep's (hb*wb, 289) int32 SAD
-    surface, native.dense_analysis's out_surf."""
+    surface, native.dense_analysis's out_surf. bit_depth: that of the
+    samples (the encoder's SPS depth; 16 holds any planes, which go up as
+    int16 as in the JAX package)."""
     h, w = orig_y.shape
     wb, hb = block_dims(w, h)
     orig = upload(orig_y, device, torch.int16)
     ref = upload(ref_y, device, torch.int16)
     seeds = seed_field(orig, ref, wb, hb)
-    dense = _dense_stage(orig, ref, seeds, w, h, wb, hb, want_surf)
+    dense = _dense_stage(orig, ref, seeds, w, h, wb, hb, want_surf,
+                         bit_depth)
     out = (_np32(seeds), _np32(dense[0]), _np32(dense[1]), wb, hb)
     return out + (_np32(dense[2]),) if want_surf else out
+
+
+def _upload_pairs(origs, refs, device):
+    origs, refs = np.asarray(origs), np.asarray(refs)
+    if origs.ndim != 3 or origs.shape != refs.shape:
+        raise ValueError(f"(N, h, w) origs and refs required, got "
+                         f"{origs.shape} and {refs.shape}")
+    return (upload(origs, device, torch.int16),
+            upload(refs, device, torch.int16))
+
+
+def _seed_fields(o, r, wb, hb):
+    """seed_field over (N, h, w) planes, each of its ops once for all N
+    pairs (torch.func.vmap)."""
+    return torch.func.vmap(lambda a, b: seed_field(a, b, wb, hb))(o, r)
+
+
+def seed_fields_frames_batched(origs: np.ndarray, refs: np.ndarray,
+                               device="cuda"):
+    """The lowres seed fields of N (orig, ref) luma pairs, (N, h, w) each,
+    in one batched pass on `device`: ((N, hb, wb, 2) int32 numpy, wb, hb),
+    each pair's field the exact value of seed_field_device (the host
+    lowres_prepass)."""
+    o, r = _upload_pairs(origs, refs, resolve_device(device))
+    wb, hb = block_dims(o.shape[2], o.shape[1])
+    return _np32(_seed_fields(o, r, wb, hb)), wb, hb
+
+
+def analysis_frames_batched(origs: np.ndarray, refs: np.ndarray,
+                            device="cuda", bit_depth: int = 16):
+    """The encoder analysis of N (orig, ref) luma pairs, (N, h, w) each:
+    the seed fields in one batched pass, then the dense full-pel fields and
+    their winner SADs, one dense_me_sweep launch per pair (the kernel
+    clamps its reads to one plane pair). Returns ((N, hb, wb, 2) seeds,
+    (N, hb, wb, 2) dense MVs, (N, hb, wb) SADs) int32 numpy and wb, hb,
+    each pair's the exact value of analysis_device."""
+    o, r = _upload_pairs(origs, refs, resolve_device(device))
+    n, h, w = o.shape
+    wb, hb = block_dims(w, h)
+    seeds = _seed_fields(o, r, wb, hb).contiguous()
+    dense = [_dense_stage(o[i], r[i], seeds[i], w, h, wb, hb,
+                          bit_depth=bit_depth) for i in range(n)]
+    dm = torch.stack([d[0] for d in dense]) if n else seeds
+    ds = torch.stack([d[1] for d in dense]) if n else seeds[..., 0]
+    return _np32(seeds), _np32(dm), _np32(ds), wb, hb
+
+
+def analysis_frames_sharded(mesh, origs, refs, bit_depth: int = 16):
+    """analysis_frames_batched on the mesh's device (the name of the JAX
+    package's frame-sharded form)."""
+    return analysis_frames_batched(origs, refs, mesh.device, bit_depth)
+
+
+def seed_fields_frames_sharded(mesh, origs, refs):
+    """seed_fields_frames_batched on the mesh's device (the name of the
+    JAX package's frame-sharded form)."""
+    return seed_fields_frames_batched(origs, refs, mesh.device)
 
 
 def seed_field_device(orig_y: np.ndarray, ref_y: np.ndarray, device):
@@ -694,7 +757,7 @@ def install_seed_fields(enc, orig) -> Optional[dict]:
             if want_dense:
                 sm, dm, ds, wb, hb, *rest = analysis_device(
                     np.asarray(orig[0]), np.asarray(plane), enc.device,
-                    want_surf)
+                    want_surf, enc.sps.bit_depth_y)
                 if want_surf:
                     surf = rest[0]
                     surfaces += 1

@@ -109,8 +109,8 @@ def _dir_pass(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
     edge &= ~disabled[sl_q]
     diff_slice = slice_idx[cyq, cxp] != slice_idx[cyq, cxq]
     edge &= ~(diff_slice & ~across[sl_q])
-    if not across_tiles:
-        edge &= tile_id[cyq, cxp] == tile_id[cyq, cxq]
+    if across_tiles is not True:   # False, or a frame's flag under vmap
+        edge &= across_tiles | (tile_id[cyq, cxp] == tile_id[cyq, cxq])
 
     intra_edge = (pred_mode[byp, bxp] == 1) | (pred_mode[byq, bxq] == 1)
     tu_edge = tu_id[byp, bxp] != tu_id[byq, bxq]
@@ -267,7 +267,8 @@ def _transpose_maps(maps):
 def deblock_device(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
                    across_tiles):
     """Full deblock (vertical then horizontal) on device tensors; returns
-    new contiguous (ry, rcb, rcr).
+    new contiguous (ry, rcb, rcr). across_tiles: a bool, or a bool tensor
+    (a frame's flag under torch.func.vmap).
 
     mv swap note: mv is (2, h4, w4, 2) with components (x, y); under
     transposition the filter only uses |dx|>=4 | |dy|>=4, which is

@@ -6,12 +6,17 @@ what bounds it on an H100) replaces the Pallas TPU kernel
 `turingcodec_tpu/ops/pallas_kernels.py::dense_me_argmin`. Two wrappers
 launch it:
 
-- `dense_me_sweep(orig, ref, seeds, w, h, wb, hb, want_surf)`, the
-  encoder's entry point, reads the sample planes directly around the
-  seeds, and with `want_surf` also returns every block's 17x17 SAD surface
-  (the table the encoder's full-pel search reads its aligned probes from);
-- `dense_me_argmin(cur, patches)` keeps the Pallas kernel's interface
-  (materialised blocks and windows).
+- `dense_me_sweep(orig, ref, seeds, w, h, wb, hb, want_surf,
+  bit_depth=)`, the encoder's entry point, reads the sample planes
+  directly around the seeds, and with `want_surf` also returns every
+  block's 17x17 SAD surface (the table the encoder's full-pel search reads
+  its aligned probes from);
+- `dense_me_argmin(cur, patches, bit_depth=)` keeps the Pallas kernel's
+  interface (materialised blocks and windows).
+
+Both take the samples' bit depth (8..16): up to 12 bits the kernel packs
+its (cost, offset) key into 32 bits, above that into 64 (`WIDE_ABOVE`), so
+the argmin is exact at every depth the encoder admits.
 
 `dense_me_argmin_ref` is the plain torch version of the function, and
 `dense_me_argmin_ref(*dense_inputs(...))` that of the sweep: the wrappers
@@ -30,6 +35,10 @@ launches = 0
 
 _LAUNCH = None
 P = 48  # reference pad of enc_core dense_pad_plane
+# the deepest samples of the kernel's 32-bit key; deeper ones take the
+# 64-bit key, and 16 bits is the most either holds exactly
+WIDE_ABOVE = 12
+MAX_BIT_DEPTH = 16
 
 
 def edge_pad(x: torch.Tensor, top: int, bottom: int, left: int,
@@ -60,6 +69,12 @@ def dense_inputs(orig, ref, seeds, w, h, wb, hb):
     patch = r[ys, xs]  # (hb, wb, 32, 32)
     return (cb.reshape(hb * wb, 16, 16).to(torch.int32).contiguous(),
             patch.reshape(hb * wb, 32, 32).to(torch.int32).contiguous())
+
+
+def _check_bit_depth(bit_depth: int) -> None:
+    if not 1 <= bit_depth <= MAX_BIT_DEPTH:
+        raise ValueError(f"bit depth {bit_depth} unsupported: the kernel's "
+                         f"float SADs are exact up to {MAX_BIT_DEPTH} bits")
 
 
 def _check(cur: torch.Tensor, patches: torch.Tensor) -> int:
@@ -126,15 +141,16 @@ def _launcher():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p] + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 3)
         _LAUNCH = fn
     return _LAUNCH
 
 
-def _launch(src, src_hw, ref, ref_hw, seeds, wb, b, want_surf=False):
-    """One kernel launch over contiguous planes on a CUDA device; returns
-    the (b, 3) winners, and the (b, 289) surface with want_surf."""
+def _launch(src, src_hw, ref, ref_hw, seeds, wb, b, want_surf, bit_depth):
+    """One kernel launch over contiguous planes on a CUDA device, with the
+    64-bit key above WIDE_ABOVE bits; returns the (b, 3) winners, and the
+    (b, 289) surface with want_surf."""
     global launches
     if src.device.type != "cuda":
         raise ValueError(f"unsupported device {src.device}")
@@ -149,7 +165,8 @@ def _launch(src, src_hw, ref, ref_hw, seeds, wb, b, want_surf=False):
         rc = fn(src.data_ptr(), src_hw[1], src_hw[0], src_hw[1],
                 ref.data_ptr(), ref_hw[1], ref_hw[0], ref_hw[1],
                 None if seeds is None else seeds.data_ptr(), wb, b,
-                src.element_size(), out.data_ptr(),
+                src.element_size(), int(bit_depth > WIDE_ABOVE),
+                out.data_ptr(),
                 None if surf is None else surf.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"dense_me launch failed: CUDA error {rc}")
@@ -157,28 +174,34 @@ def _launch(src, src_hw, ref, ref_hw, seeds, wb, b, want_surf=False):
     return (out, surf) if want_surf else out
 
 
-def dense_me_argmin(cur: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
+def dense_me_argmin(cur: torch.Tensor, patches: torch.Tensor, *,
+                    bit_depth: int) -> torch.Tensor:
     """For each block, the (ox, oy) in [-8, 8]^2 minimising
     (SAD(cur, patches[oy+8:oy+24, ox+8:ox+24]) << 2) + |ox| + |oy|, ties to
     the first offset in (oy, ox) scan order.
 
     cur: (B, 16, 16) int32 source blocks; patches: (B, 32, 32) int32
-    reference windows at seed - 8; samples of at most 12 bits. Returns
-    (B, 3) int32 [ox, oy, sad]. CPU tensors take the plain version; CUDA
-    tensors launch the kernel, and a failed build or launch raises."""
+    reference windows at seed - 8; samples of at most bit_depth bits
+    (8..16). Returns (B, 3) int32 [ox, oy, sad]. CPU tensors take the plain
+    version; CUDA tensors launch the kernel, and a failed build or launch
+    raises."""
     b = _check(cur, patches)
+    _check_bit_depth(bit_depth)
     if cur.device.type == "cpu":
         return dense_me_argmin_ref(cur, patches)
-    return _launch(cur, (16 * b, 16), patches, (32 * b, 32), None, 1, b)
+    return _launch(cur, (16 * b, 16), patches, (32 * b, 32), None, 1, b,
+                   False, bit_depth)
 
 
 def dense_me_sweep(orig: torch.Tensor, ref: torch.Tensor,
                    seeds: torch.Tensor, w: int, h: int, wb: int, hb: int,
-                   want_surf: bool = False):
+                   want_surf: bool = False, *, bit_depth: int):
     """Twin of enc_core dense_search_rows: dense_me_argmin over every
     16x16 block of the wb x hb grid, read straight from the planes.
 
-    orig, ref: (h, w) int16 or int32 sample planes of at most 12 bits;
+    orig, ref: (h, w) int16 or int32 sample planes of at most bit_depth
+    bits (8..16; int16 planes of 16-bit samples hold them wrapped, as the
+    encoder sends them, and their differences still stay below 2^16);
     seeds: (hb, wb, 2) int32 [sx, sy] full-pel seeds. Block (by, bx) is
     the source at (16 by, 16 bx) and the window at (16 by + sy - 8,
     16 bx + sx - 8), both with every coordinate clamped into the planes
@@ -188,7 +211,9 @@ def dense_me_sweep(orig: torch.Tensor, ref: torch.Tensor,
     take the plain version; CUDA tensors launch the kernel, and a failed
     build or launch raises."""
     _check_sweep(orig, ref, seeds, w, h, wb, hb)
+    _check_bit_depth(bit_depth)
     if orig.device.type == "cpu":
         return dense_me_argmin_ref(*dense_inputs(orig, ref, seeds, w, h, wb,
                                                  hb), want_surf)
-    return _launch(orig, (h, w), ref, (h, w), seeds, wb, hb * wb, want_surf)
+    return _launch(orig, (h, w), ref, (h, w), seeds, wb, hb * wb, want_surf,
+                   bit_depth)

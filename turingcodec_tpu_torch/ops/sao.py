@@ -29,7 +29,8 @@ def _sao_plane(src, ctb, bd, sub, sao_type, sao_class, sao_off,
                skip_up):
     """One plane. src (h, w); sao_* are per-CTB maps; *_up are
     sample-resolution maps; enable_s/across_s index per slice;
-    across_tiles is a bool."""
+    across_tiles is a bool, or a bool tensor (a frame's flag under
+    torch.func.vmap)."""
     h, w = src.shape
     dev = src.device
     max_val = (1 << bd) - 1
@@ -68,9 +69,10 @@ def _sao_plane(src, ctb, bd, sub, sao_type, sao_class, sao_off,
         nb_sl_b = torch.roll(cur_slice, (ady, adx), (0, 1))
         ok = ((cur_slice == nb_sl_a) | allowed) \
             & ((cur_slice == nb_sl_b) | allowed)
-        if not across_tiles:
-            ok &= ((cur_tile == torch.roll(cur_tile, (-ady, -adx), (0, 1)))
-                   & (cur_tile == torch.roll(cur_tile, (ady, adx), (0, 1))))
+        if across_tiles is not True:  # False, or a frame's flag under vmap
+            ok &= across_tiles | (
+                (cur_tile == torch.roll(cur_tile, (-ady, -adx), (0, 1)))
+                & (cur_tile == torch.roll(cur_tile, (ady, adx), (0, 1))))
         valid = inb & ok
         eidx = remap[(2 + torch.sign(p - a) + torch.sign(p - b)).long()]
         off = torch.zeros_like(p)
@@ -86,20 +88,19 @@ def _sao_plane(src, ctb, bd, sub, sao_type, sao_class, sao_off,
     return out.to(src.dtype)
 
 
-def sao_picture_device(plan, geom, deblocked, device, pull=True):
-    """Apply SAO on `device` to [y, cb, cr] (numpy planes or tensors on
-    `device`); returns new numpy planes (drop-in for decode/sao.sao_picture)
-    or, with pull=False, new tensors left on the device: the chained
-    pipeline's mode (decode/device_pipeline.py)."""
+def _tensor(a, device, dtype=None):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                           device=device)
+
+
+def _picture_maps(plan, geom, device):
+    """A picture's per-slice across flags, tile flag, and its slice, tile
+    and 4x4 skip maps on `device`: what every component's _sao_plane call
+    shares."""
     sps, pps = plan.sps, plan.pps
     shs = plan.slice_headers
-
-    def up(a, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=device)
-
-    across_s = up([bool(sh.slice_loop_filter_across_slices_enabled_flag)
-                   for sh in shs] or [True])
+    across_s = _tensor([bool(sh.slice_loop_filter_across_slices_enabled_flag)
+                        for sh in shs] or [True], device)
     across_tiles = (bool(pps.loop_filter_across_tiles_enabled_flag)
                     or geom.num_tiles == 1)
 
@@ -111,32 +112,52 @@ def sao_picture_device(plan, geom, deblocked, device, pull=True):
         skip4 |= np.asarray(plan.pcm_flag, bool)[:h4, :w4]
     if pps.transquant_bypass_enabled_flag:
         skip4 |= np.asarray(plan.tq_bypass, bool)[:h4, :w4]
-    skip4 = up(skip4)
-    slice_idx = up(plan.slice_idx, torch.int32)
-    tile_id = up(geom.tile_id, torch.int32)
+    return dict(across_s=across_s, across_tiles=across_tiles,
+                skip4=_tensor(skip4, device),
+                slice_idx=_tensor(plan.slice_idx, device, torch.int32),
+                tile_id=_tensor(geom.tile_id, device, torch.int32))
 
+
+def sao_plane_args(plan, maps, c_idx, src):
+    """The arguments of _sao_plane for component c_idx of a picture, src
+    its deblocked plane as a tensor on the maps' device (`maps` from
+    _picture_maps)."""
+    sps = plan.sps
+    shs = plan.slice_headers
+    dev = src.device
+    sub = 1 if c_idx == 0 else 2
+    ctb = int(sps.ctb_size_y // sub)
+    bd = int(sps.bit_depth_y if c_idx == 0 else sps.bit_depth_c)
+    h, w = src.shape
+    enable_s = _tensor([bool(sh.slice_sao_luma_flag if c_idx == 0
+                             else sh.slice_sao_chroma_flag) for sh in shs]
+                       or [False], dev)
+    f = 4 // sub
+    return (src, ctb, bd, sub,
+            _tensor(plan.sao_type[:, :, c_idx], dev, torch.int32),
+            _tensor(plan.sao_class[:, :, c_idx], dev, torch.int32),
+            _tensor(plan.sao_offsets[:, :, c_idx], dev, torch.int32),
+            _up(maps["slice_idx"], ctb, ctb, h, w),
+            _up(maps["tile_id"], ctb, ctb, h, w),
+            enable_s, maps["across_s"], maps["across_tiles"],
+            _up(maps["skip4"], f, f, h, w))
+
+
+def sao_picture_device(plan, geom, deblocked, device, pull=True):
+    """Apply SAO on `device` to [y, cb, cr] (numpy planes or tensors on
+    `device`); returns new numpy planes (drop-in for decode/sao.sao_picture)
+    or, with pull=False, new tensors left on the device: the chained
+    pipeline's mode (decode/device_pipeline.py)."""
+    maps = _picture_maps(plan, geom, device)
     out = []
-    n_planes = 3 if sps.chroma_array_type else 1
+    n_planes = 3 if plan.sps.chroma_array_type else 1
     for c_idx in range(len(deblocked)):
         src = deblocked[c_idx]
         if c_idx >= n_planes:
             out.append(src.copy() if isinstance(src, np.ndarray)
                        else src.clone())
             continue
-        sub = 1 if c_idx == 0 else 2
-        ctb = sps.ctb_size_y // sub
-        bd = sps.bit_depth_y if c_idx == 0 else sps.bit_depth_c
-        h, w = src.shape
-        enable_s = up([bool(sh.slice_sao_luma_flag if c_idx == 0
-                            else sh.slice_sao_chroma_flag) for sh in shs]
-                      or [False])
-        f = 4 // sub
-        res = _sao_plane(
-            torch.as_tensor(src, device=device), int(ctb), int(bd), int(sub),
-            up(plan.sao_type[:, :, c_idx], torch.int32),
-            up(plan.sao_class[:, :, c_idx], torch.int32),
-            up(plan.sao_offsets[:, :, c_idx], torch.int32),
-            _up(slice_idx, ctb, ctb, h, w), _up(tile_id, ctb, ctb, h, w),
-            enable_s, across_s, across_tiles, _up(skip4, f, f, h, w))
+        res = _sao_plane(*sao_plane_args(
+            plan, maps, c_idx, torch.as_tensor(src, device=device)))
         out.append(res.cpu().numpy() if pull else res)
     return out

@@ -244,12 +244,12 @@ def _block_index(xs, ys, n):
             xs[:, None, None] + ar[None, None, :])
 
 
-def _block_grid_add(plane, xs, ys, res, n, max_v):
+def _block_grid_add(plane, xs, ys, res, n, max_v, min_v=0):
     """Add residual (B, n, n) blocks at sample coords (xs, ys) (disjoint)
-    and clip, in place; returns the plane."""
+    and clip to [min_v, max_v], in place; returns the plane."""
     rows, cols = _block_index(xs, ys, n)
     cur = plane[rows, cols].to(torch.int32)
-    plane[rows, cols] = (cur + res).clamp(0, max_v).to(plane.dtype)
+    plane[rows, cols] = (cur + res).clamp(min_v, max_v).to(plane.dtype)
     return plane
 
 
@@ -315,12 +315,13 @@ def _check_add(coeff_planes, planes, table, bit_depths):
     return table[order], comp[order], log2[order], mode[order]
 
 
-def dequant_idct_add_ref(coeff_planes, planes, table, bit_depths):
+def dequant_idct_add_ref(coeff_planes, planes, table, bit_depths,
+                         clip=True):
     """Plain torch version: per (component, size, mode) group of the TU
     table, the levels gathered from the coefficient plane, then
     `dequant_inverse_transform_ref` (modes 0 and 1) or the raw levels
-    (mode 2), added to the plane with a clip to [0, 2^bd - 1] in place.
-    Returns the planes."""
+    (mode 2), added to the plane with a clip to [0, 2^bd - 1] (clip=False:
+    to the int16 range) in place. Returns the planes."""
     table, comp, log2, mode = _check_add(coeff_planes, planes, table,
                                          bit_depths)
     planes = list(planes)
@@ -333,8 +334,9 @@ def dequant_idct_add_ref(coeff_planes, planes, table, bit_depths):
         levels = coeff_planes[c][ri, ci].to(torch.int32)
         res = levels if md == 2 else dequant_inverse_transform_ref(
             levels, rows[:, TU_QP].contiguous(), bd, lg, md)
+        lo, hi = (0, (1 << bd) - 1) if clip else (-32768, 32767)
         planes[c] = _block_grid_add(planes[c], rows[:, TU_X], rows[:, TU_Y],
-                                    res, n, (1 << bd) - 1)
+                                    res, n, hi, lo)
     return planes
 
 
@@ -343,12 +345,12 @@ def _launcher():
     if _LAUNCH is None:
         fn = kernel_build.load("dequant_idct").dequant_idct_add_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
         _LAUNCH = fn
     return _LAUNCH
 
 
-def dequant_idct_add(coeff_planes, planes, table, bit_depths):
+def dequant_idct_add(coeff_planes, planes, table, bit_depths, clip=True):
     """Residuals of a picture's coded TUs, added to its predicted planes.
 
     coeff_planes: the (H, W) int16 level planes of Y, Cb and Cr; planes:
@@ -357,9 +359,11 @@ def dequant_idct_add(coeff_planes, planes, table, bit_depths):
     the module's docstring, every TU inside its plane; bit_depths: the
     three components' bit depths. Each TU gets the flat dequantization and
     the inverse DCT (mode 0), the transform-skip shift (1) or its raw
-    levels (2), then the add and the clip to [0, 2^bd - 1]. CPU tensors
-    take the plain version; CUDA tensors launch the kernel once for the
-    whole table (nothing when it is empty), and a failed build or launch
+    levels (2), then the add and the clip to [0, 2^bd - 1]; clip=False
+    clips to the int16 range instead, so that zero planes take the
+    residuals themselves (the kernel's second instance). CPU tensors take
+    the plain version; CUDA tensors launch the kernel once for the whole
+    table (nothing when it is empty), and a failed build or launch
     raises."""
     global launches
     table, _comp, log2, _mode = _check_add(coeff_planes, planes, table,
@@ -367,7 +371,8 @@ def dequant_idct_add(coeff_planes, planes, table, bit_depths):
     planes = list(planes)
     dev = planes[0].device
     if dev.type == "cpu":
-        return dequant_idct_add_ref(coeff_planes, planes, table, bit_depths)
+        return dequant_idct_add_ref(coeff_planes, planes, table, bit_depths,
+                                    clip)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if not len(table):
@@ -385,7 +390,7 @@ def dequant_idct_add(coeff_planes, planes, table, bit_depths):
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(ptrs, hw, bds, rows.data_ptr(), counts,
-                LEVEL_SCALE.ctypes.data, stream)
+                LEVEL_SCALE.ctypes.data, int(clip), stream)
     if rc != 0:
         raise RuntimeError(f"dequant_idct launch failed: CUDA error {rc}")
     launches += 1

@@ -118,27 +118,28 @@ def analysis_checks(orig, ref, zscan, device, reps: int = 3, log=print):
           "seed field differs from the native host twin")
     timed("seed_field_device", lambda: da.seed_field_device(orig, ref,
                                                             device))
-    got = da.analysis_device(orig, ref, device, want_surf=True)
+    got = da.analysis_device(orig, ref, device, want_surf=True, bit_depth=8)
     check(all(np.array_equal(g, n) for g, n in zip(
         got[:3] + got[5:], (sm_n, dm_n, ds_n, surf_n))),
         "seed/dense/SAD fields or the SAD surface differ from the native "
         "host twin")
     check(all(np.array_equal(g, n) for g, n in zip(
-        da.analysis_device(orig, ref, device)[:3], got[:3])),
+        da.analysis_device(orig, ref, device, bit_depth=8)[:3], got[:3])),
         "the fields differ with and without the surface")
-    timed("analysis_device", lambda: da.analysis_device(orig, ref, device))
+    timed("analysis_device", lambda: da.analysis_device(orig, ref, device,
+                                                        bit_depth=8))
     timed("analysis_device_surf", lambda: da.analysis_device(
-        orig, ref, device, want_surf=True))
+        orig, ref, device, want_surf=True, bit_depth=8))
     log(f"seed + dense fields and the ({got[5].shape[0]}, 289) SAD surface "
         f"{w}x{h}: equal to the native host twin")
 
     o = da.upload(orig, device, torch.int16)
     r = da.upload(ref, device, torch.int16)
     args = (o, r, da.seed_field(o, r, wb, hb), w, h, wb, hb)
-    res, surf = dense_me_sweep(*args, True)
+    res, surf = dense_me_sweep(*args, True, bit_depth=8)
     want, want_surf = dense_me_argmin_ref(*dense_inputs(*args), True)
     check(torch.equal(res, want) and torch.equal(surf, want_surf)
-          and torch.equal(dense_me_sweep(*args), want),
+          and torch.equal(dense_me_sweep(*args, bit_depth=8), want),
           "dense_me_sweep differs from its plain version")
     log(f"dense_me_sweep on {device}, winners and surface: equal to the "
         f"plain version (B={hb * wb})")
