@@ -28,8 +28,9 @@ one residual launch per picture with coded inter TUs. After the decode
 rates, one more decode times the residual stage (host clock, synchronised
 around it). Then the DSP op library at one 1080p picture's block counts:
 the forward transform and all-phase interpolation kernels against their
-plain versions (8 and 10 bits, extreme inputs, every size and phase,
-ragged batches), the torch ops on the card against the CPU,
+plain versions (8 and 10 bits, and 14 for the interpolation, extreme
+inputs, every size and phase, 4x8 to 64x64 windows, ragged batches), the
+torch ops on the card against the CPU,
 tools/kernels.py at its defaults (the path that launches the two
 kernels, and the residual kernel) and tools/testdecode.py on
 tests/streams, on the card. Then the encoder's configuration matrix
@@ -672,10 +673,11 @@ def cold_inputs(x, l2_bytes: int = 50 << 20):
 def check_dsp_ops(device, reps):
     """The DSP op library at one 1080p picture's block counts: the forward
     transform and all-phase interpolation kernels against their plain
-    versions on the card (8 and 10 bits, random and extreme inputs, every
-    size, the DST, every phase), the torch ops (metrics, quantization,
-    all-modes intra) on the card against the same code on the CPU; times
-    and bounds of the two kernels. Returns their kernels-line rows."""
+    versions on the card (8 and 10 bits, and 14 for the interpolation,
+    random and extreme inputs, every size, the DST, every phase), the torch
+    ops (metrics, quantization, all-modes intra) on the card against the
+    same code on the CPU; times and bounds of the two kernels, on inputs
+    read from device memory. Returns their kernels-line rows."""
     import numpy as np
     import torch
 
@@ -724,10 +726,14 @@ def check_dsp_ops(device, reps):
             f"extreme residuals: equal")
 
     ip_errs, ip_timed = [], {}
-    # the 1080p shapes, then a width that splits warps across windows and a
-    # batch that leaves the last thread block part-filled
-    for (w, h, b) in ((16, 16, 8160), (8, 8, 32400), (12, 20, 1001)):
-        for bd in (8, 10):
+    # one 1080p picture's blocks of each shape (the first three timed, the
+    # first the row's); 8x4 and 4x8 put 4-8 windows in a warp, 64x64 takes
+    # the kernel's row bands; then a width that splits warps across windows
+    # and a batch that leaves the last tile part-filled
+    for (w, h, b) in ((16, 16, 8160), (8, 8, 32400), (64, 64, 510),
+                      (8, 4, 64800), (4, 8, 64800), (32, 32, 2040),
+                      (12, 20, 1001)):
+        for bd in (8, 10, 14):
             hi = (1 << bd) - 1
             for extreme in (False, True):
                 if extreme:       # 0 / max checkerboards: the largest taps
@@ -740,14 +746,15 @@ def check_dsp_ops(device, reps):
                     f"interp_all_phases {w}x{h} {bd}-bit",
                     inter.interp_luma_all_phases(x, w, h, bd),
                     inter.interp_luma_all_phases_ref(x, w, h, bd)))
-            if bd == 8:
+            if bd == 8 and (w, h) in ((16, 16), (8, 8), (64, 64)):
+                cold = cold_inputs(x)
                 ip_timed[f"interp_all_phases {w}x{h} at B={b}"] = (
-                    lambda x=x, w=w, h=h: inter.interp_luma_all_phases(
-                        x, w, h), interp_bound(b, w, h)[0])
+                    lambda cold=cold, w=w, h=h: inter.interp_luma_all_phases(
+                        cold(), w, h), interp_bound(b, w, h)[0])
                 if w == 16:
-                    ip_row = (x, b, w, h)
-        log(f"kernel vs plain, interp_all_phases {w}x{h} at B={b}, 8 and "
-            f"10 bits, random and extreme windows, all 16 phases: equal")
+                    ip_row = (cold, b, w, h)
+        log(f"kernel vs plain, interp_all_phases {w}x{h} at B={b}, 8, 10 "
+            f"and 14 bits, random and extreme windows, all 16 phases: equal")
 
     # the torch ops on the card against the same code on the CPU
     for log2, b in BLOCKS_1080P.items():
@@ -794,14 +801,15 @@ def check_dsp_ops(device, reps):
         bound_ms=bnd[0], bound_by=bnd[1], timed={
             k: fwd_timed[k] for k in sorted(fwd_timed, key=lambda k: (
                 "32x32" not in k, k))})
-    x, b, w, h = ip_row
+    cold, b, w, h = ip_row
     bnd = interp_bound(b, w, h)
     rows["interp_all_phases"] = dict(
         max_abs_err=max(ip_errs), kname="interp_all_phases",
-        ms=timed_ms(lambda: inter.interp_luma_all_phases(x, w, h), device,
-                    reps),
-        plain_ms=timed_ms(lambda: inter.interp_luma_all_phases_ref(x, w, h),
-                          device, max(1, reps // 4)),
+        ms=timed_ms(lambda: inter.interp_luma_all_phases(cold(), w, h),
+                    device, reps),
+        plain_ms=timed_ms(
+            lambda: inter.interp_luma_all_phases_ref(cold(), w, h), device,
+            max(1, reps // 4)),
         bound_ms=bnd[0], bound_by=bnd[1], timed=ip_timed)
     for k, r in rows.items():
         log(f"{k} at its row's shape: kernel {r['ms']:.4f} ms, plain torch "

@@ -126,8 +126,13 @@ def test_intra_all_modes_match_jax(n, bd):
                                                   bd))
 
 
-@pytest.mark.parametrize("w,h", [(8, 8), (16, 16), (8, 16), (16, 8)])
-@pytest.mark.parametrize("bd", [8, 10])
+# the 1080p shapes, a warp over 4-8 windows (4x8, 8x4), the kernel's
+# largest whole-window tiles (32x32) and its row bands (64x64), a width that
+# splits warps across windows (12x20); 13 and 14 bits are as far as the
+# full-pel phase's shift, 14 - bit depth, is defined
+@pytest.mark.parametrize("w,h", [(8, 8), (16, 16), (8, 16), (16, 8), (4, 8),
+                                 (8, 4), (32, 32), (64, 64), (12, 20)])
+@pytest.mark.parametrize("bd", [8, 10, 13, 14])
 def test_interp_all_phases_match_jax(w, h, bd):
     rng = np.random.default_rng(w * 10 + h + bd)
     b = 5
@@ -155,5 +160,8 @@ def test_interp_all_phases_rejects_what_the_kernel_does_not_take():
         inter.interp_luma_all_phases(win, 8, 16)
     with pytest.raises(TypeError):
         inter.interp_luma_all_phases(win.to(torch.int32), 8, 8)
-    with pytest.raises(ValueError):
-        inter.interp_luma_all_phases(win, 8, 8, 14)
+    for bd in (7, 15, 16):     # 14 - bd < 0 above 14: JAX's is undefined
+        with pytest.raises(ValueError):
+            inter.interp_luma_all_phases(win, 8, 8, bd)
+        with pytest.raises(ValueError):
+            inter.interp_luma_all_phases_ref(win, 8, 8, bd)

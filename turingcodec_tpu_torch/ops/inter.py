@@ -198,7 +198,8 @@ def _check_interp(win: torch.Tensor, w: int, h: int, bit_depth: int):
             or w < 1 or h < 1:
         raise ValueError(f"(B, {h + 7}, {w + 7}) windows required, got "
                          f"{tuple(win.shape)}")
-    if not 8 <= bit_depth <= 12:
+    # 14 - bit_depth is the full-pel phase's left shift: negative above 14
+    if not 8 <= bit_depth <= 14:
         raise ValueError(f"bit depth {bit_depth} unsupported")
     if not win.is_contiguous():
         raise ValueError("contiguous windows required")
@@ -242,7 +243,7 @@ def _interp_launcher():
     if _INTERP_LAUNCH is None:
         fn = kernel_build.load("interp_all_phases").interp_all_phases_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 2)
         _INTERP_LAUNCH = fn
     return _INTERP_LAUNCH
@@ -253,9 +254,9 @@ def interp_luma_all_phases(win: torch.Tensor, w: int, h: int,
     """(B, h+7, w+7) int16 windows -> (B, 4, 4, h, w) int32 14-bit
     predictions of the block at the window's (3, 3) for every (yfrac,
     xfrac) quarter-sample phase, bit-exact with decode.inter_pred.
-    interp_luma per phase; bit depths 8..12. CPU tensors take the plain
-    version; CUDA tensors launch the kernel once, and a failed build or
-    launch raises."""
+    interp_luma per phase; bit depths 8..14. CPU tensors take the plain
+    version; CUDA tensors launch the kernel once (w up to 382), and a
+    failed build or launch raises."""
     global interp_launches
     _check_interp(win, w, h, bit_depth)
     if win.device.type == "cpu":
@@ -266,12 +267,10 @@ def interp_luma_all_phases(win: torch.Tensor, w: int, h: int,
     out = torch.empty((b, 4, 4, h, w), dtype=torch.int32, device=win.device)
     if b == 0:
         return out
-    filt = _filter_on(8, win.device)
     fn = _interp_launcher()
     stream = torch.cuda.current_stream(win.device).cuda_stream
     with torch.cuda.device(win.device):
-        rc = fn(win.data_ptr(), filt.data_ptr(), b, w, h, bit_depth,
-                out.data_ptr(), stream)
+        rc = fn(win.data_ptr(), b, w, h, bit_depth, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"interp_all_phases launch failed: CUDA error "
                            f"{rc}")

@@ -10,7 +10,8 @@ matrices, filter taps, QP tables) stay in hevc/tables.py and friends;
 `table` puts each on a device once, and `_tables` compiles into a kernel
 the tables it reads as immediates (the DCT coefficients of the residual
 kernel and of the forward transform, and the forward DST: from the
-kernel's parameters they cost it a constant-cache miss each).
+kernel's parameters they cost it a constant-cache miss each; the luma
+filter taps of the all-phase interpolation, which held registers).
 """
 from __future__ import annotations
 
@@ -52,11 +53,14 @@ def _tables(name: str) -> list:
     at compile time, made from hevc/tables.py so that each table lives
     there alone: a generated header of #defines, pre-included (nvcc splits
     a -D value at its commas)."""
-    from turingcodec_tpu_torch.hevc.tables import DST4, dct2_matrix
+    from turingcodec_tpu_torch.hevc.tables import (DST4, LUMA_FILTER,
+                                                   dct2_matrix)
     tables = {"TC_DCT32_HALF": np.asarray(dct2_matrix(32))[:, :16],
-              "TC_DST4": np.asarray(DST4)}
+              "TC_DST4": np.asarray(DST4),
+              "TC_LUMA_FILTER": np.asarray(LUMA_FILTER)}
     wanted = {"dequant_idct": ("TC_DCT32_HALF",),
-              "fwd_transform": ("TC_DCT32_HALF", "TC_DST4")}.get(name)
+              "fwd_transform": ("TC_DCT32_HALF", "TC_DST4"),
+              "interp_all_phases": ("TC_LUMA_FILTER",)}.get(name)
     if not wanted:
         return []
     header = os.path.join(BUILD_DIR, f"{name}_tables.h")
