@@ -8,12 +8,17 @@ sweep also through its fused entry point, on odd-sized frames with seeds
 at +-36, at 8, 10 and 12 bits, with and without its SAD surface), holds
 every encoder analysis stage on the card against its host twin at 1080p
 (tools/device_enc_check.py; the surface against the native prepass's),
-then drives the main path: decode tests/streams/vfy_sweep.hevc (md5
-against tests/streams/GOLDEN.json), upscale it 3x to 1920x1080, encode 8
-frames at the fast low-delay operating point with the analysis stage on
-the card and on the host (byte-identical bitstreams, one SAD surface
-installed per inter picture), once more on the card with TC_NO_ME_SURF
-(the same bytes, no surface), and decode the result hash-clean. Then the decoder's
+and the stage's rank-SATD and subpel kernels against their plain versions
+(the 1080p I and P pictures at 8, 10 and 14 bits, strong smoothing on and
+off; the subpel planes at 8, 10 and 16 bits), then drives the main path:
+decode tests/streams/vfy_sweep.hevc (md5 against
+tests/streams/GOLDEN.json), upscale it 3x to 1920x1080, encode 8 frames
+at the fast low-delay operating point with the analysis stage on the card
+and on the host (byte-identical bitstreams, one SAD surface installed per
+inter picture, the rank kernel at four sizes on every picture and the
+subpel kernel on every inter picture), once more on the card with
+TC_NO_ME_SURF (the same bytes, no surface), and decode the result
+hash-clean. Then the decoder's
 device pipeline: every staged decode stage on the card against
 its host twin (on the 1080p encode and on vfy_sweep), the two decoder
 kernels against their plain versions (MC: synthetic inputs of two
@@ -67,7 +72,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("dense_me", "mc_block_grid", "dequant_idct", "fwd_transform",
-           "interp_all_phases")
+           "interp_all_phases", "rank_satd", "subpel_planes")
 STREAM = os.path.join(ROOT, "tests", "streams", "vfy_sweep.hevc")
 GOLDEN = os.path.join(ROOT, "tests", "streams", "GOLDEN.json")
 N_FRAMES = 8
@@ -320,10 +325,116 @@ def wide_key(device, w, h, compare_sweep):
     return {"err": err, "fn": lambda: dense_me_sweep(*args, bit_depth=14)}
 
 
+def subpel_bound(h: int, w: int):
+    """Bound of one subpel_planes call on an (h, w) plane: the int16 plane
+    in, the (15, h + 56, w + 56) int16 planes out; the three horizontal
+    phases' 8 taps over the h + 63 source rows of every output column, and
+    per output sample the three vertical phases' 8 taps over the plane and
+    over each of the three horizontal phases."""
+    ph, pw = h + 56, w + 56
+    return bound(2 * h * w + 15 * 2 * ph * pw,
+                 24 * (ph + 7) * pw + 12 * 8 * ph * pw)
+
+
+def rank_ops(h: int, w: int) -> int:
+    """INT32 operations of the rank tables of an (h, w) plane at the four
+    sizes, per sample of each block and mode: the angular prediction's two
+    products, two adds and a shift (planar 8 operations, DC none), the
+    difference, the two butterfly passes (log2 of the sub-block's side adds
+    each: 6 for 8x8, 4 for 4x4) and the absolute value and sum."""
+    ops = 0
+    for n in (4, 8, 16, 32):
+        samples = (h // n) * (w // n) * n * n
+        tail = 1 + (6 if n >= 8 else 4) + 2
+        ops += samples * (33 * (5 + tail) + (8 + tail) + tail)
+    return ops
+
+
+def rank_bound(h: int, w: int):
+    """Bound of one rank_satd_tables call at the four sizes: the int16
+    plane and the int32 z-scan table in once, the (h/n, w/n, 35) int32
+    tables out; rank_ops' operations."""
+    tables = sum((h // n) * (w // n) * 35 * 4 for n in (4, 8, 16, 32))
+    return bound(2 * h * w + 4 * (h // 4) * (w // 4) + tables,
+                 rank_ops(h, w))
+
+
+def check_analysis_kernels(device, frames, zscan, reps):
+    """The encoder analysis stage's rank-SATD and subpel kernels against
+    their plain versions on the card: the rank tables of the 1080p I and P
+    pictures at 8, 10 and 14 bits with strong smoothing on and off, the
+    subpel planes of the reference at 8, 10 and 16 bits (above 32767 the
+    int16 samples wrap, as in the reference). Times both at 8 bits on
+    inputs read from device memory. Returns their kernels-line rows."""
+    import numpy as np
+    import torch
+
+    from turingcodec_tpu_torch.encode import device_analysis as da
+
+    def deep(plane, other, bd):
+        # the picture in the high bits, another picture's in the low ones
+        return (((plane.astype(np.int64) << (bd - 8))
+                 + (other & ((1 << (bd - 8)) - 1)))
+                .astype(np.uint16).view(np.int16))
+
+    pics = {"I": frames[0][0], "P": frames[1][0]}
+    h, w = pics["I"].shape
+    rank_errs, sub_errs = [], []
+    for name, pic in pics.items():
+        for bd in (8, 10, 14):
+            x = torch.from_numpy(deep(pic, pics["I"] if name == "P"
+                                      else pics["P"], bd)).to(device)
+            for strong in (True, False):
+                got = da.rank_satd_tables(x, zscan, bd, strong)
+                want = da.rank_satd_tables_ref(x, zscan, bd, strong)
+                check(list(got) == list(want) == [4, 8, 16, 32],
+                      f"rank table sizes {list(got)}")
+                rank_errs += [equal_on_card(
+                    f"rank_satd {name} picture {bd}-bit strong={strong} "
+                    f"n={n}", got[n], want[n]) for n in want]
+    log(f"kernel vs plain, rank_satd on the 1080p I and P pictures at 8, "
+        f"10 and 14 bits, strong smoothing on and off, n = 4..32: equal")
+    for bd in (8, 10, 16):
+        x = torch.from_numpy(deep(pics["I"], pics["P"], bd)).to(device)
+        sub_errs.append(equal_on_card(
+            f"subpel_planes {bd}-bit", da.subpel_planes(x, bd),
+            da._subpel_planes(x.to(torch.int32), bd)))
+    log(f"kernel vs plain, subpel_planes of the 1080p reference at 8, 10 "
+        f"and 16 bits, all 15 planes: equal")
+
+    x = torch.from_numpy(np.ascontiguousarray(pics["P"])).to(device)
+    cold = cold_inputs(x)
+    rows = {}
+    bnd = rank_bound(h, w)
+    rows["rank_satd"] = dict(
+        max_abs_err=max(rank_errs), kname="rank_satd",
+        ms=timed_ms(lambda: da.rank_satd_tables(cold(), zscan, 8, True),
+                    device, reps),
+        plain_ms=timed_ms(lambda: da.rank_satd_tables_ref(
+            cold(), zscan, 8, True), device, max(1, reps // 4)),
+        bound_ms=bnd[0], bound_by=bnd[1], timed={
+            f"rank_satd at {w}x{h}, n = 4..32": (
+                lambda: da.rank_satd_tables(cold(), zscan, 8, True), bnd[0])})
+    bnd = subpel_bound(h, w)
+    rows["subpel_planes"] = dict(
+        max_abs_err=max(sub_errs), kname="subpel_planes",
+        ms=timed_ms(lambda: da.subpel_planes(cold(), 8), device, reps),
+        plain_ms=timed_ms(lambda: da._subpel_planes(
+            cold().to(torch.int32), 8), device, max(1, reps // 4)),
+        bound_ms=bnd[0], bound_by=bnd[1], timed={
+            f"subpel_planes at {w}x{h}": (
+                lambda: da.subpel_planes(cold(), 8), bnd[0])})
+    for k, r in rows.items():
+        log(f"{k} at {w}x{h}: kernel {r['ms']:.4f} ms, plain torch "
+            f"{r['plain_ms']:.4f} ms (median, CUDA events around the "
+            f"wrapper); bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    return rows
+
+
 def main_path(frames, device):
     """The encode with the stage on the device (kernel counts read around
     it) and on the host, with SAD surfaces; then on the device with
-    TC_NO_ME_SURF. Returns (dense_me launches of the first run, its
+    TC_NO_ME_SURF. Returns (the kernels' launches in the first run, its
     bitstream)."""
     from turingcodec_tpu_torch.decode.decoder import Decoder
     from turingcodec_tpu_torch.encode import device_analysis as da
@@ -334,7 +445,11 @@ def main_path(frames, device):
     bitstream, fps = encode(frames, str(device), QP)
     counts = read_launches()
     surfaces = da.surfaces
+    enc_launches = dict(counts)
     launches = counts.pop("dense_me")
+    # the rank tables of every picture (one launch per size), the subpel
+    # planes of every inter picture (both lists hold one reference)
+    rank, subpel = counts.pop("rank_satd"), counts.pop("subpel_planes")
     bs_host, fps_host = encode(frames, None, QP)
     os.environ["TC_NO_ME_SURF"] = "1"
     try:
@@ -349,6 +464,9 @@ def main_path(frames, device):
     check(bs_off == bitstream, "the bitstream differs with TC_NO_ME_SURF")
     check(launches >= n_p and not any(counts.values()),
           f"{launches} dense_me launches for {n_p} P pictures; {counts}")
+    check(rank == 4 * len(frames) and subpel == n_p,
+          f"{rank} rank_satd launches for {len(frames)} pictures at 4 "
+          f"sizes, {subpel} subpel_planes launches for {n_p} P pictures")
     dec = Decoder(device=None)
     n = sum(1 for _ in dec.decode_stream(bitstream))
     check(n == len(frames) and dec.hash_failures == 0,
@@ -358,8 +476,10 @@ def main_path(frames, device):
         f"fps, host {fps_host:.4f} fps, {len(bitstream)} bytes identical, "
         f"{surfaces} SAD surfaces installed, the same bytes on the card "
         f"with TC_NO_ME_SURF; dense_me launches {launches} (>= {n_p} P "
-        f"pictures); decoded {n} frames, 0 hash failures")
-    return launches, bitstream
+        f"pictures), rank_satd {rank} (4 sizes x {len(frames)} pictures), "
+        f"subpel_planes {subpel} ({n_p} P pictures); decoded {n} frames, "
+        f"0 hash failures")
+    return enc_launches, bitstream
 
 
 def build_all():
@@ -906,17 +1026,22 @@ def dequant_bound(args):
 
 def reset_launches():
     """Every kernel's launch count to 0."""
+    from turingcodec_tpu_torch.encode import device_analysis as da
     from turingcodec_tpu_torch.ops import dense_me, inter, transform
     dense_me.launches = inter.launches = transform.launches = 0
     inter.interp_launches = transform.fwd_launches = 0
+    da.rank_launches = da.subpel_launches = 0
 
 
 def read_launches():
+    from turingcodec_tpu_torch.encode import device_analysis as da
     from turingcodec_tpu_torch.ops import dense_me, inter, transform
     return {"dense_me": dense_me.launches, "mc_block_grid": inter.launches,
             "dequant_idct": transform.launches,
             "fwd_transform": transform.fwd_launches,
-            "interp_all_phases": inter.interp_launches}
+            "interp_all_phases": inter.interp_launches,
+            "rank_satd": da.rank_launches,
+            "subpel_planes": da.subpel_launches}
 
 
 def decode_main_path(device, frames, bitstream):
@@ -981,7 +1106,8 @@ def decode_main_path(device, frames, bitstream):
     check(0 < launches["mc_block_grid"] <= 3 * (n - 1)
           and 0 < coded <= n - 1 and launches["dequant_idct"] == coded
           and launches["dense_me"] == launches["fwd_transform"]
-          == launches["interp_all_phases"] == 0,
+          == launches["interp_all_phases"] == launches["rank_satd"]
+          == launches["subpel_planes"] == 0,
           f"launches {launches}, {coded} pictures with coded inter TUs")
     t_dev2 = decode_planes(bitstream, dev)[2]
     t_host2 = decode_planes(bitstream, None)[2]
@@ -1416,9 +1542,11 @@ def main() -> int:
     geom = Encoder(EncoderConfig(width=w, height=h, qp=QP, rd_candidates=1,
                                  device=None)).geom
     device_enc_check.analysis_checks(orig, ref, geom.zscan, device, 5, log)
+    # the stage's rank-SATD and subpel kernels against their plain versions
+    ana_kern = check_analysis_kernels(device, frames, geom.zscan, reps=20)
 
     # 5. main path: the encode
-    launches, bitstream = main_path(frames, device)
+    enc_launches, bitstream = main_path(frames, device)
 
     # 6. decode stages against their host twins (1080p encode, vfy_sweep)
     captured = check_decode_stages(device, [
@@ -1450,7 +1578,7 @@ def main() -> int:
     # calls
     rows = [dict(name="dense_me_argmin", source="dense_me.cu",
                  replaces="turingcodec_tpu/ops/pallas_kernels.py:71",
-                 launches=launches, **kern),
+                 launches=enc_launches["dense_me"], **kern),
             dict(name="mc_block_grid", source="mc_block_grid.cu",
                  replaces="turingcodec_tpu/ops/inter.py:66",
                  launches=dec_launches["mc_block_grid"],
@@ -1466,7 +1594,15 @@ def main() -> int:
             dict(name="interp_all_phases", source="interp_all_phases.cu",
                  replaces="turingcodec_tpu/ops/inter.py:23",
                  launches=dsp_launches["interp_all_phases"],
-                 **dsp_kern["interp_all_phases"])]
+                 **dsp_kern["interp_all_phases"]),
+            dict(name="rank_satd_tables", source="rank_satd.cu",
+                 replaces="turingcodec_tpu/encode/device_analysis.py:628",
+                 launches=enc_launches["rank_satd"],
+                 **ana_kern["rank_satd"]),
+            dict(name="subpel_planes", source="subpel_planes.cu",
+                 replaces="turingcodec_tpu/encode/device_analysis.py:338",
+                 launches=enc_launches["subpel_planes"],
+                 **ana_kern["subpel_planes"])]
     device_times(rows)
     profile_counts(gop_jobs)
     kern_us, copy_us, per = residual_device_us(res_pics)
@@ -1475,11 +1611,13 @@ def main() -> int:
         f"launches, {copy_us:.2f} us of copies (profiler)")
 
     log(card)
-    # no single PyTorch call computes any of the five functions (a
+    # no single PyTorch call computes any of the seven functions (a
     # penalised argmin over 289 SADs, a per-block filter phase, an integer
     # dequantisation before two products, two integer products with a
     # rounding shift between them, 16 filter phases with their shifts and
-    # exact-phase cases), so library_ms is null
+    # exact-phase cases, 35 intra predictions with substituted and filtered
+    # references and a Hadamard SATD each, 15 clamped filter phases), so
+    # library_ms is null
     log(json.dumps({"kernels": [{
         "name": r["name"], "route": "cuda",
         "source": "turingcodec_tpu_torch/csrc/" + r["source"],
@@ -1489,7 +1627,7 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": None,
         "device_us": r["device_us"], "bound_us": r["bound_ms"] * 1e3,
         "launches_by_path": {
-            "encode": launches if r["kname"] == "dense_me" else 0,
+            "encode": enc_launches[r["kname"]],
             "decode": dec_launches[r["kname"]],
             "dsp_tools": dsp_launches[r["kname"]],
             "signature": sig_launches[r["kname"]],

@@ -15,9 +15,15 @@ the host path (integer arithmetic, same tie-breaks):
   every block's 17x17 SAD surface unless TC_NO_ME_SURF is set (the
   switch the host prepass reads): the full-pel search reads its aligned
   probes from it on both paths;
-- the 15 subpel planes of each reference (enc_core sp_build_plane twin);
+- the 15 subpel planes of each reference (enc_core sp_build_plane twin),
+  through the hand-written kernel csrc/subpel_planes.cu;
 - the source-referenced 35-mode rank-SATD tables (intra_search
-  _mode_satds twin).
+  _mode_satds twin), through the hand-written kernel csrc/rank_satd.cu.
+
+The two kernels' wrappers, subpel_planes and rank_satd_tables, take the
+plain torch versions (_subpel_planes, _rank_table) for CPU tensors only;
+a CUDA tensor launches the kernel or raises. Their results come down into
+pinned host memory (_to_host).
 
 Every scan with a strict-improvement tie-break becomes a min over the
 packed key (cost << 9) | k, k the scan position, so the result does not
@@ -28,12 +34,14 @@ oracles of the device versions.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Optional
 
 import numpy as np
 import torch
 
+from turingcodec_tpu_torch.ops import kernel_build
 from turingcodec_tpu_torch.ops.dense_me import dense_me_sweep, edge_pad
 from turingcodec_tpu_torch.ops.metrics import _wht_last
 
@@ -42,6 +50,14 @@ _STATIC = {}  # per-geometry index tensors, keyed by shape and device
 # caller reset it to 0): one per distinct reference plane of an inter
 # picture, which both lists share when they hold the same picture
 surfaces = 0
+# kernel launches since import (or since a caller reset them to 0): the
+# rank-SATD kernel's, one per table size, and the subpel planes kernel's
+rank_launches = 0
+subpel_launches = 0
+RANK_SIZES = (4, 8, 16, 32)
+
+_RANK_LAUNCH = None
+_SUBPEL_LAUNCH = None
 
 
 def resolve_device(device) -> Optional[torch.device]:
@@ -288,10 +304,72 @@ def _subpel_planes(ref: torch.Tensor, bd: int) -> torch.Tensor:
     return torch.stack(out)
 
 
+def _to_host(tensors) -> list:
+    """Each tensor as numpy. A card's tensors are copied into pinned host
+    memory from torch's caching host allocator (one asynchronous copy each,
+    then one synchronise); each array is a view that keeps its buffer
+    alive, as the native core reads it by pointer while the picture
+    encodes, and the allocator takes the buffer back once the array dies."""
+    out = [t if t.device.type == "cpu" else torch.empty(
+        t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+        for t in tensors]
+    cards = [t.device for t in tensors if t.device.type == "cuda"]
+    if cards:
+        torch.cuda.current_stream(cards[0]).synchronize()
+    return [t.numpy() for t in out]
+
+
+def _check_plane(plane: torch.Tensor, bd: int):
+    if plane.dtype != torch.int16 or plane.dim() != 2 or 0 in plane.shape:
+        raise ValueError(f"a non-empty (h, w) int16 plane required, got "
+                         f"{plane.dtype} {tuple(plane.shape)}")
+    if not plane.is_contiguous():
+        raise ValueError("a contiguous plane required")
+    if not 8 <= bd <= 16:
+        raise ValueError(f"bit depth {bd} unsupported (8..16)")
+
+
+def _launcher(name: str, args: str):
+    """The C entry point <name>_launch of csrc/<name>.cu, its arguments
+    spelt p (pointer) or i (int)."""
+    fn = getattr(kernel_build.load(name), f"{name}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p if a == "p" else ctypes.c_int
+                   for a in args]
+    return fn
+
+
+def subpel_planes(ref: torch.Tensor, bd: int) -> torch.Tensor:
+    """(h, w) int16 plane -> (15, h+2*SP_P, w+2*SP_P) int16, the exact
+    sp_build_plane values; bit depths 8..16. A CPU tensor takes the plain
+    version _subpel_planes; a CUDA tensor launches csrc/subpel_planes.cu
+    once, and a failed build or launch raises."""
+    global subpel_launches, _SUBPEL_LAUNCH
+    _check_plane(ref, bd)
+    if ref.device.type == "cpu":
+        return _subpel_planes(ref.to(torch.int32), bd)
+    if ref.device.type != "cuda":
+        raise ValueError(f"unsupported device {ref.device}")
+    h, w = ref.shape
+    out = torch.empty((15, h + 2 * SP_P, w + 2 * SP_P), dtype=torch.int16,
+                      device=ref.device)
+    if _SUBPEL_LAUNCH is None:
+        _SUBPEL_LAUNCH = _launcher("subpel_planes", "piiipp")
+    stream = torch.cuda.current_stream(ref.device).cuda_stream
+    with torch.cuda.device(ref.device):
+        rc = _SUBPEL_LAUNCH(ref.data_ptr(), w, h, bd, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"subpel_planes launch failed: CUDA error {rc}")
+    subpel_launches += 1
+    return out
+
+
 def subpel_planes_device(ref_y: np.ndarray, bd: int, device) -> np.ndarray:
     """The 15 subpel planes of one reference plane, computed on `device`;
-    (15, h+2*SP_P, w+2*SP_P) int16 numpy, exact sp_build_plane values."""
-    return _subpel_planes(upload(ref_y, device), bd).cpu().numpy()
+    (15, h+2*SP_P, w+2*SP_P) int16 numpy, exact sp_build_plane values (from
+    pinned memory on a card)."""
+    ref = upload(ref_y, resolve_device(device), torch.int16)
+    return _to_host([subpel_planes(ref, bd)])[0]
 
 
 def subpel_planes_host(ref_y: np.ndarray, bd: int = 8) -> np.ndarray:
@@ -695,20 +773,68 @@ def _rank_table(p32, st, w, h, n, bd, strong):
     return out.reshape(hn, wn, 35).to(torch.int32)
 
 
-def rank_satd_tables_device(plane, zscan, bd, strong, device,
-                            sizes=(4, 8, 16, 32)):
-    """Device twin of rank_satd_tables_host: {n: (hn, wn, 35) int32}."""
-    plane = np.asarray(plane, np.int16)
+def rank_satd_tables_ref(plane: torch.Tensor, zscan: np.ndarray, bd: int,
+                         strong: bool, sizes=RANK_SIZES) -> dict:
+    """Plain torch version of rank_satd_tables on the plane's device:
+    _rank_table per size."""
+    h, w = plane.shape
+    p32 = plane.to(torch.int32)
+    return {n: _rank_table(p32, _rank_static(w, h, n, np.asarray(zscan),
+                                             p32.device),
+                           w, h, n, bd, bool(strong))
+            for n in sizes if h // n and w // n}
+
+
+def rank_satd_tables(plane: torch.Tensor, zscan: np.ndarray, bd: int,
+                     strong: bool, sizes=RANK_SIZES) -> dict:
+    """(h, w) int16 plane -> {n: (h/n, w/n, 35) int32} rank-SATD tables of
+    the sizes in `sizes` (of 4, 8, 16, 32; a size with no whole block is
+    left out), zscan the (h/4, w/4) z-scan order of the picture's 4x4
+    blocks; bit depths 8..16. A CPU tensor takes the plain version
+    _rank_table; a CUDA tensor launches csrc/rank_satd.cu once per size,
+    the tables views of one buffer, and a failed build or launch raises."""
+    global rank_launches, _RANK_LAUNCH
+    _check_plane(plane, bd)
     zscan = np.asarray(zscan)
     h, w = plane.shape
-    p32 = upload(plane, device)
-    out = {}
-    for n in sizes:
-        if h // n == 0 or w // n == 0:
-            continue
-        st = _rank_static(w, h, n, zscan, p32.device)
-        out[n] = _np32(_rank_table(p32, st, w, h, n, bd, bool(strong)))
-    return out
+    if (zscan.ndim != 2 or zscan.shape[0] * 4 < h
+            or zscan.shape[1] * 4 < w):
+        raise ValueError(f"zscan {zscan.shape} does not cover a {w}x{h} "
+                         f"plane in 4x4 blocks")
+    if not set(sizes) <= set(RANK_SIZES):
+        raise ValueError(f"sizes {tuple(sizes)} not among {RANK_SIZES}")
+    present = [n for n in sizes if h // n and w // n]
+    if plane.device.type == "cpu":
+        return rank_satd_tables_ref(plane, zscan, bd, strong, present)
+    if plane.device.type != "cuda":
+        raise ValueError(f"unsupported device {plane.device}")
+    # the kernel's layout: the sizes' tables in ascending n
+    order = sorted(set(present))
+    counts = [(h // n) * (w // n) * 35 for n in order]
+    flat = torch.empty(sum(counts), dtype=torch.int32, device=plane.device)
+    z = kernel_build.table(zscan, plane.device)
+    mask = sum(1 << RANK_SIZES.index(n) for n in order)
+    if _RANK_LAUNCH is None:
+        _RANK_LAUNCH = _launcher("rank_satd", "piipiiiipp")
+    stream = torch.cuda.current_stream(plane.device).cuda_stream
+    with torch.cuda.device(plane.device):
+        rc = _RANK_LAUNCH(plane.data_ptr(), w, h, z.data_ptr(), z.shape[1],
+                          bd, int(bool(strong)), mask, flat.data_ptr(),
+                          stream)
+    if rc != 0:
+        raise RuntimeError(f"rank_satd launch failed: CUDA error {rc}")
+    rank_launches += len(order)
+    tables = dict(zip(order, flat.split(counts)))
+    return {n: tables[n].view(h // n, w // n, 35) for n in present}
+
+
+def rank_satd_tables_device(plane, zscan, bd, strong, device,
+                            sizes=RANK_SIZES):
+    """Device twin of rank_satd_tables_host: {n: (hn, wn, 35) int32}
+    numpy (from pinned memory on a card)."""
+    p = upload(np.asarray(plane), resolve_device(device), torch.int16)
+    tabs = rank_satd_tables(p, zscan, bd, strong, sizes)
+    return dict(zip(tabs, _to_host(list(tabs.values()))))
 
 
 def install_subpel_fields(enc) -> Optional[dict]:

@@ -11,7 +11,9 @@ matrices, filter taps, QP tables) stay in hevc/tables.py and friends;
 the tables it reads as immediates (the DCT coefficients of the residual
 kernel and of the forward transform, and the forward DST: from the
 kernel's parameters they cost it a constant-cache miss each; the luma
-filter taps of the all-phase interpolation, which held registers).
+filter taps of the all-phase interpolation and of the subpel planes,
+which held registers; the intra angles and filter thresholds of the
+rank-SATD tables).
 """
 from __future__ import annotations
 
@@ -53,14 +55,22 @@ def _tables(name: str) -> list:
     at compile time, made from hevc/tables.py so that each table lives
     there alone: a generated header of #defines, pre-included (nvcc splits
     a -D value at its commas)."""
-    from turingcodec_tpu_torch.hevc.tables import (DST4, LUMA_FILTER,
-                                                   dct2_matrix)
+    from turingcodec_tpu_torch.decode.reconstruct import _HVD_THRES
+    from turingcodec_tpu_torch.hevc.tables import (DST4, INTRA_INV_ANGLE,
+                                                   INTRA_PRED_ANGLE,
+                                                   LUMA_FILTER, dct2_matrix)
     tables = {"TC_DCT32_HALF": np.asarray(dct2_matrix(32))[:, :16],
               "TC_DST4": np.asarray(DST4),
-              "TC_LUMA_FILTER": np.asarray(LUMA_FILTER)}
+              "TC_LUMA_FILTER": np.asarray(LUMA_FILTER),
+              "TC_INTRA_PRED_ANGLE": np.asarray(INTRA_PRED_ANGLE),
+              "TC_INTRA_INV_ANGLE": np.asarray(INTRA_INV_ANGLE),
+              "TC_HVD_THRES": np.asarray([_HVD_THRES[n] for n in (8, 16, 32)])}
     wanted = {"dequant_idct": ("TC_DCT32_HALF",),
               "fwd_transform": ("TC_DCT32_HALF", "TC_DST4"),
-              "interp_all_phases": ("TC_LUMA_FILTER",)}.get(name)
+              "interp_all_phases": ("TC_LUMA_FILTER",),
+              "subpel_planes": ("TC_LUMA_FILTER",),
+              "rank_satd": ("TC_INTRA_PRED_ANGLE", "TC_INTRA_INV_ANGLE",
+                            "TC_HVD_THRES")}.get(name)
     if not wanted:
         return []
     header = os.path.join(BUILD_DIR, f"{name}_tables.h")

@@ -9,13 +9,14 @@ exact integers:
   the device against the native host prepass (native.dense_analysis);
 - the dense-ME kernel against its plain version on the device (winners
   and surface);
-- the subpel planes at 8 and 10 bits and the rank-SATD tables against
-  their numpy twins;
+- the subpel planes at 8 and 10 bits and the rank-SATD tables (their
+  kernels on a card) against their numpy twins;
 - an encode of the first --frames frames (4) with the stage on the
   device, byte-identical to the host path's (device=None), with one SAD
   surface installed per inter picture.
 Each stage's time per picture (host clock, transfers included) is
-printed beside it. --turns encodes in four turns instead, with SAD
+printed beside it, and the subpel planes' and rank tables' downloads into
+pinned memory alone. --turns encodes in four turns instead, with SAD
 surfaces and with TC_NO_ME_SURF (on, off, off, on), on the device and on
 the host each turn, and prints the frame rates.
 
@@ -153,6 +154,8 @@ def analysis_checks(orig, ref, zscan, device, reps: int = 3, log=print):
         log(f"subpel planes {bd}-bit: equal to the numpy twin")
         timed(f"subpel_planes_device_{bd}bit",
               lambda: da.subpel_planes_device(plane, bd, device))
+    sub = da.subpel_planes(da.upload(ref, device, torch.int16), 8)
+    timed("subpel_planes download", lambda: da._to_host([sub]))
 
     got = da.rank_satd_tables_device(orig, zscan, 8, True, device)
     want = da.rank_satd_tables_host(orig, zscan, 8, True)
@@ -163,6 +166,9 @@ def analysis_checks(orig, ref, zscan, device, reps: int = 3, log=print):
     log("rank-SATD tables n=4..32: equal to the numpy twin")
     timed("rank_satd_tables_device",
           lambda: da.rank_satd_tables_device(orig, zscan, 8, True, device))
+    tabs = list(da.rank_satd_tables(da.upload(orig, device, torch.int16),
+                                    zscan, 8, True).values())
+    timed("rank_satd_tables download", lambda: da._to_host(tabs))
     for k, v in times.items():
         log(f"stage {k} per {w}x{h} picture: {v:.3f} ms "
             f"(median, host clock incl. transfers)")
