@@ -338,15 +338,18 @@ def subpel_bound(h: int, w: int):
 
 def rank_ops(h: int, w: int) -> int:
     """INT32 operations of the rank tables of an (h, w) plane at the four
-    sizes, per sample of each block and mode: the angular prediction's two
-    products, two adds and a shift (planar 8 operations, DC none), the
-    difference, the two butterfly passes (log2 of the sub-block's side adds
-    each: 6 for 8x8, 4 for 4x4) and the absolute value and sum."""
+    sizes, per sample of each block and mode, a multiply-add counted once
+    (one IMAD) as subpel_bound counts a tap: the angular prediction's two
+    multiply-adds (the rounding folded into the first, 32 - fr hoisted per
+    row) and a shift, planar's four multiply-adds and a shift, DC none;
+    then the difference, the two butterfly passes (log2 of the sub-block's
+    side adds each: 6 for 8x8, 4 for 4x4) and the absolute value and
+    sum."""
     ops = 0
     for n in (4, 8, 16, 32):
         samples = (h // n) * (w // n) * n * n
         tail = 1 + (6 if n >= 8 else 4) + 2
-        ops += samples * (33 * (5 + tail) + (8 + tail) + tail)
+        ops += samples * (33 * (3 + tail) + (5 + tail) + tail)
     return ops
 
 

@@ -12,6 +12,8 @@ on the card and skip without one; this file imports the JAX package only
 in the fixture of the CPU cases, so they run on a machine without it:
 python -m pytest --noconftest -m cuda tests/test_torch_analysis_kernels.py
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -204,3 +206,23 @@ def test_downloads_are_pinned_views():
         assert isinstance(arr.base, torch.Tensor) and arr.base.is_pinned()
     np.testing.assert_array_equal(sub, tda.subpel_planes_device(plane, 8,
                                                                 "cpu"))
+
+
+@pytest.mark.cuda
+def test_zscan_uploads_leave_with_their_arrays():
+    dev = _card()
+    plane = torch.from_numpy(_rank_plane(72, 40, 8, seed=3)).to(dev)
+    gc.collect()
+    held = len(tda._ZSCAN)
+    zscan = _zscan(72, 40)
+    first = tda.rank_satd_tables(plane, zscan, 8, True)
+    tda.rank_satd_tables(plane, zscan, 8, True)
+    assert len(tda._ZSCAN) == held + 1
+    for _ in range(3):   # each encoder builds its own z-scan array
+        tabs = tda.rank_satd_tables(plane, _zscan(72, 40), 8, True)
+        assert all(torch.equal(first[n], tabs[n]) for n in first)
+    gc.collect()
+    assert len(tda._ZSCAN) == held + 1
+    del zscan
+    gc.collect()
+    assert len(tda._ZSCAN) == held

@@ -28,9 +28,10 @@
 //
 // What bounds it. At 1080p the four sizes hold 172,020 blocks: 35 modes x
 // 2.07 M samples per size, each sample's prediction, difference and share of
-// the two butterfly passes about 15 INT32 operations, about 4.4 G in all:
-// 0.26 ms at the INT32 issue rate. The bytes (the plane read once per size,
-// 24 MB of tables written) take 10 us. Operations bound it.
+// the two butterfly passes about 12 INT32 instructions (a multiply-add is
+// one IMAD), 3.30 G in all (chip_smoke.py rank_ops): 0.198 ms at the INT32
+// issue rate. The bytes (the plane read once per size, 24 MB of tables
+// written) take 10 us. Operations bound it.
 //
 // Design. One launch per size. A CTA of 7 warps owns K consecutive blocks
 // of one size, K n^2 = 32 sub-blocks' worth (K = 32, 32, 8, 2 for n = 4, 8,

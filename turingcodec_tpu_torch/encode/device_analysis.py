@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -46,6 +47,10 @@ from turingcodec_tpu_torch.ops.dense_me import dense_me_sweep, edge_pad
 from turingcodec_tpu_torch.ops.metrics import _wht_last
 
 _STATIC = {}  # per-geometry index tensors, keyed by shape and device
+# the rank kernel's int32 z-scan tables on the card, keyed by the id of
+# the caller's array (an encoder's geometry holds its own) and the device;
+# an entry leaves with its array
+_ZSCAN = {}
 # SAD surfaces computed for the encoder's install since import (or since a
 # caller reset it to 0): one per distinct reference plane of an inter
 # picture, which both lists share when they hold the same picture
@@ -812,7 +817,12 @@ def rank_satd_tables(plane: torch.Tensor, zscan: np.ndarray, bd: int,
     order = sorted(set(present))
     counts = [(h // n) * (w // n) * 35 for n in order]
     flat = torch.empty(sum(counts), dtype=torch.int32, device=plane.device)
-    z = kernel_build.table(zscan, plane.device)
+    key = (id(zscan), str(plane.device))
+    z = _ZSCAN.get(key)
+    if z is None:
+        z = _ZSCAN[key] = torch.as_tensor(zscan.astype(np.int32),
+                                          device=plane.device)
+        weakref.finalize(zscan, _ZSCAN.pop, key, None)
     mask = sum(1 << RANK_SIZES.index(n) for n in order)
     if _RANK_LAUNCH is None:
         _RANK_LAUNCH = _launcher("rank_satd", "piipiiiipp")
