@@ -25,13 +25,20 @@ kernels against their plain versions (MC: synthetic inputs of two
 reference lists with every phase, full-pel, 8 and 10 bits, and the 1080p
 picture's own calls; the residual kernel: synthetic 1080p tables of every
 size and mode with TUs on every edge, extreme levels, every QP at 8, 10
-and 12 bits, and every inter picture's own call), vfy_sweep and
-static_test (all full-pel) md5-exact through Decoder(device="cuda"), and
-the 1080p encode decoded on the card equal to the host decode, every
-picture through the pipeline, at most 3 MC launches per inter picture and
-one residual launch per picture with coded inter TUs. After the decode
-rates, one more decode times the residual stage (host clock, synchronised
-around it). Then the DSP op library at one 1080p picture's block counts:
+and 12 bits, and every inter picture's own call; the deblocking kernel on
+synthetic 1920x1080 pictures at 8, 10 and 12 bits and on every picture of
+tests/streams, the SAO kernel on synthetic planes at 8 and 10 bits and on
+every SAO picture of tests/streams, by tools/loop_filter_check.py),
+vfy_sweep and static_test (all full-pel) md5-exact through
+Decoder(device="cuda") with two deblocking launches per picture and SAO
+launches on vfy_sweep, and the 1080p encode decoded on the card equal to
+the host decode, every picture through the pipeline, at most 3 MC
+launches per inter picture, one residual launch per picture with coded
+inter TUs, two deblocking launches per picture and no SAO. After the
+decode rates, one more decode with TURING_TPU_PIPELINE_TRACE gives each
+stage's ms per picture, and one more times the residual stage (host
+clock, synchronised around it). Then the DSP op library at one 1080p
+picture's block counts:
 the forward transform and all-phase interpolation kernels against their
 plain versions (8 and 10 bits, and 14 for the interpolation, extreme
 inputs, every size and phase, 4x8 to 64x64 windows, ragged batches), the
@@ -43,7 +50,8 @@ tests/streams, on the card. Then the encoder's configuration matrix
 against the goldens pinned from the JAX package; the GOP-batched stages
 at 1080p on the 8-frame encode (analysis_step over 8 x 2040 blocks, MC
 of the 7 inter pictures in one launch, the residuals of every coded luma
-TU, deblocking, SAO of vfy_sweep's pictures, the batched seed and dense
+TU, deblocking of the 8 pictures in two launches, SAO of vfy_sweep's
+pictures in one launch per component, the batched seed and dense
 analysis of 7 pairs) against per-frame calls on the card and their plain
 versions or host twins; tools/scaling.py, bdrate's run_ours on vfy_sweep
 at its four QPs (identical bytes on the card and the host) and
@@ -72,7 +80,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("dense_me", "mc_block_grid", "dequant_idct", "fwd_transform",
-           "interp_all_phases", "rank_satd", "subpel_planes")
+           "interp_all_phases", "rank_satd", "subpel_planes", "deblock", "sao")
 STREAM = os.path.join(ROOT, "tests", "streams", "vfy_sweep.hevc")
 GOLDEN = os.path.join(ROOT, "tests", "streams", "GOLDEN.json")
 N_FRAMES = 8
@@ -754,6 +762,119 @@ def check_decode_kernels(device, captured, reps):
     return out
 
 
+def deblock_bound(args):
+    """Bound of one deblocking call, from its own inputs: the three int16
+    planes read once and written once, every map and per-slice vector
+    read once; 20 INT32 operations per 4-line edge segment of the two
+    directions for its edge flag and bS (the filters' arithmetic, on the
+    segments that pass, is less than the bytes' time whatever the data)."""
+    planes, maps, sl = args[:3], args[3], args[4]
+    h, w = planes[0].shape[-2:]
+    f = planes[0].shape[0]
+    segments = f * ((w // 8 - 1) * (h // 4) + (h // 8 - 1) * (w // 4))
+    nbytes = (2 * sum(p.nbytes for p in planes)
+              + sum(t.nbytes for t in maps + sl))
+    return bound(nbytes, 20 * segments)
+
+
+def sao_bound(args):
+    """Bound of one SAO call on one component, from its own inputs: the
+    int16 plane read once and written once, the per-CTB maps, per-slice
+    flags and skip map read once; 10 INT32 operations per sample (the
+    band or edge index, the offset and the clip)."""
+    src = args[0]
+    maps = [a for a in args[4:] if hasattr(a, "nbytes")]
+    return bound(2 * src.nbytes + sum(a.nbytes for a in maps),
+                 10 * src.numel())
+
+
+def check_loop_filters(device, bitstream, reps):
+    """The deblocking and SAO kernels against their plain versions on the
+    card (tools/loop_filter_check.py: synthetic 1920x1080 pictures at 8,
+    10 and 12 bits, synthetic SAO planes at 8 and 10 bits, every picture
+    of tests/streams); then each timed on inputs read from device memory
+    at its path's shape: deblocking at a 1080p picture of the main path's
+    encode, SAO on a vfy_sweep picture's luma. Returns their kernels-line
+    rows."""
+    import numpy as np
+    import torch
+
+    from turingcodec_tpu_torch.ops import deblock as db
+    from turingcodec_tpu_torch.ops import sao
+    from turingcodec_tpu_torch.parallel.gop_decode import capture_pictures
+    from turingcodec_tpu_torch.tools import loop_filter_check as lfc
+    t0 = time.perf_counter()
+    errs, names = lfc.check_kernels(device, log)
+    log(f"loop-filter kernels checked on {len(names['deblock'])} "
+        f"deblocking and {len(names['sao'])} SAO cases "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    pic = capture_pictures(bitstream, max_frames=2)[1]
+    plan, geom, sps = pic["plan"], pic["geom"], pic["plan"].sps
+    geo = (int(sps.ctb_log2_size_y), int(sps.bit_depth_y),
+           int(sps.bit_depth_c))
+    one = db.plan_tensors(plan, geom, device)
+    planes = [torch.from_numpy(p).to(device) for p in pic["pre"]]
+    args = (*(p[None] for p in planes), tuple(m[None] for m in one[0]),
+            tuple(v[None] for v in one[1]))
+    copies = [args] + [(*(p.clone() for p in args[:3]),
+                        tuple(m.clone() for m in args[3]),
+                        tuple(v.clone() for v in args[4]))
+                       for _ in range(-(-(200 << 20) // sum(
+                           t.nbytes for t in args[:3] + args[3] + args[4]))
+                           - 1)]
+    turn = [0]
+
+    def cold_deblock():
+        turn[0] += 1
+        return copies[turn[0] % len(copies)]
+    rows = {}
+    bnd = deblock_bound(args)
+    h, w = planes[0].shape
+    rows["deblock"] = dict(
+        max_abs_err=errs["deblock"], kname="deblock",
+        ms=timed_ms(lambda: db.deblock_frames(*cold_deblock(), *geo,
+                                              one[2]), device, reps),
+        plain_ms=timed_ms(lambda: db.deblock_device_ref(
+            *(p[0] for p in cold_deblock()[:3]), one[0], one[1], *geo,
+            one[2]), device, max(1, reps // 4)),
+        bound_ms=bnd[0], bound_by=bnd[1], timed={
+            f"deblock at the {w}x{h} encode's picture 1": (
+                lambda: db.deblock_frames(*cold_deblock(), *geo, one[2]),
+                bnd[0])})
+
+    with open(STREAM, "rb") as fh:
+        spic = next(p for p in capture_pictures(fh.read())
+                    if p["sao"] is not None)
+    maps = sao._picture_maps(spic["plan"], spic["geom"], device)
+    src = torch.from_numpy(spic["post"][0]).to(device)
+    sargs = sao.sao_ctb_args(spic["plan"], maps, 0, src)
+    cold = cold_inputs(sargs[0])
+    plain_args = sao.sao_plane_args(spic["plan"], maps, 0, src)
+    bnd = sao_bound(sargs)
+    hs, ws = src.shape
+    rows["sao"] = dict(
+        max_abs_err=errs["sao"], kname="sao",
+        ms=timed_ms(lambda: sao.sao_frames(cold(), *sargs[1:]), device,
+                    reps),
+        plain_ms=timed_ms(lambda: sao._sao_plane(cold()[0],
+                                                 *plain_args[1:]),
+                          device, max(1, reps // 4)),
+        bound_ms=bnd[0], bound_by=bnd[1], timed={
+            f"sao at a vfy_sweep {ws}x{hs} luma plane": (
+                lambda: sao.sao_frames(cold(), *sargs[1:]), bnd[0])})
+    big = lfc.sao_synthetic(np.random.default_rng(5), 1080, 1920, 8, 64)
+    bargs = lfc.tensors(big, device)
+    bcold = cold_inputs(bargs[0])
+    rows["sao"]["timed"]["sao at a synthetic 1920x1080 luma plane"] = (
+        lambda: sao.sao_frames(bcold(), *bargs[1:]), sao_bound(bargs)[0])
+    for k, r in rows.items():
+        log(f"{k} at its row's shape: kernel {r['ms']:.4f} ms, plain torch "
+            f"{r['plain_ms']:.4f} ms (median, CUDA events around the "
+            f"wrapper); bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    return rows
+
+
 # one 1080p picture's block count per transform size, and the windows of
 # its 16x16 blocks: the DSP op library's full width
 BLOCKS_1080P = {2: 129600, 3: 32400, 4: 8160, 5: 2040}
@@ -1030,21 +1151,25 @@ def dequant_bound(args):
 def reset_launches():
     """Every kernel's launch count to 0."""
     from turingcodec_tpu_torch.encode import device_analysis as da
-    from turingcodec_tpu_torch.ops import dense_me, inter, transform
+    from turingcodec_tpu_torch.ops import deblock, dense_me, inter, sao
+    from turingcodec_tpu_torch.ops import transform
     dense_me.launches = inter.launches = transform.launches = 0
     inter.interp_launches = transform.fwd_launches = 0
     da.rank_launches = da.subpel_launches = 0
+    deblock.launches = sao.launches = 0
 
 
 def read_launches():
     from turingcodec_tpu_torch.encode import device_analysis as da
-    from turingcodec_tpu_torch.ops import dense_me, inter, transform
+    from turingcodec_tpu_torch.ops import deblock, dense_me, inter, sao
+    from turingcodec_tpu_torch.ops import transform
     return {"dense_me": dense_me.launches, "mc_block_grid": inter.launches,
             "dequant_idct": transform.launches,
             "fwd_transform": transform.fwd_launches,
             "interp_all_phases": inter.interp_launches,
             "rank_satd": da.rank_launches,
-            "subpel_planes": da.subpel_launches}
+            "subpel_planes": da.subpel_launches,
+            "deblock": deblock.launches, "sao": sao.launches}
 
 
 def decode_main_path(device, frames, bitstream):
@@ -1061,11 +1186,14 @@ def decode_main_path(device, frames, bitstream):
     from turingcodec_tpu_torch.decode import device_pipeline as dp
     dev = str(device)
 
+    stream_launches = {}
     for name in ("vfy_sweep.hevc", "static_test.hevc"):
         dp.pictures = dp.envelope_host = 0
+        reset_launches()
         got, dec, _ = decode_planes(
             open(os.path.join(ROOT, "tests", "streams", name), "rb").read(),
             dev)
+        stream_launches[name] = read_launches()
         md5 = hashlib.md5()
         for planes in got:
             for p in planes:
@@ -1076,8 +1204,15 @@ def decode_main_path(device, frames, bitstream):
         check(dp.pictures == len(got) and dp.envelope_host == 0,
               f"{name}: {dp.pictures} pictures through the pipeline, "
               f"{dp.envelope_host} on the host")
+        # two deblocking launches per picture; SAO on vfy_sweep (GOP8 with
+        # SAO), one launch per component of each picture that codes it
+        sl = stream_launches[name]
+        check(sl["deblock"] == 2 * dp.pictures
+              and (sl["sao"] > 0 or name != "vfy_sweep.hevc"),
+              f"{name}: launches {sl} for {dp.pictures} pictures")
         log(f"decode {name} with device={dev}: {len(got)} frames, md5 "
-            f"{want} OK, all through the pipeline")
+            f"{want} OK, all through the pipeline; deblock launches "
+            f"{sl['deblock']}, sao launches {sl['sao']}")
 
     n = len(frames)
     dp.pictures = dp.envelope_host = 0
@@ -1106,11 +1241,14 @@ def decode_main_path(device, frames, bitstream):
     # its blocks use (6 before: one per list and component)
     # one residual launch per picture with coded inter TUs (9 per inter
     # picture before: one per (component, size, mode) bucket)
+    # two deblocking launches per picture (the vertical edges, then the
+    # horizontal ones); no SAO in this stream
     check(0 < launches["mc_block_grid"] <= 3 * (n - 1)
           and 0 < coded <= n - 1 and launches["dequant_idct"] == coded
+          and launches["deblock"] == 2 * n
           and launches["dense_me"] == launches["fwd_transform"]
           == launches["interp_all_phases"] == launches["rank_satd"]
-          == launches["subpel_planes"] == 0,
+          == launches["subpel_planes"] == launches["sao"] == 0,
           f"launches {launches}, {coded} pictures with coded inter TUs")
     t_dev2 = decode_planes(bitstream, dev)[2]
     t_host2 = decode_planes(bitstream, None)[2]
@@ -1122,7 +1260,30 @@ def decode_main_path(device, frames, bitstream):
     log(f"decode fps, host clock, in turns card/host/card/host: "
         f"{n / t_dev:.4f} / {n / t_host:.4f} / {n / t_dev2:.4f} / "
         f"{n / t_host2:.4f}")
-    return launches, residual_stage(dev, bitstream)
+    stage_split(dev, bitstream, n)
+    return launches, stream_launches["vfy_sweep.hevc"], residual_stage(
+        dev, bitstream)
+
+
+def stage_split(dev, bitstream, n):
+    """One more card decode with TURING_TPU_PIPELINE_TRACE set (the card
+    synchronised at each stage's end): each stage's host-clock ms per
+    picture, and the rest of the decode (parse, dispatch, the host's
+    picture handling)."""
+    from turingcodec_tpu_torch.decode import device_pipeline as dp
+    dp.stage_seconds.clear()
+    os.environ["TURING_TPU_PIPELINE_TRACE"] = "1"
+    try:
+        t = decode_planes(bitstream, dev)[2]
+    finally:
+        os.environ.pop("TURING_TPU_PIPELINE_TRACE", None)
+    split = {k: v / n * 1e3 for k, v in dp.stage_seconds.items()}
+    log(f"card decode stages, ms per picture (host clock, the card "
+        f"synchronised at each probe, {n} pictures): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; the rest {(t / n * 1e3) - sum(split.values()):.3f}; "
+        f"total {t / n * 1e3:.3f}")
+    return split
 
 
 def residual_stage(dev, bitstream):
@@ -1365,10 +1526,12 @@ def gop_stages(device, frames, bitstream, reps):
                    f)
     log(f"GOP residuals: {time.perf_counter() - t0:.1f} s")
 
-    # deblocking of the 8 pictures, under torch.func.vmap
+    # deblocking of the 8 pictures in the kernel's two launches
     t0 = time.perf_counter()
     args, geo = gd.deblock_inputs(pics, device)
-    got = gd.gop_deblock(*args, *geo)
+    before = path.get("deblock", 0)
+    got = driven(path, lambda: gd.gop_deblock(*args, *geo))
+    check(path["deblock"] - before == 2, "GOP deblock took more launches")
     per = [((args[0][i], args[1][i], args[2][i], tuple(m[i] for m in args[3]),
              tuple(v[i] for v in args[4]), *geo, bool(args[5][i])))
            for i in range(f)]
@@ -1379,8 +1542,9 @@ def gop_stages(device, frames, bitstream, reps):
                       for k, g in enumerate(got)),
               "GOP deblocking differs from the per-frame call or the host")
     h, w = frames[0][0].shape
-    log(f"GOP deblock, {f} pictures {w}x{h}: equal to the per-frame calls "
-        f"and the host decoder's planes ({time.perf_counter() - t0:.1f} s)")
+    log(f"GOP deblock, {f} pictures {w}x{h} in two deblock launches: equal "
+        f"to the per-frame calls and the host decoder's planes "
+        f"({time.perf_counter() - t0:.1f} s)")
     timing(f"GOP deblock, {f} pictures", lambda: gd.gop_deblock(*args, *geo),
            lambda per=per: [deblock_device(*a) for a in per], f)
 
@@ -1392,20 +1556,30 @@ def gop_stages(device, frames, bitstream, reps):
     check(sao_pics, "vfy_sweep has no SAO picture")
     for c_idx in range(3):
         stacked, (ctb, bd, sub), per = gd.sao_inputs(sao_pics, c_idx, device)
-        got = gd.gop_sao(*stacked, ctb=ctb, bd=bd, sub=sub)
+        before = path.get("sao", 0)
+        got = driven(path, lambda: gd.gop_sao(*stacked, ctb=ctb, bd=bd,
+                                              sub=sub))
+        check(path["sao"] - before == 1, "GOP SAO took more launches")
         for i, a in enumerate(per):
             check(torch.equal(_sao_plane(*a), got[i])
+                  and torch.equal(gd.gop_sao(*(x[i:i + 1] for x in stacked),
+                                             ctb=ctb, bd=bd, sub=sub)[0],
+                                  got[i])
                   and np.array_equal(got[i].cpu().numpy(),
                                      sao_pics[i]["sao"][c_idx]),
-                  "GOP SAO differs from the per-frame call or the host")
+                  "GOP SAO differs from the plain or the per-frame call or "
+                  "the host")
         if c_idx == 0:
             timing(f"GOP SAO luma, {len(per)} pictures 640x360",
                    lambda st=stacked, c=(ctb, bd, sub): gd.gop_sao(
                        *st, ctb=c[0], bd=c[1], sub=c[2]),
-                   lambda per=per: [_sao_plane(*a) for a in per], len(per))
-    log(f"GOP SAO, {len(sao_pics)} vfy_sweep pictures, 3 components: equal "
-        f"to the per-frame calls and the host decoder's planes "
-        f"({time.perf_counter() - t0:.1f} s)")
+                   lambda st=stacked, c=(ctb, bd, sub), n=len(per): [
+                       gd.gop_sao(*(x[i:i + 1] for x in st), ctb=c[0],
+                                  bd=c[1], sub=c[2]) for i in range(n)],
+                   len(per))
+    log(f"GOP SAO, {len(sao_pics)} vfy_sweep pictures, 3 components, one "
+        f"sao launch each: equal to the plain version, the per-frame calls "
+        f"and the host decoder's planes ({time.perf_counter() - t0:.1f} s)")
 
     # the batched seed and dense analysis over 7 (orig, ref) pairs
     t0 = time.perf_counter()
@@ -1431,7 +1605,8 @@ def gop_stages(device, frames, bitstream, reps):
            lambda: [da.analysis_device(origs[i], refs_a[i], device,
                                        bit_depth=8)
                     for i in range(len(origs))], len(origs))
-    for k in ("dense_me", "mc_block_grid", "dequant_idct", "fwd_transform"):
+    for k in ("dense_me", "mc_block_grid", "dequant_idct", "fwd_transform",
+              "deblock", "sao"):
         check(path.get(k), f"GOP stages launched no {k}: {path}")
     log(f"GOP stages: {time.perf_counter() - t_all:.1f} s; launches {path}")
     return path, jobs
@@ -1556,11 +1731,15 @@ def main() -> int:
         ("the 1080p encode", bitstream),
         ("vfy_sweep", open(STREAM, "rb").read())])
 
-    # 7. decoder kernels against their plain versions on the card
+    # 7. decoder kernels against their plain versions on the card: MC and
+    # residuals, then deblocking and SAO
     dec_kern = check_decode_kernels(device, captured, reps=20)
+    dec_kern.update(check_loop_filters(device, bitstream, reps=20))
 
-    # 8. main path: the decode on the card; then the residual stage timed
-    dec_launches, res_pics = decode_main_path(device, frames, bitstream)
+    # 8. main path: the decode on the card; then the stage split and the
+    # residual stage timed
+    dec_launches, vfy_launches, res_pics = decode_main_path(
+        device, frames, bitstream)
 
     # 9. the DSP op library at full width: its two kernels against their
     # plain versions, the torch ops against the CPU; then its own path,
@@ -1605,7 +1784,13 @@ def main() -> int:
             dict(name="subpel_planes", source="subpel_planes.cu",
                  replaces="turingcodec_tpu/encode/device_analysis.py:338",
                  launches=enc_launches["subpel_planes"],
-                 **ana_kern["subpel_planes"])]
+                 **ana_kern["subpel_planes"]),
+            dict(name="deblock", source="deblock.cu",
+                 replaces="turingcodec_tpu/ops/deblock.py:272",
+                 launches=dec_launches["deblock"], **dec_kern["deblock"]),
+            dict(name="sao", source="sao.cu",
+                 replaces="turingcodec_tpu/ops/sao.py:33",
+                 launches=vfy_launches["sao"], **dec_kern["sao"])]
     device_times(rows)
     profile_counts(gop_jobs)
     kern_us, copy_us, per = residual_device_us(res_pics)
@@ -1614,13 +1799,14 @@ def main() -> int:
         f"launches, {copy_us:.2f} us of copies (profiler)")
 
     log(card)
-    # no single PyTorch call computes any of the seven functions (a
+    # no single PyTorch call computes any of the nine functions (a
     # penalised argmin over 289 SADs, a per-block filter phase, an integer
     # dequantisation before two products, two integer products with a
     # rounding shift between them, 16 filter phases with their shifts and
     # exact-phase cases, 35 intra predictions with substituted and filtered
-    # references and a Hadamard SATD each, 15 clamped filter phases), so
-    # library_ms is null
+    # references and a Hadamard SATD each, 15 clamped filter phases, edge
+    # decisions and filters driven by per-block maps, per-CTB band and
+    # edge offsets with neighbour rules), so library_ms is null
     log(json.dumps({"kernels": [{
         "name": r["name"], "route": "cuda",
         "source": "turingcodec_tpu_torch/csrc/" + r["source"],
@@ -1632,6 +1818,7 @@ def main() -> int:
         "launches_by_path": {
             "encode": enc_launches[r["kname"]],
             "decode": dec_launches[r["kname"]],
+            "vfy_sweep_decode": vfy_launches[r["kname"]],
             "dsp_tools": dsp_launches[r["kname"]],
             "signature": sig_launches[r["kname"]],
             "gop_stages": gop_launches[r["kname"]],

@@ -14,9 +14,17 @@ The decoder runs it for every picture when it is given a device
 reference's envelope (non-4:2:0, scaling lists, PCM) decode_picture_device
 returns None and the caller runs the host path; `pictures` and
 `envelope_host` count the two outcomes.
+
+With TURING_TPU_PIPELINE_TRACE set, each picture's stages (mc, residual,
+intra, deblock, sao, pull) are timed on the host clock, the device
+synchronised at every probe: each probe prints the time since the
+picture's start to stderr and adds its stage's seconds to `stage_seconds`.
 """
 from __future__ import annotations
 
+import os
+import sys
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -33,6 +41,8 @@ from turingcodec_tpu_torch.ops.transform import dequant_idct_add
 # reconstructor for weighted prediction, which never reaches the pipeline)
 pictures = 0
 envelope_host = 0
+# stage -> host-clock seconds summed over the traced pictures
+stage_seconds: "dict[str, float]" = {}
 
 # device-resident DPB: id(host luma plane) -> (host planes, device planes).
 # Holding the host arrays keeps the ids stable while cached.
@@ -127,10 +137,25 @@ def decode_picture_device(pr, device):
             or plan.pcm_samples):
         envelope_host += 1
         return None
+    trace = bool(os.environ.get("TURING_TPU_PIPELINE_TRACE"))
+    t0 = last = time.perf_counter()
+
+    def tp(tag):
+        nonlocal last
+        if trace:
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            now = time.perf_counter()
+            stage_seconds[tag] = stage_seconds.get(tag, 0.0) + now - last
+            last = now
+            print(f"    [pipeline] {tag:10s} +{now - t0:8.4f}s",
+                  file=sys.stderr, flush=True)
 
     planes = [_upload(p, device) for p in (pr.ry, pr.rcb, pr.rcr)]
     planes = _mc_device(plan, geom, pr.ref_lists, planes)
+    tp("mc")
     planes = _residuals_device(plan, planes)
+    tp("residual")
 
     if ((plan.cu_pred_mode == 1) & (plan.cu_id >= 0)).any():
         # the one serial-by-spec stage: pull, reconstruct intra CUs on the
@@ -142,13 +167,17 @@ def decode_picture_device(pr, device):
                 if cu.pred_mode == 1:
                     pr._recon_intra_cu(cu)
         planes = [_upload(p, device) for p in (pr.ry, pr.rcb, pr.rcr)]
+    tp("intra")
 
     planes = deblock_planes_device(plan, geom, planes)
+    tp("deblock")
     if any(sh.slice_sao_luma_flag or sh.slice_sao_chroma_flag
            for sh in plan.slice_headers):
         planes = sao_picture_device(plan, geom, planes, device, pull=False)
+    tp("sao")
 
     out = _pull(planes)
+    tp("pull")
     pr.ry, pr.rcb, pr.rcr = out
     _register_dev(out, tuple(planes))
     pictures += 1

@@ -1,27 +1,48 @@
-"""Deblocking filter as torch code on a device: the twin of
-decode/deblock_vec.py (port of `turingcodec_tpu/ops/deblock.py`).
+"""Deblocking filter on a device: the twin of decode/deblock_vec.py (port
+of `turingcodec_tpu/ops/deblock.py`).
 
-Every 4-line edge segment of the picture is one lane of a dense (segments,
-edges) batch, with inactive segments masked to passthrough. The written
-windows of neighbouring edges tile the sample grid exactly (a vertical
-edge at x rewrites columns x-4..x+3; edges are 8 apart), so a direction
-pass is reshape -> elementwise filter -> reshape, with no data-dependent
-scatter. The horizontal pass reuses the vertical routine on transposed
-planes (the filter is symmetric under transposition with p=above ->
-p=left).
+`deblock_device` on CUDA tensors launches the CUDA kernel in
+`csrc/deblock.cu` (its header states the design and what bounds it on an
+H100): one launch for the vertical edges and one for the horizontal edges,
+over the luma and both chroma planes; `deblock_frames` takes F pictures in
+the same two launches. On CPU tensors both run the plain torch version,
+`deblock_device_ref`: every 4-line edge segment of the picture is one lane
+of a dense (segments, edges) batch, with inactive segments masked to
+passthrough. The written windows of neighbouring edges tile the sample
+grid exactly (a vertical edge at x rewrites columns x-4..x+3; edges are 8
+apart), so a direction pass is reshape -> elementwise filter -> reshape,
+with no data-dependent scatter. The horizontal pass reuses the vertical
+routine on transposed planes (the filter is symmetric under transposition
+with p=above -> p=left).
 
 Bit-exact with the numpy twin and the scalar oracle decode/deblock.py
 (reference: turing/LoopFilter.h:425-608).
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from turingcodec_tpu_torch.decode.deblock import BETA_TABLE, TC_TABLE
 from turingcodec_tpu_torch.hevc.tables import CHROMA_QP_TABLE_420
+from turingcodec_tpu_torch.ops import kernel_build
 from turingcodec_tpu_torch.ops.dense_me import edge_pad
 from turingcodec_tpu_torch.ops.kernel_build import table
+
+# kernel launches since import (or since a caller reset it to 0): two per
+# deblock_device or deblock_frames call on the card
+launches = 0
+_LAUNCH = None
+# the types the kernel reads: the plan's own (decode/plan.py) for the 11
+# maps (tu_id, pu_id, cu_id, pred_mode, cbf_y, ref_idx, ref_poc, mv, qp_y,
+# slice_idx, tile_id) and the 6 per-slice vectors (disabled, across,
+# beta, tc, cb and cr offsets)
+MAP_DTYPES = (torch.int32, torch.int32, torch.int32, torch.uint8,
+              torch.uint8, torch.int8, torch.int32, torch.int16, torch.int8,
+              torch.int32, torch.int32)
+SLICE_DTYPES = (torch.bool, torch.bool) + (torch.int32,) * 4
 
 
 def _motion_bs(ref_idx, ref_poc, mv, byp, bxp, byq, bxq):
@@ -264,11 +285,12 @@ def _transpose_maps(maps):
             mv.transpose(1, 2), t(qp_y), t(slice_idx), t(tile_id))
 
 
-def deblock_device(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
-                   across_tiles):
-    """Full deblock (vertical then horizontal) on device tensors; returns
-    new contiguous (ry, rcb, rcr). across_tiles: a bool, or a bool tensor
-    (a frame's flag under torch.func.vmap).
+def deblock_device_ref(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
+                       across_tiles):
+    """Plain torch version of deblock_device: vertical then horizontal
+    edges, the horizontal pass on transposed planes and maps; returns new
+    contiguous (ry, rcb, rcr). across_tiles: a bool, or a bool tensor (a
+    frame's flag under torch.func.vmap).
 
     mv swap note: mv is (2, h4, w4, 2) with components (x, y); under
     transposition the filter only uses |dx|>=4 | |dy|>=4, which is
@@ -281,34 +303,138 @@ def deblock_device(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
     return ry_t.T.contiguous(), rcb_t.T.contiguous(), rcr_t.T.contiguous()
 
 
+def deblock_device(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
+                   across_tiles):
+    """Full deblock (vertical then horizontal) of one picture: ry (H, W),
+    rcb/rcr (H/2, W/2) int16, the 11 plan maps and 6 per-slice vectors of
+    plan_tensors; returns new contiguous (ry, rcb, rcr). across_tiles: a
+    bool, or a bool tensor (a frame's flag under torch.func.vmap). CPU
+    tensors take deblock_device_ref; CUDA tensors launch the kernel twice,
+    and a failed build or launch raises."""
+    if ry.device.type == "cpu":
+        return deblock_device_ref(ry, rcb, rcr, maps, sl, ctb_log2, bd_y,
+                                  bd_c, across_tiles)
+    if isinstance(across_tiles, torch.Tensor):
+        across_tiles = across_tiles.reshape(1)
+    out = deblock_frames(ry[None], rcb[None], rcr[None],
+                         tuple(m[None] for m in maps),
+                         tuple(v[None] for v in sl), ctb_log2, bd_y, bd_c,
+                         across_tiles)
+    return tuple(p[0] for p in out)
+
+
+def _launcher():
+    global _LAUNCH
+    if _LAUNCH is None:
+        fn = kernel_build.load("deblock").deblock_launch
+        fn.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p] * 3 + [i] * 3 + [p] * 11 + [i] * 2 + [p] * 6
+                       + [i] + [p] + [i] * 5 + [p])
+        _LAUNCH = fn
+    return _LAUNCH
+
+
+def deblock_frames(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
+                   across_tiles):
+    """deblock_device over F pictures of one size: ry (F, H, W), rcb/rcr
+    (F, H/2, W/2) int16 with H and W multiples of 8, each map and
+    per-slice vector with a leading F; across_tiles a bool or an (F,) bool
+    tensor. Returns the filtered (ry, rcb, rcr) as new tensors, bit-exact
+    with per-picture calls. CPU tensors take deblock_device_ref under
+    torch.func.vmap; CUDA tensors launch the kernel twice (vertical, then
+    horizontal edges, every picture and plane in each launch), and a
+    failed build or launch raises; bit depths 8..16."""
+    global launches
+    dev = ry.device
+    if dev.type == "cpu":
+        def one(y, cb, cr, m, s, a):
+            return deblock_device_ref(y, cb, cr, m, s, ctb_log2, bd_y, bd_c,
+                                      a)
+        if not isinstance(across_tiles, torch.Tensor):
+            across_tiles = torch.full((ry.shape[0],), bool(across_tiles))
+        return torch.func.vmap(one)(ry, rcb, rcr, tuple(maps), tuple(sl),
+                                    across_tiles)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    f, h, w = ry.shape
+    if (ry.dtype, rcb.dtype, rcr.dtype) != (torch.int16,) * 3:
+        raise TypeError("int16 planes required")
+    if (h % 8 or w % 8 or tuple(rcb.shape) != (f, h // 2, w // 2)
+            or rcr.shape != rcb.shape):
+        raise ValueError(f"planes {tuple(ry.shape)}, {tuple(rcb.shape)}, "
+                         f"{tuple(rcr.shape)}: (F, H, W) with H and W "
+                         f"multiples of 8 and 4:2:0 chroma required")
+    if not (8 <= bd_y <= 16 and 8 <= bd_c <= 16):
+        raise ValueError(f"bit depths {bd_y}, {bd_c} outside 8..16")
+    if ([m.dtype for m in maps] != list(MAP_DTYPES)
+            or [v.dtype for v in sl] != list(SLICE_DTYPES)):
+        raise TypeError("maps or per-slice vectors not of the plan's types "
+                        "(MAP_DTYPES, SLICE_DTYPES)")
+    maps = [m.contiguous() for m in maps]
+    sl = [v.contiguous() for v in sl]
+    h4, w4 = h // 4, w // 4
+    hc, wc = maps[9].shape[1:]
+    n_sl = sl[0].shape[1]
+    want = [(f, h4, w4)] * 5 + [(f, 2, h4, w4)] * 2 + [(f, 2, h4, w4, 2),
+                                                       (f, h4, w4)]
+    want += [(f, hc, wc)] * 2
+    if ([tuple(m.shape) for m in maps] != want
+            or any(tuple(v.shape) != (f, n_sl) for v in sl) or n_sl < 1
+            or any(t.device != dev for t in (*maps, *sl, rcb, rcr))):
+        raise ValueError("maps or per-slice vectors do not fit the planes")
+    across_ptr, across_all = None, 1
+    if isinstance(across_tiles, torch.Tensor):
+        across_tiles = across_tiles.to(dev, torch.bool).contiguous()
+        if tuple(across_tiles.shape) != (f,):
+            raise ValueError("across_tiles must be a bool or (F,) tensor")
+        across_ptr = across_tiles.data_ptr()
+    else:
+        across_all = int(bool(across_tiles))
+    out = [p.clone(memory_format=torch.contiguous_format)
+           for p in (ry, rcb, rcr)]
+    fn = _launcher()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        for horizontal in (0, 1):
+            if (h if horizontal else w) < 16:
+                continue    # no edge in this direction: nothing to launch
+            rc = fn(*(p.data_ptr() for p in out), f, h, w,
+                    *(m.data_ptr() for m in maps), hc, wc,
+                    *(v.data_ptr() for v in sl), n_sl, across_ptr,
+                    across_all, ctb_log2, bd_y, bd_c, horizontal, stream)
+            if rc != 0:
+                raise RuntimeError(f"deblock launch failed: CUDA error {rc}")
+            launches += 1
+    return tuple(out)
+
+
 def plan_tensors(plan, geom, device):
-    """The plan's per-block maps and per-slice parameters on `device`,
-    and whether filtering crosses tile boundaries: deblock_device's
-    (maps, sl, across_tiles) arguments."""
+    """The plan's per-block maps and per-slice parameters on `device` (one
+    packed upload, from pinned memory on a card), and whether filtering
+    crosses tile boundaries: deblock_device's (maps, sl, across_tiles)
+    arguments."""
     pps = plan.pps
-
-    def up(a, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=device)
-
-    maps = tuple(up(a) for a in (
-        plan.tu_id, plan.pu_id, plan.cu_id, plan.cu_pred_mode, plan.cbf_y,
-        plan.ref_idx, plan.ref_poc, plan.mv, plan.qp_y, plan.slice_idx,
-        geom.tile_id))
     shs = plan.slice_headers
-    i32 = torch.int32
-    sl = (up([bool(sh.slice_deblocking_filter_disabled_flag) for sh in shs]),
-          up([bool(sh.slice_loop_filter_across_slices_enabled_flag)
-              for sh in shs]),
-          up([sh.slice_beta_offset_div2 << 1 for sh in shs], i32),
-          up([sh.slice_tc_offset_div2 << 1 for sh in shs], i32),
-          up([pps.pps_cb_qp_offset + sh.slice_cb_qp_offset for sh in shs],
-             i32),
-          up([pps.pps_cr_qp_offset + sh.slice_cr_qp_offset for sh in shs],
-             i32))
+    maps = (plan.tu_id, plan.pu_id, plan.cu_id, plan.cu_pred_mode,
+            plan.cbf_y, plan.ref_idx, plan.ref_poc, plan.mv, plan.qp_y,
+            plan.slice_idx, geom.tile_id)
+    sl = (np.asarray([bool(sh.slice_deblocking_filter_disabled_flag)
+                      for sh in shs]),
+          np.asarray([bool(sh.slice_loop_filter_across_slices_enabled_flag)
+                      for sh in shs]),
+          np.asarray([sh.slice_beta_offset_div2 << 1 for sh in shs],
+                     np.int32),
+          np.asarray([sh.slice_tc_offset_div2 << 1 for sh in shs],
+                     np.int32),
+          np.asarray([pps.pps_cb_qp_offset + sh.slice_cb_qp_offset
+                      for sh in shs], np.int32),
+          np.asarray([pps.pps_cr_qp_offset + sh.slice_cr_qp_offset
+                      for sh in shs], np.int32))
+    up = kernel_build.upload_packed(maps + sl, device)
     across_tiles = (bool(pps.loop_filter_across_tiles_enabled_flag)
                     or geom.num_tiles == 1)
-    return maps, sl, across_tiles
+    return tuple(up[:11]), tuple(up[11:]), across_tiles
 
 
 def deblock_planes_device(plan, geom, planes):

@@ -13,7 +13,8 @@ kernel and of the forward transform, and the forward DST: from the
 kernel's parameters they cost it a constant-cache miss each; the luma
 filter taps of the all-phase interpolation and of the subpel planes,
 which held registers; the intra angles and filter thresholds of the
-rank-SATD tables).
+rank-SATD tables; the beta, tc and chroma QP tables of the deblocking
+filter; the SAO edge directions and sign remap).
 """
 from __future__ import annotations
 
@@ -55,22 +56,33 @@ def _tables(name: str) -> list:
     at compile time, made from hevc/tables.py so that each table lives
     there alone: a generated header of #defines, pre-included (nvcc splits
     a -D value at its commas)."""
+    from turingcodec_tpu_torch.decode.deblock import BETA_TABLE, TC_TABLE
     from turingcodec_tpu_torch.decode.reconstruct import _HVD_THRES
-    from turingcodec_tpu_torch.hevc.tables import (DST4, INTRA_INV_ANGLE,
+    from turingcodec_tpu_torch.hevc.tables import (CHROMA_QP_TABLE_420, DST4,
+                                                   INTRA_INV_ANGLE,
                                                    INTRA_PRED_ANGLE,
                                                    LUMA_FILTER, dct2_matrix)
+    from turingcodec_tpu_torch.ops.sao import _EO_A, _REMAP
     tables = {"TC_DCT32_HALF": np.asarray(dct2_matrix(32))[:, :16],
               "TC_DST4": np.asarray(DST4),
               "TC_LUMA_FILTER": np.asarray(LUMA_FILTER),
               "TC_INTRA_PRED_ANGLE": np.asarray(INTRA_PRED_ANGLE),
               "TC_INTRA_INV_ANGLE": np.asarray(INTRA_INV_ANGLE),
-              "TC_HVD_THRES": np.asarray([_HVD_THRES[n] for n in (8, 16, 32)])}
+              "TC_HVD_THRES": np.asarray([_HVD_THRES[n] for n in (8, 16, 32)]),
+              "TC_BETA_TABLE": np.asarray(BETA_TABLE),
+              "TC_TC_TABLE": np.asarray(TC_TABLE),
+              "TC_CHROMA_QP_TABLE": np.asarray(CHROMA_QP_TABLE_420),
+              "TC_SAO_EO_A": np.asarray(_EO_A),
+              "TC_SAO_REMAP": np.asarray(_REMAP)}
     wanted = {"dequant_idct": ("TC_DCT32_HALF",),
               "fwd_transform": ("TC_DCT32_HALF", "TC_DST4"),
               "interp_all_phases": ("TC_LUMA_FILTER",),
               "subpel_planes": ("TC_LUMA_FILTER",),
               "rank_satd": ("TC_INTRA_PRED_ANGLE", "TC_INTRA_INV_ANGLE",
-                            "TC_HVD_THRES")}.get(name)
+                            "TC_HVD_THRES"),
+              "deblock": ("TC_BETA_TABLE", "TC_TC_TABLE",
+                          "TC_CHROMA_QP_TABLE"),
+              "sao": ("TC_SAO_EO_A", "TC_SAO_REMAP")}.get(name)
     if not wanted:
         return []
     header = os.path.join(BUILD_DIR, f"{name}_tables.h")
@@ -114,6 +126,30 @@ def table(array: np.ndarray, device) -> torch.Tensor:
         ent = _TABLES[(id(array), dev)] = (array, torch.as_tensor(
             np.asarray(array, np.int32), device=dev))
     return ent[1]
+
+
+def upload_packed(arrays, device) -> list:
+    """Host arrays as tensors on `device` by one copy: packed at 16-byte
+    offsets into one host buffer, pinned for a card (so the copy runs
+    asynchronously from page-locked memory), each returned tensor a view of
+    its part of the device buffer with the array's type and shape. The
+    caching host allocator keeps the pinned buffer from reuse until the
+    copy is done."""
+    device = torch.device(device)
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offsets, total = [], 0
+    for a in arrays:
+        offsets.append(total)
+        total += -(-a.nbytes // 16) * 16
+    host = torch.empty(total, dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    buf = host.numpy()
+    for a, o in zip(arrays, offsets):
+        buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = host.to(device, non_blocking=True)
+    return [dev[o:o + a.nbytes].view(torch.from_numpy(a[:0].reshape(-1))
+                                     .dtype).view(a.shape)
+            for a, o in zip(arrays, offsets)]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,8 +9,13 @@ a GOP and shards the "frame" axis over a device mesh (the reference's
   laid end to end in one list of F * R planes;
 - residuals: one launch of the residual kernel (`dequant_idct_add`, its
   int16-clip instance over zero planes) for all F * N blocks;
-- deblocking and SAO: the per-picture torch code under torch.func.vmap,
-  so each of its ops runs once over the F pictures.
+- deblocking: the kernel's two launches (`deblock_frames`) for all F
+  pictures;
+- SAO: one launch of the SAO kernel (`sao_frames`) per component for all
+  F pictures.
+
+On CPU tensors deblocking and SAO run their plain versions under
+torch.func.vmap, so each of their ops runs once over the F pictures.
 
 Each `sharded_gop_*` takes the mesh and returns the step with the JAX
 step's arguments and shapes; `gop_*` are the same steps on the tensors'
@@ -21,9 +26,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from turingcodec_tpu_torch.ops.deblock import deblock_device, plan_tensors
+from turingcodec_tpu_torch.ops.deblock import deblock_frames, plan_tensors
 from turingcodec_tpu_torch.ops.inter import mc_block_grid
-from turingcodec_tpu_torch.ops.sao import (_picture_maps, _sao_plane,
+from turingcodec_tpu_torch.ops.sao import (_picture_maps, sao_frames,
                                            sao_plane_args)
 from turingcodec_tpu_torch.ops.transform import dequant_idct_add, tu_kind
 
@@ -79,29 +84,31 @@ def gop_residual(blocks, qps, bit_depth: int = 8,
 
 def gop_deblock(ry, rcb, rcr, maps, sl, across, ctb_log2: int = 6,
                 bd_y: int = 8, bd_c: int = 8):
-    """deblock_device over F pictures under torch.func.vmap: ry (F, H, W),
-    rcb/rcr (F, H/2, W/2), maps the 11 plan maps and sl the 6 per-slice
-    vectors of ops/deblock.plan_tensors, each with a leading F, across (F,)
-    bool. Returns the filtered (ry, rcb, rcr), bit-exact with per-picture
-    calls."""
-    def one(y, cb, cr, m, s, a):
-        return deblock_device(y, cb, cr, m, s, ctb_log2, bd_y, bd_c, a)
-    return torch.func.vmap(one)(ry, rcb, rcr, tuple(maps), tuple(sl), across)
+    """Deblocking of F pictures: ry (F, H, W), rcb/rcr (F, H/2, W/2), maps
+    the 11 plan maps and sl the 6 per-slice vectors of
+    ops/deblock.plan_tensors, each with a leading F, across (F,) bool.
+    Returns the filtered (ry, rcb, rcr), bit-exact with per-picture calls:
+    two kernel launches on the card, the plain version under
+    torch.func.vmap on the CPU (ops/deblock.deblock_frames)."""
+    return deblock_frames(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
+                          across)
 
 
 def gop_sao(src, sao_type, sao_class, sao_off, slice_up, tile_up, enable_s,
             across_s, across_tiles, skip_up, ctb: int = 64, bd: int = 8,
             sub: int = 1):
-    """_sao_plane of one component over F pictures under torch.func.vmap:
-    src (F, H, W), per-CTB type/class (F, hc, wc), offsets (F, hc, wc, 4 or
-    more), sample-resolution slice/tile/skip maps (F, H, W), per-slice
+    """_sao_plane of one component over F pictures: src (F, H, W), per-CTB
+    type/class (F, hc, wc), offsets (F, hc, wc, 4 or more),
+    sample-resolution slice/tile/skip maps (F, H, W), per-slice
     enable/across (F, S), across_tiles (F,) bool. Bit-exact with
-    per-picture calls."""
-    def one(s, t, c, o, su, tu, en, ac, at, sk):
-        return _sao_plane(s, ctb, bd, sub, t, c, o, su, tu, en, ac, at, sk)
-    return torch.func.vmap(one)(src, sao_type, sao_class, sao_off, slice_up,
-                                tile_up, enable_s, across_s, across_tiles,
-                                skip_up)
+    per-picture calls: sao_frames on the per-CTB maps, read back from the
+    sample-resolution ones by strided views (each map is constant over a
+    CTB, the skip map over a 4x4 luma block); one kernel launch on the
+    card, _sao_plane under torch.func.vmap on the CPU."""
+    k = 4 // sub
+    return sao_frames(src, ctb, bd, sub, sao_type, sao_class, sao_off,
+                      slice_up[:, ::ctb, ::ctb], tile_up[:, ::ctb, ::ctb],
+                      enable_s, across_s, across_tiles, skip_up[:, ::k, ::k])
 
 
 def capture_pictures(stream: bytes, max_frames=None):
