@@ -1815,6 +1815,7 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
         "device_us": r["device_us"], "bound_us": r["bound_ms"] * 1e3,
+        "share": r["bound_ms"] * 1e3 / r["device_us"],
         "launches_by_path": {
             "encode": enc_launches[r["kname"]],
             "decode": dec_launches[r["kname"]],
