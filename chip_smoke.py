@@ -139,11 +139,12 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_us(fn, name: str, n: int = 50):
+def device_us(fn, name: str, n: int = 50, whole: bool = False):
     """Device time per call of fn(), in us, summed over the CUDA kernels
-    whose name holds `name`: torch.profiler's kernel durations over n calls
-    after a warm-up call. Raises where the profiler reports no such kernel.
-    Returns (us, launches per call)."""
+    whose name holds `name` (with whole, over every kernel and copy that
+    fn enqueues): torch.profiler's durations over n calls after a warm-up
+    call. Raises where the profiler reports no kernel named like `name`.
+    Returns (us, launches of that kernel per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -157,8 +158,9 @@ def device_us(fn, name: str, n: int = 50):
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0)
-        if name in e.key and t > 0:
+        if t > 0 and (whole or name in e.key):
             total += t
+        if t > 0 and name in e.key:
             count += e.count
     check(count, f"the profiler saw no kernel named like {name!r}")
     return total / n, count / n
@@ -764,8 +766,9 @@ def check_decode_kernels(device, captured, reps):
 
 def deblock_bound(args):
     """Bound of one deblocking call, from its own inputs: the three int16
-    planes read once and written once, every map and per-slice vector
-    read once; 20 INT32 operations per 4-line edge segment of the two
+    planes read once and written once (deblock_frames's copy of the input
+    does that, and the row's device time counts the copy with the two
+    launches), every map and per-slice vector read once; 20 INT32 operations per 4-line edge segment of the two
     directions for its edge flag and bS (the filters' arithmetic, on the
     segments that pass, is less than the bytes' time whatever the data)."""
     planes, maps, sl = args[:3], args[3], args[4]
@@ -838,7 +841,7 @@ def check_loop_filters(device, bitstream, reps):
         plain_ms=timed_ms(lambda: db.deblock_device_ref(
             *(p[0] for p in cold_deblock()[:3]), one[0], one[1], *geo,
             one[2]), device, max(1, reps // 4)),
-        bound_ms=bnd[0], bound_by=bnd[1], timed={
+        bound_ms=bnd[0], bound_by=bnd[1], whole=True, timed={
             f"deblock at the {w}x{h} encode's picture 1": (
                 lambda: db.deblock_frames(*cold_deblock(), *geo, one[2]),
                 bnd[0])})
@@ -1087,15 +1090,20 @@ def device_times(rows):
     """Each kernel's device time per call at its main-path shapes (the
     first shape is the one its row reports), with the share of each
     shape's bound. Runs after the main paths, so that the profiler's
-    tracing cannot touch their end-to-end timings."""
+    tracing cannot touch their end-to-end timings. A row with "whole"
+    counts every kernel and copy of the call: its bound counts bytes that
+    the wrapper's own copies move."""
     for r in rows:
+        whole = r.pop("whole", False)
         for i, (what, (fn, bound_ms)) in enumerate(r.pop("timed").items()):
-            us, per = device_us(fn, r["kname"])
+            us, per = device_us(fn, r["kname"], whole=whole)
             if i == 0:
                 r["device_us"] = us
             log(f"{what}: {us:.2f} us device time per call (profiler, {per} "
-                f"launches per call), {bound_ms * 1e3 / us:.1%} of its "
-                f"{bound_ms * 1e3:.2f} us bound")
+                f"launches per call"
+                f"{', and the copies of the call' if whole else ''}), "
+                f"{bound_ms * 1e3 / us:.1%} of its {bound_ms * 1e3:.2f} us "
+                f"bound")
 
 
 def mc_bound(args):

@@ -214,14 +214,24 @@ def test_cpu_tensors_count_no_launch(monkeypatch):
 
 
 def test_cuda_requests_without_a_card_raise():
-    if torch.cuda.is_available():
-        pytest.skip("a card is present")
+    """The picture-level entry points hand tensors that are not on the CPU
+    to the wrappers, which refuse a device other than CUDA themselves (no
+    plain version runs there); with no card a CUDA request raises and
+    filters nothing."""
     with open(os.path.join(STREAMS, "vfy_sweep.hevc"), "rb") as f:
         pic = tgop.capture_pictures(f.read(), max_frames=1)[0]
     plan, geom = pic["plan"], pic["geom"]
-    with pytest.raises((RuntimeError, AssertionError)):
+    with pytest.raises(ValueError, match="unsupported device meta"):
         tdb.deblock_picture_device(plan, geom, *(p.copy() for p in
-                                                 pic["pre"]), "cuda")
+                                                 pic["pre"]), "meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        tsao.sao_picture_device(plan, geom, pic["post"], "meta")
+    if torch.cuda.is_available():
+        return
+    planes = [p.copy() for p in pic["pre"]]
+    with pytest.raises((RuntimeError, AssertionError)):
+        tdb.deblock_picture_device(plan, geom, *planes, "cuda")
+    assert all(np.array_equal(a, b) for a, b in zip(planes, pic["pre"]))
     with pytest.raises((RuntimeError, AssertionError)):
         tsao.sao_picture_device(plan, geom, pic["post"], "cuda")
 

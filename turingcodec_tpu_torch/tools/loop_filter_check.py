@@ -1,5 +1,4 @@
-"""CLI: the decoder's loop-filter kernels against their plain versions, and
-the card decode's stages per picture.
+"""CLI: the decoder's loop-filter kernels against their plain versions.
 
 Synthetic inputs made from a seed (also used by the CPU parity tests
 against the JAX package and by chip_smoke.py):
@@ -19,28 +18,20 @@ against the JAX package and by chip_smoke.py):
 `check_kernels(device, ...)` holds ops/deblock.deblock_frames and
 ops/sao.sao_frames against deblock_device_ref and _sao_plane on those
 inputs at 1920x1080 and on every picture of tests/streams that reaches
-deblocking (their SAO on every picture that codes it). `decode_stages`
-decodes a bitstream on the card with the deblocking stage timed (host
-clock, the card synchronised on each side), in turns with the host
-decode; it reads only names that earlier trees of the port have too, so
-that it can time a parent checkout beside this one:
-PYTHONPATH=<parent checkout> python <this tree>/turingcodec_tpu_torch/
-tools/loop_filter_check.py --stages.
+deblocking (their SAO on every picture that codes it). The card decode's
+stages per picture are timed by TURING_TPU_PIPELINE_TRACE
+(decode/device_pipeline.py).
 
 Usage: python -m turingcodec_tpu_torch.tools.loop_filter_check
-           [--device cuda] [--stages] [--upscale N] [--frames N] [--turns N]
+           [--device cuda]
 
---stages decodes vfy_sweep upscaled --upscale times (3: 1920x1080),
-encoded on the host at QP 30 for --frames frames, and prints the deblock
-stage's ms per picture and the decode rates of --turns turns; without it
-the kernels are checked. Any failed check raises.
+Any failed check raises.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import sys
-import time
 
 import numpy as np
 
@@ -322,74 +313,14 @@ def check_kernels(device, log=print):
     return errs, names
 
 
-def decode_stages(bitstream, device, turns: int = 2, log=print):
-    """Decode `bitstream` on `device` in turns with the host decode (card,
-    host, card, host, ...), the card decode's deblocking stage timed on
-    the host clock with the card synchronised on each side. Returns
-    {"fps_card": [...], "fps_host": [...], "deblock_ms": [per turn, ms
-    per picture]}."""
-    import torch
-
-    from turingcodec_tpu_torch.decode import device_pipeline as dp
-    from turingcodec_tpu_torch.decode.decoder import Decoder
-    out = {"fps_card": [], "fps_host": [], "deblock_ms": []}
-    real = dp.deblock_planes_device
-    spent = []
-
-    def timed(*a):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = real(*a)
-        torch.cuda.synchronize()
-        spent.append(time.perf_counter() - t0)
-        return r
-
-    def decode(dev):
-        t0 = time.perf_counter()
-        n = sum(1 for _ in Decoder(device=dev).decode_stream(bitstream))
-        if dev is not None:
-            torch.cuda.synchronize()
-        return n, time.perf_counter() - t0
-
-    decode(str(device))          # warm-up: builds, uploads, caches
-    for _ in range(turns):
-        spent.clear()
-        dp.deblock_planes_device = timed
-        try:
-            n, t = decode(str(device))
-        finally:
-            dp.deblock_planes_device = real
-        out["fps_card"].append(n / t)
-        out["deblock_ms"].append(sum(spent) / len(spent) * 1e3)
-        n, t = decode(None)
-        out["fps_host"].append(n / t)
-    log(f"decode in turns card/host: " + " / ".join(
-        f"{c:.4f} / {h:.4f}" for c, h in zip(out["fps_card"],
-                                             out["fps_host"])) + " fps; "
-        f"deblock stage {', '.join(f'{v:.4f}' for v in out['deblock_ms'])}"
-        f" ms per picture (host clock, synchronised)")
-    return out
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--stages", action="store_true")
-    ap.add_argument("--upscale", type=int, default=3)
-    ap.add_argument("--frames", type=int, default=8)
-    ap.add_argument("--turns", type=int, default=2)
     args = ap.parse_args(argv)
     import torch
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device")
-    if args.stages:
-        from turingcodec_tpu_torch.tools.device_enc_check import (
-            decode_inputs, encode)
-        frames = decode_inputs(args.frames, args.upscale, print)
-        bitstream = encode(frames, None, 30)[0]
-        decode_stages(bitstream, device, args.turns)
-        return 0
     check_kernels(device)
     return 0
 
