@@ -678,7 +678,9 @@ def check_decode_kernels(device, captured, reps):
     mc_errs = []
     h, w, b = 72, 104, 4096
     k = np.arange(b)
-    for bd in (8, 10):
+    # 13 and 14 bits: the full-pel shift 14 - bd at 1 and 0 (negative at
+    # 15 and 16, where the pipeline raises before it combines)
+    for bd in (8, 10, 13, 14):
         for bs, taps, phases, what in ((4, 8, 4, "luma"),
                                        (2, 4, 8, "Cb+Cr")):
             # two lists of 3 and 2 references, in one launch
@@ -717,7 +719,9 @@ def check_decode_kernels(device, captured, reps):
         return err, sum(int((g != p).sum()) for g, p in zip(got, planes))
 
     dq_errs = []
-    for bd in (8, 10, 12):
+    # 16 bits under the int16 convention: predicted samples above 32767
+    # wrap, as the JAX pipeline holds them
+    for bd in (8, 10, 12, 13, 14, 16):
         for extreme in (False, True):
             args = residual_synthetic(rng, bd, 1080, 1920, device, extreme)
             err, changed = residual(f"dequant_idct synthetic {bd}-bit", args)
@@ -1273,6 +1277,25 @@ def decode_main_path(device, frames, bitstream):
         dev, bitstream)
 
 
+def deep_decode(device):
+    """The 13-bit stream of tools/deep_bits.py decoded on the card (kernel
+    counts read around this run) to the JAX pipeline's md5, every picture
+    through the pipeline, MC and the residuals each launched on its inter
+    pictures, two deblocking launches per picture; then its 14- and 16-bit
+    streams raise the reference's error. Returns the 13-bit decode's
+    launches."""
+    from turingcodec_tpu_torch.tools import deep_bits
+    reset_launches()   # the stream is encoded on the host path
+    deep_bits.check_13(str(device), log)
+    launches = read_launches()
+    check(launches["mc_block_grid"] and launches["dequant_idct"]
+          and launches["deblock"] == 6,
+          f"13-bit decode of 3 pictures launched {launches}")
+    log(f"13-bit decode on the card: launches {launches}")
+    deep_bits.check_raises(str(device), log)
+    return launches
+
+
 def stage_split(dev, bitstream, n):
     """One more card decode with TURING_TPU_PIPELINE_TRACE set (the card
     synchronised at each stage's end): each stage's host-clock ms per
@@ -1748,6 +1771,8 @@ def main() -> int:
     # residual stage timed
     dec_launches, vfy_launches, res_pics = decode_main_path(
         device, frames, bitstream)
+    # the decode of a 13-bit stream, and the 14- and 16-bit ones that raise
+    deep_launches = deep_decode(device)
 
     # 9. the DSP op library at full width: its two kernels against their
     # plain versions, the torch ops against the CPU; then its own path,
@@ -1828,6 +1853,7 @@ def main() -> int:
             "encode": enc_launches[r["kname"]],
             "decode": dec_launches[r["kname"]],
             "vfy_sweep_decode": vfy_launches[r["kname"]],
+            "decode_13_bit": deep_launches[r["kname"]],
             "dsp_tools": dsp_launches[r["kname"]],
             "signature": sig_launches[r["kname"]],
             "gop_stages": gop_launches[r["kname"]],

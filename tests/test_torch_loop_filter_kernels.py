@@ -5,9 +5,11 @@ intra and inter blocks with coded-block flags, reference indices, POCs and
 motion vectors, QPs over the whole range, slices with deblocking disabled
 in one and filtering across slices off in another, tiles, beta and tc
 offsets of +-12; SAO maps of every type, band position and edge class,
-slices, tiles and the skip map. 8, 10 and 12 bits, and sides that are no
-multiple of 16. Every value is an integer: equality is exact (tolerance
-0). On CPU tensors the wrappers run the plain versions (deblock_device_ref,
+slices, tiles and the skip map. 8, 10, 12 (deblocking), 13, 14 and 16
+bits, and sides that are no multiple of 16; at 16 bits the planes are
+int16 as the JAX pipeline holds them (a sample above 32767 wraps
+negative, and both packages filter the wrapped values alike). Every
+value is an integer: equality is exact (tolerance 0). On CPU tensors the wrappers run the plain versions (deblock_device_ref,
 _sao_plane) and count no launch.
 
 The cases marked `cuda` hold the CUDA kernels against the plain versions
@@ -57,12 +59,17 @@ def _deblock_torch(planes, maps, sl, ctb_log2, bd, across):
 DEBLOCK_SIZES = [(40, 72), (88, 136), (1080, 64)]
 
 
-@pytest.mark.parametrize("bd", [8, 10, 12])
+# the loop filters' bit depths; 16 under the int16 convention
+DEBLOCK_BDS = [8, 10, 12, 13, 14, 16]
+CTB_LOG2 = {8: 4, 10: 5, 12: 6, 13: 4, 14: 5, 16: 6}
+
+
+@pytest.mark.parametrize("bd", DEBLOCK_BDS)
 @pytest.mark.parametrize("hw", DEBLOCK_SIZES)
 def test_deblock_plain_matches_jax(jax_ops, hw, bd):
     jnp, jdb, _ = jax_ops
     h, w = hw
-    ctb_log2 = {8: 4, 10: 5, 12: 6}[bd]
+    ctb_log2 = CTB_LOG2[bd]
     rng = np.random.default_rng(1000 * bd + h)
     planes, maps, sl, across = deblock_synthetic(rng, h, w, bd,
                                                  ctb_log2=ctb_log2)
@@ -150,7 +157,7 @@ SAO_SIZES = [(40, 72, 16), (44, 68, 32), (136, 200, 64)]
 
 
 @pytest.mark.parametrize("sub", [1, 2])
-@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("bd", [8, 10, 13, 14, 16])
 @pytest.mark.parametrize("size", SAO_SIZES)
 def test_sao_plain_matches_jax(jax_ops, size, bd, sub):
     h, w, ctb = size
@@ -279,7 +286,7 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("bd", DEBLOCK_BDS)
 def test_deblock_kernel_matches_plain_on_card(bd):
     dev = _card()
     rng = np.random.default_rng(bd)
@@ -296,7 +303,7 @@ def test_deblock_kernel_matches_plain_on_card(bd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("bd", [8, 10, 13, 14, 16])
 def test_sao_kernel_matches_plain_on_card(bd):
     dev = _card()
     for sub in (1, 2):

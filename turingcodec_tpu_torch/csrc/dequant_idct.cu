@@ -356,7 +356,7 @@ dequant_idct_add_kernel(const Params p, const int4* __restrict__ table) {
 // on the host. The wrapper (ops/transform.py) has checked that every TU lies in
 // its plane and its QP in 0..51 + 6 * (bd - 8). Launches on `stream` and
 // returns cudaGetLastError() (0 on success, cudaErrorInvalidValue for a
-// negative count or a bit depth outside 8..12); never synchronises.
+// negative count or a bit depth outside 8..16); never synchronises.
 extern "C" int dequant_idct_add_launch(const void* const* planes,
                                        const int* hw, const int* bit_depths,
                                        const void* table, const int* counts,
@@ -364,7 +364,7 @@ extern "C" int dequant_idct_add_launch(const void* const* planes,
                                        void* stream) {
     Params p = {};
     for (int c = 0; c < 3; ++c) {
-        if (bit_depths[c] < 8 || bit_depths[c] > 12)
+        if (bit_depths[c] < 8 || bit_depths[c] > 16)
             return (int)cudaErrorInvalidValue;
         p.coeff[c] = (const int16_t*)planes[c];
         p.plane[c] = (int16_t*)planes[3 + c];

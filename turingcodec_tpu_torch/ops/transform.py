@@ -281,7 +281,7 @@ def _check_add(coeff_planes, planes, table, bit_depths):
         if p.shape[1] % 4 or c.data_ptr() % 8 or p.data_ptr() % 8:
             raise ValueError("planes must be 8-byte aligned with widths a "
                              "multiple of 4")
-    if any(not 8 <= int(b) <= 12 for b in bit_depths):
+    if any(not 8 <= int(b) <= 16 for b in bit_depths):
         raise ValueError(f"bit depths {tuple(bit_depths)} unsupported")
     if not isinstance(table, np.ndarray) or table.dtype != np.int32:
         raise TypeError(f"the TU table must be an int32 numpy array, got "

@@ -17,7 +17,9 @@ against the JAX package and by chip_smoke.py):
 
 `check_kernels(device, ...)` holds ops/deblock.deblock_frames and
 ops/sao.sao_frames against deblock_device_ref and _sao_plane on those
-inputs at 1920x1080 and on every picture of tests/streams that reaches
+inputs at 1920x1080 (deblocking at 8, 10, 12, 13, 14 and 16 bits, SAO at
+8, 10, 13, 14 and 16; at 16 bits the int16 samples above 32767 wrap, as
+the JAX pipeline holds them) and on every picture of tests/streams that reaches
 deblocking (their SAO on every picture that codes it). The card decode's
 stages per picture are timed by TURING_TPU_PIPELINE_TRACE
 (decode/device_pipeline.py).
@@ -271,12 +273,14 @@ def check_kernels(device, log=print):
         names["sao"].append(name)
 
     h, w = 1080, 1920
-    for bd, ctb_log2 in ((8, 4), (10, 5), (12, 6)):
+    # 16 bits under the int16 convention: samples above 32767 wrap
+    for bd, ctb_log2 in ((8, 4), (10, 5), (12, 6), (13, 4), (14, 5),
+                         (16, 6)):
         planes, maps, sl, across = deblock_synthetic(rng, h, w, bd,
                                                      ctb_log2=ctb_log2)
         deblock(f"deblock synthetic {w}x{h} {bd}-bit ctb {1 << ctb_log2}",
                 planes, maps, sl, across, ctb_log2, bd, bd)
-    for bd in (8, 10):
+    for bd in (8, 10, 13, 14, 16):
         for sub in (1, 2):
             sao_one(f"sao synthetic {w // sub}x{h // sub} {bd}-bit",
                     tensors(sao_synthetic(rng, h // sub, w // sub, bd,
