@@ -10,7 +10,8 @@ every encoder analysis stage on the card against its host twin at 1080p
 (tools/device_enc_check.py; the surface against the native prepass's),
 and the stage's rank-SATD and subpel kernels against their plain versions
 (the 1080p I and P pictures at 8, 10 and 14 bits, strong smoothing on and
-off; the subpel planes at 8, 10 and 16 bits), then drives the main path:
+off, 0/top checkerboards at 8 and 10 bits, a 1912x1064 crop; the subpel
+planes at 8, 10 and 16 bits), then drives the main path:
 decode tests/streams/vfy_sweep.hevc (md5 against
 tests/streams/GOLDEN.json), upscale it 3x to 1920x1080, encode 8 frames
 at the fast low-delay operating point with the analysis stage on the card
@@ -22,22 +23,27 @@ hash-clean. Then the decoder's
 device pipeline: every staged decode stage on the card against
 its host twin (on the 1080p encode and on vfy_sweep), the two decoder
 kernels against their plain versions (MC: synthetic inputs of two
-reference lists with every phase, full-pel, 8 and 10 bits, and the 1080p
-picture's own calls; the residual kernel: synthetic 1080p tables of every
-size and mode with TUs on every edge, extreme levels, every QP at 8, 10
-and 12 bits, and every inter picture's own call; the deblocking kernel on
-synthetic 1920x1080 pictures at 8, 10 and 12 bits and on every picture of
-tests/streams, the SAO kernel on synthetic planes at 8 and 10 bits and on
-every SAO picture of tests/streams, by tools/loop_filter_check.py),
+reference lists with every phase, full-pel, 8, 10, 13 and 14 bits, and
+the 1080p picture's own calls; the residual kernel: synthetic 1080p
+tables of every size and mode with TUs on every edge, extreme levels,
+every QP at 8, 10, 12, 13, 14 and 16 bits, and every inter picture's own
+call; the deblocking kernel on synthetic 1920x1080 pictures at 8, 10,
+12, 13, 14 and 16 bits and on every picture of tests/streams, the SAO
+kernel on synthetic planes at 8, 10, 13, 14 and 16 bits and on every SAO
+picture of tests/streams, by tools/loop_filter_check.py; at 16 bits the
+int16 samples above 32767 wrap, as the JAX pipeline holds them),
 vfy_sweep and static_test (all full-pel) md5-exact through
 Decoder(device="cuda") with two deblocking launches per picture and SAO
 launches on vfy_sweep, and the 1080p encode decoded on the card equal to
 the host decode, every picture through the pipeline, at most 3 MC
 launches per inter picture, one residual launch per picture with coded
-inter TUs, two deblocking launches per picture and no SAO. After the
-decode rates, one more decode with TURING_TPU_PIPELINE_TRACE gives each
-stage's ms per picture, and one more times the residual stage (host
-clock, synchronised around it). Then the DSP op library at one 1080p
+inter TUs, two deblocking launches per picture and no SAO. After the decode
+rates, one more decode with TURING_TPU_PIPELINE_TRACE gives each stage's
+ms per picture, and one more times the residual stage (host clock,
+synchronised around it). Then a 13-bit stream (tools/deep_bits.py)
+decoded on the card to the JAX pipeline's md5 through the MC, residual
+and deblocking kernels, and its 14- and 16-bit twins raising the
+reference's error. Then the DSP op library at one 1080p
 picture's block counts:
 the forward transform and all-phase interpolation kernels against their
 plain versions (8 and 10 bits, and 14 for the interpolation, extreme
@@ -346,39 +352,48 @@ def subpel_bound(h: int, w: int):
                  24 * (ph + 7) * pw + 12 * 8 * ph * pw)
 
 
-def rank_ops(h: int, w: int) -> int:
-    """INT32 operations of the rank tables of an (h, w) plane at the four
-    sizes, per sample of each block and mode, a multiply-add counted once
+def rank_ops(h: int, w: int, bd: int, sizes=(4, 8, 16, 32)) -> int:
+    """INT32 operations of the rank tables of an (h, w) bd-bit plane at
+    `sizes`, per sample of each block and mode, a multiply-add counted once
     (one IMAD) as subpel_bound counts a tap: the angular prediction's two
     multiply-adds (the rounding folded into the first, 32 - fr hoisted per
     row) and a shift, planar's four multiply-adds and a shift, DC none;
     then the difference, the two butterfly passes (log2 of the sub-block's
-    side adds each: 6 for 8x8, 4 for 4x4) and the absolute value and
-    sum."""
+    side adds each: 6 for 8x8, 4 for 4x4) and the absolute value and sum.
+    Where two modes' differences fit one word for the butterflies (8x8
+    sub-blocks up to 9 bits, 4x4 up to 11: every Hadamard output of a
+    difference fits in int16), a butterfly on a packed pair counts once,
+    half a butterfly per mode."""
     ops = 0
-    for n in (4, 8, 16, 32):
+    for n in sizes:
         samples = (h // n) * (w // n) * n * n
-        tail = 1 + (6 if n >= 8 else 4) + 2
-        ops += samples * (33 * (3 + tail) + (5 + tail) + tail)
-    return ops
+        sb = 8 if n >= 8 else 4
+        fly = 6 if sb == 8 else 4
+        packed = bd <= (9 if sb == 8 else 11)
+        ops += samples * (33 * 3 + 5 + 35 * (1 + 2)
+                          + 35 * fly / (2 if packed else 1))
+    return int(ops)
 
 
-def rank_bound(h: int, w: int):
-    """Bound of one rank_satd_tables call at the four sizes: the int16
-    plane and the int32 z-scan table in once, the (h/n, w/n, 35) int32
+def rank_bound(h: int, w: int, bd: int, sizes=(4, 8, 16, 32)):
+    """Bound of one rank_satd_tables call at `sizes`: the int16 plane and
+    the int32 z-scan table in once (per call), the (h/n, w/n, 35) int32
     tables out; rank_ops' operations."""
-    tables = sum((h // n) * (w // n) * 35 * 4 for n in (4, 8, 16, 32))
+    tables = sum((h // n) * (w // n) * 35 * 4 for n in sizes)
     return bound(2 * h * w + 4 * (h // 4) * (w // 4) + tables,
-                 rank_ops(h, w))
+                 rank_ops(h, w, bd, sizes))
 
 
 def check_analysis_kernels(device, frames, zscan, reps):
     """The encoder analysis stage's rank-SATD and subpel kernels against
     their plain versions on the card: the rank tables of the 1080p I and P
-    pictures at 8, 10 and 14 bits with strong smoothing on and off, the
+    pictures at 8, 10 and 14 bits with strong smoothing on and off, of 0/top
+    checkerboards at 8 and 10 bits and of a crop whose sides are no
+    multiple of 16, the
     subpel planes of the reference at 8, 10 and 16 bits (above 32767 the
     int16 samples wrap, as in the reference). Times both at 8 bits on
-    inputs read from device memory. Returns their kernels-line rows."""
+    inputs read from device memory, the rank tables also one size at a
+    time. Returns their kernels-line rows."""
     import numpy as np
     import torch
 
@@ -407,6 +422,33 @@ def check_analysis_kernels(device, frames, zscan, reps):
                     f"n={n}", got[n], want[n]) for n in want]
     log(f"kernel vs plain, rank_satd on the 1080p I and P pictures at 8, "
         f"10 and 14 bits, strong smoothing on and off, n = 4..32: equal")
+    # the largest differences the packed butterflies meet: 0/top
+    # checkerboards of 1, 4 and 8 samples a square, at 8 bits (8x8 and 4x4
+    # sub-blocks packed) and 10 (4x4 packed)
+    yy, xx = np.indices((h, w))
+    for bd in (8, 10):
+        for cell in (1, 4, 8):
+            x = torch.from_numpy((((yy // cell + xx // cell) % 2)
+                                  * ((1 << bd) - 1)).astype(np.int16)).to(
+                                      device)
+            got = da.rank_satd_tables(x, zscan, bd, True)
+            want = da.rank_satd_tables_ref(x, zscan, bd, True)
+            rank_errs += [equal_on_card(
+                f"rank_satd {bd}-bit checkerboard {cell} n={n}", got[n],
+                want[n]) for n in want]
+    # sides no multiple of 32 (nor of 16), with that picture's own z-scan
+    from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
+    ho, wo = h - 16, w - 8
+    zo = Encoder(EncoderConfig(width=wo, height=ho, qp=QP,
+                               device=None)).geom.zscan
+    x = torch.from_numpy(np.ascontiguousarray(pics["P"][:ho, :wo])).to(
+        device)
+    got = da.rank_satd_tables(x, zo, 8, True)
+    want = da.rank_satd_tables_ref(x, zo, 8, True)
+    rank_errs += [equal_on_card(f"rank_satd {wo}x{ho} n={n}", got[n],
+                                want[n]) for n in want]
+    log(f"kernel vs plain, rank_satd on 0/top checkerboards (squares of 1, "
+        f"4 and 8) at 8 and 10 bits and on a {wo}x{ho} crop: equal")
     for bd in (8, 10, 16):
         x = torch.from_numpy(deep(pics["I"], pics["P"], bd)).to(device)
         sub_errs.append(equal_on_card(
@@ -418,7 +460,7 @@ def check_analysis_kernels(device, frames, zscan, reps):
     x = torch.from_numpy(np.ascontiguousarray(pics["P"])).to(device)
     cold = cold_inputs(x)
     rows = {}
-    bnd = rank_bound(h, w)
+    bnd = rank_bound(h, w, 8)
     rows["rank_satd"] = dict(
         max_abs_err=max(rank_errs), kname="rank_satd",
         ms=timed_ms(lambda: da.rank_satd_tables(cold(), zscan, 8, True),
@@ -428,6 +470,17 @@ def check_analysis_kernels(device, frames, zscan, reps):
         bound_ms=bnd[0], bound_by=bnd[1], timed={
             f"rank_satd at {w}x{h}, n = 4..32": (
                 lambda: da.rank_satd_tables(cold(), zscan, 8, True), bnd[0])})
+    # each size alone: one launch each
+    for n in da.RANK_SIZES:
+        ms = timed_ms(lambda n=n: da.rank_satd_tables(
+            cold(), zscan, 8, True, sizes=(n,)), device, reps)
+        b = rank_bound(h, w, 8, (n,))
+        log(f"rank_satd at {w}x{h}, n = {n} alone: kernel {ms:.4f} ms "
+            f"(median, CUDA events around the wrapper); bound "
+            f"{b[0] * 1e3:.2f} us ({b[1]})")
+        rows["rank_satd"]["timed"][f"rank_satd at {w}x{h}, n = {n} alone"] = (
+            lambda n=n: da.rank_satd_tables(cold(), zscan, 8, True,
+                                            sizes=(n,)), b[0])
     bnd = subpel_bound(h, w)
     rows["subpel_planes"] = dict(
         max_abs_err=max(sub_errs), kname="subpel_planes",
@@ -798,7 +851,8 @@ def sao_bound(args):
 def check_loop_filters(device, bitstream, reps):
     """The deblocking and SAO kernels against their plain versions on the
     card (tools/loop_filter_check.py: synthetic 1920x1080 pictures at 8,
-    10 and 12 bits, synthetic SAO planes at 8 and 10 bits, every picture
+    10, 12, 13, 14 and 16 bits, synthetic SAO planes at 8, 10, 13, 14 and
+    16 bits, every picture
     of tests/streams); then each timed on inputs read from device memory
     at its path's shape: deblocking at a 1080p picture of the main path's
     encode, SAO on a vfy_sweep picture's luma. Returns their kernels-line

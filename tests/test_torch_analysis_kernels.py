@@ -2,7 +2,9 @@
 encode.device_analysis: rank_satd_tables and subpel_planes on CPU tensors,
 which take _rank_table and _subpel_planes) against the JAX package's
 device programs, on numpy inputs made from a seed: 8 to 16 bits, strong
-smoothing on and off, flat regions, odd shapes, 0/max checkerboards. Every
+smoothing on and off, flat regions, odd shapes, 0/max checkerboards (for
+the rank tables those are the largest differences that the kernel's
+packed butterflies meet, at 8 and 10 bits). Every
 value is an integer: equality is exact (tolerance 0). At 16 bits both
 packages pass the samples through int16, so neither equals its numpy host
 twin there; the kernels keep that trait.
@@ -70,6 +72,39 @@ def test_rank_tables_plain_match_jax(jda, geom, bd, strong):
         assert got[n].dtype == np.int32
         assert got[n].shape == (h // n, w // n, 35)
         np.testing.assert_array_equal(got[n], want[n], err_msg=f"n={n}")
+
+
+def _checkerboard(w, h, bd, cell):
+    """0 / max squares of cell x cell samples: the largest differences the
+    rank kernel's packed butterflies meet."""
+    yy, xx = np.indices((h, w))
+    return _as_int16((yy // cell + xx // cell) % 2 * ((1 << bd) - 1))
+
+
+@pytest.mark.parametrize("cell", [1, 4, 8])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_rank_tables_plain_match_jax_on_checkerboards(jda, bd, cell):
+    w, h = RANK_GEOMS[0]
+    plane = _checkerboard(w, h, bd, cell)
+    zscan = _zscan(w, h)
+    got = tda.rank_satd_tables_device(plane, zscan, bd, True, "cpu")
+    want = jda.rank_satd_tables_device(plane, zscan, bd, True)
+    assert list(got) == list(want) == [4, 8, 16, 32]
+    for n in want:
+        np.testing.assert_array_equal(got[n], want[n], err_msg=f"n={n}")
+
+
+@pytest.mark.parametrize("bd", [8, 12])
+def test_rank_ops_at_1080p(bd):
+    """chip_smoke.py's count of the rank tables' INT32 operations at one
+    1080p picture: at 8 bits every butterfly on a packed pair of modes
+    counts once, at 12 bits every mode has its own."""
+    import chip_smoke
+    want = {8: 2512573440, 12: 3304458240}[bd]
+    assert chip_smoke.rank_ops(1080, 1920, bd) == want
+    t, side = chip_smoke.rank_bound(1080, 1920, bd)
+    assert side == "operations" and t == pytest.approx(
+        want / chip_smoke.INT32_OPS_PER_S * 1e3)
 
 
 @pytest.mark.parametrize("bd", [8, 10, 12, 14, 16])
@@ -193,6 +228,22 @@ def test_kernels_match_plain_on_card(bd):
     sub = tda.subpel_planes(plane, bd)
     assert torch.equal(sub, tda._subpel_planes(plane.to(torch.int32), bd))
     assert tda.rank_launches == 8 and tda.subpel_launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
+def test_rank_kernel_matches_plain_on_checkerboards(bd):
+    """The packed butterflies at their largest differences, on a plane
+    whose sides are no multiple of 32."""
+    dev = _card()
+    w, h = 200, 136
+    zscan = _zscan(w, h)
+    for cell in (1, 4, 8):
+        plane = torch.from_numpy(_checkerboard(w, h, bd, cell)).to(dev)
+        got = tda.rank_satd_tables(plane, zscan, bd, True)
+        want = tda.rank_satd_tables_ref(plane, zscan, bd, True)
+        for n in want:
+            assert torch.equal(got[n], want[n]), (cell, n)
 
 
 @pytest.mark.cuda
