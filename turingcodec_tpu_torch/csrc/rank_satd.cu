@@ -35,9 +35,9 @@
 // read once per size, 24 MB of tables written) take 10 us. Operations
 // bound it.
 //
-// Design. One launch per size. A CTA of 6 warps owns K consecutive blocks
+// Design. One launch per size. A CTA of 2 warps owns K consecutive blocks
 // of one size, K n^2 = 32 sub-blocks' worth (K = 32, 32, 8, 2 for n = 4, 8,
-// 16, 32); lane l of every warp takes block l / s, sub-block l % s (s =
+// 16, 32); lane l of each warp takes block l / s, sub-block l % s (s =
 // sub-blocks per block). The CTA
 //   1. reads the blocks' reference samples with their availability, and
 //      the blocks themselves SB samples of a row per load, into shared
@@ -47,7 +47,7 @@
 //      available one at or before it; a thread per block sums the DC
 //      value;
 //   3. filters the references (n > 4);
-//   4. gives each warp 3 of 18 units of two modes of one orientation (8
+//   4. gives each warp 9 of 18 units of two modes of one orientation (8
 //      horizontal pairs, 8 vertical pairs, mode 34 with DC, planar). A
 //      row of an angular prediction reads the spec's ref[r0 + j], r0
 //      computed once a row: two multiply-adds and a shift a sample. A mode
@@ -60,25 +60,23 @@
 //      transposed: the SATD of a transposed difference is the same. Where
 //      every sample of the CTA's blocks and references lies in 0 .. 511
 //      (0 .. 2047 for 4x4 sub-blocks), and so every Hadamard output of a
-//      difference fits in int16, the two modes of a unit share their
-//      butterflies: their differences packed as lo + hi * 65536 in one
-//      32-bit word add and subtract exactly, and are unpacked before the
-//      absolute values. Every 8-bit picture takes that path; others run
-//      the modes one after the other. The s lanes of a block add their
-//      SATDs by shuffles;
+//      difference fits in int16 (a prediction lies between its
+//      references), the two modes of a unit share their butterflies:
+//      their differences packed as lo + hi * 65536 in one 32-bit word add
+//      and subtract exactly, and are unpacked before the absolute values.
+//      Every 8-bit picture takes that path; others run the modes one
+//      after the other. The s lanes of a block add their SATDs by
+//      shuffles;
 //   5. writes the K x 35 table entries, one contiguous range.
 // Nothing but the tables is written to device memory.
 //
-// Measured (tools/rank_check.py, PERF.md): at 1080p the four launches take
-// about 370 us against the first design's 460, 41% of the 150 us bound.
-// What holds it: latency, not issue. The 8x8 sizes need 168 registers a
-// thread (the 64 words of a sub-block's differences, and a row's
-// references loaded ahead), so an SM holds 12 warps; the card could
-// issue 37-45 instructions per sample and mode in the time taken, about
-// three times what the kernel runs. Keeping the sub-block in registers
-// (TC_RANK_ORIG_REGS=1) costs 60-80 more registers and runs slower;
-// packing (TC_RANK_PACK=0 turns it off) saves butterflies but gains no
-// time at this occupancy; steps 1-3 alone take about 21 us a size.
+// What holds it (tools/rank_check.py; PERF.md section 6): latency, not
+// issue. A sub-block's 64 difference words and a row's references loaded
+// ahead take 168 registers a thread at the 8x8 sizes, so an SM holds 12
+// warps, and the card could issue several times the operations that
+// chip_smoke.py rank_ops counts in the time taken. Small CTAs (2 warps,
+// 6 an SM) beat 6-warp ones at the same occupancy; holding the sub-block
+// in registers, or forcing 3 CTAs of 6 warps an SM, ran slower.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -89,20 +87,9 @@
 #error "intra tables undefined: build with ops/kernel_build.py, which pre-includes hevc/tables.py's angle tables"
 #endif
 
-// 0: each lane reads its sub-block from shared memory in every unit;
-// 1: it keeps it in registers across its units (slower: see the header)
-#ifndef TC_RANK_ORIG_REGS
-#define TC_RANK_ORIG_REGS 0
-#endif
-// two modes share their butterflies where that is exact: bit 0 for 4x4
-// sub-blocks, bit 1 for 8x8 ones
-#ifndef TC_RANK_PACK
-#define TC_RANK_PACK 3
-#endif
-
 namespace {
 
-constexpr int kWarps = 6;
+constexpr int kWarps = 2;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kModes = 35;
 constexpr int kUnits = 18;
@@ -359,16 +346,9 @@ __device__ __forceinline__ void modes(const Lane& ln, int32_t* rows,
                                       int lane) {
     using S = Size<N>;
     constexpr int SB = S::SB, NSUB = S::NSUB;
-#if TC_RANK_ORIG_REGS
-    int reg[SB][SB];
-#pragma unroll
-    for (int i = 0; i < SB; ++i)
-#pragma unroll
-        for (int j = 0; j < SB; ++j) reg[i][j] = s_o[i * SB + j][lane];
-    auto o = [&](int i, int j) { return reg[i][j]; };
-#else
+    // the lane's sub-block, read from shared memory in every unit: held in
+    // registers it takes 60-90 more a thread, and runs slower
     auto o = [&](int i, int j) { return s_o[i * SB + j][lane]; };
-#endif
     const int k = lane / NSUB, sub = lane % NSUB;
     for (int u = warp; u < kUnits; u += kWarps) {
         // units 0..7: horizontal pairs 2..17; 8..15: vertical pairs
@@ -393,11 +373,11 @@ __device__ __forceinline__ void modes(const Lane& ln, int32_t* rows,
     }
 }
 
-// at least 5 CTAs an SM for n = 4 (64 registers a thread), 2 for the
-// 8x8 sizes (168): left alone, ptxas takes 90 and up to 254 (the 8x8
-// sizes then hold one CTA an SM), and the kernel runs slower
+// at least 16 CTAs an SM for n = 4 (64 registers a thread), 6 for the
+// 8x8 sizes (168): left alone, ptxas takes up to 254 and the SM holds
+// fewer warps; bounds that allow fewer registers spill and run slower
 template <int N>
-__global__ void __launch_bounds__(kThreads, N == 4 ? 5 : 2)
+__global__ void __launch_bounds__(kThreads, N == 4 ? 16 : 6)
 rank_satd_kernel(const int16_t* __restrict__ plane, int w, int h,
                  const int32_t* __restrict__ zscan, int zw, int bd,
                  int strong, int wn, int nblocks,
@@ -482,7 +462,6 @@ rank_satd_kernel(const int16_t* __restrict__ plane, int w, int h,
     }
     // a block with no reference takes 1 << (bd - 1)
     const bool pack = __syncthreads_and(small)
-                      && (TC_RANK_PACK & (SB == 8 ? 2 : 1))
                       && (1 << (bd - 1)) <= S::LIM;
 
     // 2. substitution: the availability as bit masks, one ballot per 32

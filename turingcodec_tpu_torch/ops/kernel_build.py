@@ -97,14 +97,13 @@ def _tables(name: str) -> list:
     return ["--pre-include", header]
 
 
-def build(name: str, force: bool = False, src=None, so=None,
-          flags=()) -> str:
+def build(name: str, force: bool = False, src=None, so=None) -> str:
     """Compile csrc/<name>.cu if its library is missing or stale (or
-    always, with force); returns the library's path. src, so and flags
-    build another source of the same kernel (an older version, or this
-    one with -D switches) into another library, always: its ptxas report
-    goes under the library's file name."""
-    default = src is None and so is None and not flags
+    always, with force); returns the library's path. src and so build
+    another source of the same kernel (an older version, say) into
+    another library, always: its ptxas report goes under the library's
+    file name."""
+    default = src is None and so is None
     src = src or os.path.join(CSRC, f"{name}.cu")
     so = so or os.path.join(BUILD_DIR, f"lib{name}.so")
     if (default and not force and os.path.exists(so)
@@ -112,8 +111,7 @@ def build(name: str, force: bool = False, src=None, so=None,
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = ([_nvcc()] + NVCC_FLAGS + list(flags) + _tables(name)
-           + ["-o", tmp, src])
+    cmd = [_nvcc()] + NVCC_FLAGS + _tables(name) + ["-o", tmp, src]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{r.stdout}{r.stderr}")

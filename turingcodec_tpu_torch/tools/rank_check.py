@@ -1,12 +1,11 @@
 """CLI: versions of the rank-SATD kernel side by side on the card.
 
-Builds csrc/rank_satd.cu as it stands, once more for each --flags
-(nvcc flags such as -DTC_RANK_ORIG_REGS=0: the source's switches), any
-older sources named with --old (say a parent commit's, from `git show
+Builds csrc/rank_satd.cu as it stands, any older sources named with
+--old (say a parent commit's, from `git show
 <commit>:turingcodec_tpu_torch/csrc/rank_satd.cu`) and any --probe
-sources (copies changed to find where the time goes: timed, never
-checked); every version keeps the C entry point rank_satd_launch. For
-each version it prints ptxas's registers and
+sources (copies changed to find where the time goes, say with a step
+taken out: timed, never checked); every version keeps the C entry point
+rank_satd_launch. For each version it prints ptxas's registers and
 spills and the SASS instructions of each size's kernel (cuobjdump -sass:
 static counts, and by opcode), holds its tables against the plain version
 (rank_satd_tables_ref) on the 1080p picture of chip_smoke.py's main path
@@ -18,8 +17,8 @@ issue slots per sample and mode: the time x 132 SMs x 4 schedulers x 32
 lanes x 1.98 GHz over the samples x 35 modes, the most instructions per
 sample and mode that the card could have issued in that time.
 
-Usage: python -m turingcodec_tpu_torch.tools.rank_check [--flags=F ...]
-           [--old SRC ...] [--probe SRC ...] [--reps N] [--json OUT]
+Usage: python -m turingcodec_tpu_torch.tools.rank_check [--old SRC ...]
+           [--probe SRC ...] [--reps N] [--json OUT]
 
 Any failed check raises.
 """
@@ -45,24 +44,23 @@ SIZES = (4, 8, 16, 32)
 ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
 
 
-def build_versions(flags, old, probes):
-    """{tag: (library path, checked)}: the tree's source, then with each
-    --flags, each --old source and each --probe source (a probe is timed
-    but not held against the plain version)."""
+def build_versions(old, probes):
+    """{tag: (library path, checked)}: the tree's source, each --old
+    source and each --probe source (a probe is timed but not held against
+    the plain version)."""
     from turingcodec_tpu_torch.ops import kernel_build as kb
     tree = os.path.join(kb.CSRC, "rank_satd.cu")
-    jobs = [("tree", (), tree, True)]
-    jobs += [(f"tree {f}", tuple(f.split()), tree, True) for f in flags]
-    jobs += [(f"old {os.path.basename(s)}", (), os.path.abspath(s), True)
+    jobs = [("tree", tree, True)]
+    jobs += [(f"old {os.path.basename(s)}", os.path.abspath(s), True)
              for s in old]
-    jobs += [(f"probe {os.path.basename(s)}", (), os.path.abspath(s), False)
+    jobs += [(f"probe {os.path.basename(s)}", os.path.abspath(s), False)
              for s in probes]
     libs = {}
 
     def one(item):
-        i, (tag, fl, src, checked) = item
+        i, (tag, src, checked) = item
         so = os.path.join(kb.BUILD_DIR, f"librank_satd_v{i}.so")
-        return tag, kb.build("rank_satd", src=src, so=so, flags=fl), checked
+        return tag, kb.build("rank_satd", src=src, so=so), checked
     with ThreadPoolExecutor(len(jobs)) as ex:
         for tag, so, checked in ex.map(one, enumerate(jobs)):
             libs[tag] = (so, checked)
@@ -83,9 +81,7 @@ def sass_counts(so: str) -> dict:
     for ln in text.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            n = re.search(r"rank_satd_kernel\D*?(\d+)", m.group(1))
-            if n is None:
-                n = re.search(r"ILi(\d+)E", m.group(1))
+            n = re.search(r"rank_satd_kernelILi(\d+)E", m.group(1))
             cur = int(n.group(1)) if n else None
             if cur is not None:
                 out[cur] = [0, Counter()]
@@ -126,7 +122,6 @@ def run(fn, plane, zt, bd, strong, sizes, out=None):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--flags", action="append", default=[])
     ap.add_argument("--old", action="append", default=[])
     ap.add_argument("--probe", action="append", default=[])
     ap.add_argument("--reps", type=int, default=20)
@@ -139,7 +134,7 @@ def main(argv=None) -> int:
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
     from turingcodec_tpu_torch.tools.device_enc_check import decode_inputs
 
-    libs = build_versions(args.flags, args.old, args.probe)
+    libs = build_versions(args.old, args.probe)
     report = {"versions": {}}
     for tag, (so, _checked) in libs.items():
         counts = sass_counts(so)
