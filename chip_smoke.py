@@ -10,7 +10,8 @@ every encoder analysis stage on the card against its host twin at 1080p
 (tools/device_enc_check.py; the surface against the native prepass's),
 and the stage's rank-SATD and subpel kernels against their plain versions
 (the 1080p I and P pictures at 8, 10 and 14 bits, strong smoothing on and
-off, 0/top checkerboards at 8 and 10 bits, a 1912x1064 crop; the subpel
+off, 0/top checkerboards at 8 and 10 bits, 1912x1064, 1916x1080 and
+1913x1064 crops, the picture at an odd element of its buffer; the subpel
 planes at 8, 10 and 16 bits), then drives the main path:
 decode tests/streams/vfy_sweep.hevc (md5 against
 tests/streams/GOLDEN.json), upscale it 3x to 1920x1080, encode 8 frames
@@ -388,8 +389,9 @@ def check_analysis_kernels(device, frames, zscan, reps):
     """The encoder analysis stage's rank-SATD and subpel kernels against
     their plain versions on the card: the rank tables of the 1080p I and P
     pictures at 8, 10 and 14 bits with strong smoothing on and off, of 0/top
-    checkerboards at 8 and 10 bits and of a crop whose sides are no
-    multiple of 16, the
+    checkerboards at 8 and 10 bits, of crops whose sides are no multiple
+    of 16 or whose width is 4 mod 8 or odd, and of the picture at an odd
+    element of its buffer; the
     subpel planes of the reference at 8, 10 and 16 bits (above 32767 the
     int16 samples wrap, as in the reference). Times both at 8 bits on
     inputs read from device memory, the rank tables also one size at a
@@ -436,19 +438,32 @@ def check_analysis_kernels(device, frames, zscan, reps):
             rank_errs += [equal_on_card(
                 f"rank_satd {bd}-bit checkerboard {cell} n={n}", got[n],
                 want[n]) for n in want]
-    # sides no multiple of 32 (nor of 16), with that picture's own z-scan
+    # crops with the z-scan of their sides rounded up to 8 (the encoder's
+    # geometry): sides no multiple of 32 (nor of 16); then rows that
+    # 16-byte loads cannot take (a width of 4 mod 8, an odd width) and a
+    # plane at an odd element of its buffer, which the kernel loads a
+    # sample at a time
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
-    ho, wo = h - 16, w - 8
-    zo = Encoder(EncoderConfig(width=wo, height=ho, qp=QP,
-                               device=None)).geom.zscan
-    x = torch.from_numpy(np.ascontiguousarray(pics["P"][:ho, :wo])).to(
-        device)
-    got = da.rank_satd_tables(x, zo, 8, True)
-    want = da.rank_satd_tables_ref(x, zo, 8, True)
-    rank_errs += [equal_on_card(f"rank_satd {wo}x{ho} n={n}", got[n],
-                                want[n]) for n in want]
+    for ho, wo, offset in ((h - 16, w - 8, 0), (h, w - 4, 0),
+                           (h - 16, w - 7, 0), (h, w, 1)):
+        zo = Encoder(EncoderConfig(width=-(-wo // 8) * 8,
+                                   height=-(-ho // 8) * 8, qp=QP,
+                                   device=None)).geom.zscan
+        crop = torch.from_numpy(np.ascontiguousarray(
+            pics["P"][:ho, :wo])).to(device)
+        buf = torch.empty(ho * wo + offset, dtype=torch.int16,
+                          device=device)
+        x = buf[offset:].view(ho, wo)
+        x.copy_(crop)
+        got = da.rank_satd_tables(x, zo, 8, True)
+        want = da.rank_satd_tables_ref(x, zo, 8, True)
+        rank_errs += [equal_on_card(
+            f"rank_satd {wo}x{ho} at element {offset} n={n}", got[n],
+            want[n]) for n in want]
     log(f"kernel vs plain, rank_satd on 0/top checkerboards (squares of 1, "
-        f"4 and 8) at 8 and 10 bits and on a {wo}x{ho} crop: equal")
+        f"4 and 8) at 8 and 10 bits, on {w - 8}x{h - 16}, {w - 4}x{h} and "
+        f"{w - 7}x{h - 16} crops and on the picture at an odd element of "
+        f"its buffer: equal")
     for bd in (8, 10, 16):
         x = torch.from_numpy(deep(pics["I"], pics["P"], bd)).to(device)
         sub_errs.append(equal_on_card(

@@ -247,6 +247,30 @@ def test_rank_kernel_matches_plain_on_checkerboards(bd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["width_4_mod_8", "odd_width",
+                                  "odd_offset"])
+def test_rank_kernel_matches_plain_on_unaligned_rows(case):
+    """The kernel's sample-at-a-time block load: rows that 16-byte loads
+    cannot take (a width of 4 mod 8, an odd width) or a plane starting at
+    an odd element of its buffer."""
+    dev = _card()
+    w, h = {"width_4_mod_8": (204, 136), "odd_width": (203, 136),
+            "odd_offset": (200, 136)}[case]
+    plane = torch.from_numpy(_rank_plane(w, h, 8, seed=5)).to(dev)
+    if case == "odd_offset":
+        buf = torch.empty(w * h + 1, dtype=torch.int16, device=dev)
+        buf[1:] = plane.reshape(-1)
+        plane = buf[1:].view(h, w)
+        assert plane.data_ptr() % 4 == 2
+    zscan = _zscan(-(-w // 8) * 8, h)   # the encoder's geometry: sides of 8k
+    got = tda.rank_satd_tables(plane, zscan, 8, True)
+    want = tda.rank_satd_tables_ref(plane, zscan, 8, True)
+    assert list(got) == list(want)
+    for n in want:
+        assert torch.equal(got[n], want[n]), n
+
+
+@pytest.mark.cuda
 def test_downloads_are_pinned_views():
     _card()
     plane = _rank_plane(72, 40, 8, seed=2)
