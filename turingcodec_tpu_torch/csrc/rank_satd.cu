@@ -70,7 +70,7 @@
 //   5. writes the K x 35 table entries, one contiguous range.
 // Nothing but the tables is written to device memory.
 //
-// What holds it (tools/rank_check.py; PERF.md section 6): latency, not
+// What holds it (PERF.md section 6): latency, not
 // issue. A sub-block's 64 difference words and a row's references loaded
 // ahead take 168 registers a thread at the 8x8 sizes, so an SM holds 12
 // warps, and the card could issue several times the operations that

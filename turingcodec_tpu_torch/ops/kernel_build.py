@@ -22,7 +22,6 @@ import ctypes
 import os
 import shutil
 import subprocess
-import threading
 
 import numpy as np
 import torch
@@ -87,7 +86,7 @@ def _tables(name: str) -> list:
     if not wanted:
         return []
     header = os.path.join(BUILD_DIR, f"{name}_tables.h")
-    tmp = f"{header}.{os.getpid()}.{threading.get_ident()}.tmp"
+    tmp = f"{header}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
         f.write("// generated by ops/kernel_build.py from hevc/tables.py\n")
         for key in wanted:
@@ -97,16 +96,12 @@ def _tables(name: str) -> list:
     return ["--pre-include", header]
 
 
-def build(name: str, force: bool = False, src=None, so=None) -> str:
+def build(name: str, force: bool = False) -> str:
     """Compile csrc/<name>.cu if its library is missing or stale (or
-    always, with force); returns the library's path. src and so build
-    another source of the same kernel (an older version, say) into
-    another library, always: its ptxas report goes under the library's
-    file name."""
-    default = src is None and so is None
-    src = src or os.path.join(CSRC, f"{name}.cu")
-    so = so or os.path.join(BUILD_DIR, f"lib{name}.so")
-    if (default and not force and os.path.exists(so)
+    always, with force); returns the library's path."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+    if (not force and os.path.exists(so)
             and os.path.getmtime(so) >= os.path.getmtime(src)):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -115,10 +110,9 @@ def build(name: str, force: bool = False, src=None, so=None) -> str:
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{r.stdout}{r.stderr}")
-    PTXAS[name if default else os.path.basename(so)] = [
-        ln.strip() for ln in r.stderr.splitlines()
-        if "spill" in ln or ("ptxas info" in ln and (
-            "Compiling" in ln or "Used" in ln))]
+    PTXAS[name] = [ln.strip() for ln in r.stderr.splitlines()
+                   if "spill" in ln or ("ptxas info" in ln and (
+                       "Compiling" in ln or "Used" in ln))]
     os.replace(tmp, so)
     return so
 
