@@ -34,11 +34,11 @@ kernel on synthetic planes at 8, 10, 13, 14 and 16 bits and on every SAO
 picture of tests/streams, by tools/loop_filter_check.py; at 16 bits the
 int16 samples above 32767 wrap, as the JAX pipeline holds them),
 vfy_sweep and static_test (all full-pel) md5-exact through
-Decoder(device="cuda") with two deblocking launches per picture and SAO
+Decoder(device="cuda") with one deblocking launch per picture and SAO
 launches on vfy_sweep, and the 1080p encode decoded on the card equal to
 the host decode, every picture through the pipeline, at most 3 MC
 launches per inter picture, one residual launch per picture with coded
-inter TUs, two deblocking launches per picture and no SAO. After the decode
+inter TUs, one deblocking launch per picture and no SAO. After the decode
 rates, one more decode with TURING_TPU_PIPELINE_TRACE gives each stage's
 ms per picture, and one more times the residual stage (host clock,
 synchronised around it). Then a 13-bit stream (tools/deep_bits.py)
@@ -57,7 +57,7 @@ tests/streams, on the card. Then the encoder's configuration matrix
 against the goldens pinned from the JAX package; the GOP-batched stages
 at 1080p on the 8-frame encode (analysis_step over 8 x 2040 blocks, MC
 of the 7 inter pictures in one launch, the residuals of every coded luma
-TU, deblocking of the 8 pictures in two launches, SAO of vfy_sweep's
+TU, deblocking of the 8 pictures in one launch, SAO of vfy_sweep's
 pictures in one launch per component, the batched seed and dense
 analysis of 7 pairs) against per-frame calls on the card and their plain
 versions or host twins; tools/scaling.py, bdrate's run_ours on vfy_sweep
@@ -146,11 +146,10 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_us(fn, name: str, n: int = 50, whole: bool = False):
+def device_us(fn, name: str, n: int = 50):
     """Device time per call of fn(), in us, summed over the CUDA kernels
-    whose name holds `name` (with whole, over every kernel and copy that
-    fn enqueues): torch.profiler's durations over n calls after a warm-up
-    call. Raises where the profiler reports no kernel named like `name`.
+    whose name holds `name`: torch.profiler's durations over n calls after
+    a warm-up call. Raises where the profiler reports no kernel named like `name`.
     Returns (us, launches of that kernel per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -165,9 +164,8 @@ def device_us(fn, name: str, n: int = 50, whole: bool = False):
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0)
-        if t > 0 and (whole or name in e.key):
-            total += t
         if t > 0 and name in e.key:
+            total += t
             count += e.count
     check(count, f"the profiler saw no kernel named like {name!r}")
     return total / n, count / n
@@ -393,7 +391,10 @@ def check_analysis_kernels(device, frames, zscan, reps):
     of 16 or whose width is 4 mod 8 or odd, and of the picture at an odd
     element of its buffer; the
     subpel planes of the reference at 8, 10 and 16 bits (above 32767 the
-    int16 samples wrap, as in the reference). Times both at 8 bits on
+    int16 samples wrap, as in the reference), of its crops of a width 4
+    mod 8 and odd and of 5x9 and 1x1 (the kernel's threads store where the
+    TMA cannot), and of samples over the whole int16 range at 8 and 12
+    bits (the kernel's int32 tiles). Times both at 8 bits on
     inputs read from device memory, the rank tables also one size at a
     time. Returns their kernels-line rows."""
     import numpy as np
@@ -469,8 +470,28 @@ def check_analysis_kernels(device, frames, zscan, reps):
         sub_errs.append(equal_on_card(
             f"subpel_planes {bd}-bit", da.subpel_planes(x, bd),
             da._subpel_planes(x.to(torch.int32), bd)))
+        # the kernel's second store path, where the padded width is no
+        # multiple of 8 (widths 4 mod 8 and odd), and planes smaller than
+        # one tile
+        for ho, wo in ((h, w - 4), (h - 16, w - 7), (9, 5), (1, 1)):
+            xo = x[:ho, :wo].contiguous()
+            sub_errs.append(equal_on_card(
+                f"subpel_planes {wo}x{ho} {bd}-bit", da.subpel_planes(xo, bd),
+                da._subpel_planes(xo.to(torch.int32), bd)))
+    # samples over the whole int16 range at 8 and 12 bits: the tiles whose
+    # vertical sums leave the floats' exact range take them in int32
+    wild = torch.from_numpy(np.random.default_rng(9).integers(
+        -32768, 32768, (h, w)).astype(np.int16)).to(device)
+    wild[:, : w // 2] = x[:, : w // 2] & 255
+    for bd in (8, 12):
+        sub_errs.append(equal_on_card(
+            f"subpel_planes {bd}-bit, samples over the int16 range",
+            da.subpel_planes(wild, bd),
+            da._subpel_planes(wild.to(torch.int32), bd)))
     log(f"kernel vs plain, subpel_planes of the 1080p reference at 8, 10 "
-        f"and 16 bits, all 15 planes: equal")
+        f"and 16 bits, all 15 planes, and of its {w - 4}x{h}, "
+        f"{w - 7}x{h - 16}, 5x9 and 1x1 crops (the threads' own stores), "
+        f"and of samples over the int16 range at 8 and 12 bits: equal")
 
     x = torch.from_numpy(np.ascontiguousarray(pics["P"])).to(device)
     cold = cold_inputs(x)
@@ -586,6 +607,23 @@ def build_all():
     for k in KERNELS:
         for line in kernel_build.PTXAS.get(k, []):
             log(f"{k}: {line}")
+
+
+def occupancy():
+    """The subpel and deblocking kernels' resources as the card's runtime
+    reports them (their <name>_occupancy entry points): registers and
+    spilled bytes a thread, shared bytes and threads a CTA, CTAs an SM,
+    and CTAs launched at 1080p."""
+    import ctypes
+
+    from turingcodec_tpu_torch.ops import kernel_build
+    what = ("registers", "local bytes", "shared bytes", "CTAs per SM",
+            "threads", "CTAs at 1080p")
+    for k in ("subpel_planes", "deblock"):
+        out = (ctypes.c_int * len(what))()
+        rc = getattr(kernel_build.load(k), f"{k}_occupancy")(out)
+        check(rc == 0, f"{k}_occupancy: CUDA error {rc}")
+        log(f"{k}: " + ", ".join(f"{n} {v}" for n, v in zip(what, out)))
 
 
 def equal_on_card(name, got, want):
@@ -838,9 +876,9 @@ def check_decode_kernels(device, captured, reps):
 
 def deblock_bound(args):
     """Bound of one deblocking call, from its own inputs: the three int16
-    planes read once and written once (deblock_frames's copy of the input
-    does that, and the row's device time counts the copy with the two
-    launches), every map and per-slice vector read once; 20 INT32 operations per 4-line edge segment of the two
+    planes read once and written once (the kernel itself reads its input
+    planes and writes new ones, once each), every map and per-slice vector
+    read once; 20 INT32 operations per 4-line edge segment of the two
     directions for its edge flag and bS (the filters' arithmetic, on the
     segments that pass, is less than the bytes' time whatever the data)."""
     planes, maps, sl = args[:3], args[3], args[4]
@@ -914,7 +952,7 @@ def check_loop_filters(device, bitstream, reps):
         plain_ms=timed_ms(lambda: db.deblock_device_ref(
             *(p[0] for p in cold_deblock()[:3]), one[0], one[1], *geo,
             one[2]), device, max(1, reps // 4)),
-        bound_ms=bnd[0], bound_by=bnd[1], whole=True, timed={
+        bound_ms=bnd[0], bound_by=bnd[1], timed={
             f"deblock at the {w}x{h} encode's picture 1": (
                 lambda: db.deblock_frames(*cold_deblock(), *geo, one[2]),
                 bnd[0])})
@@ -1163,20 +1201,15 @@ def device_times(rows):
     """Each kernel's device time per call at its main-path shapes (the
     first shape is the one its row reports), with the share of each
     shape's bound. Runs after the main paths, so that the profiler's
-    tracing cannot touch their end-to-end timings. A row with "whole"
-    counts every kernel and copy of the call: its bound counts bytes that
-    the wrapper's own copies move."""
+    tracing cannot touch their end-to-end timings."""
     for r in rows:
-        whole = r.pop("whole", False)
         for i, (what, (fn, bound_ms)) in enumerate(r.pop("timed").items()):
-            us, per = device_us(fn, r["kname"], whole=whole)
+            us, per = device_us(fn, r["kname"])
             if i == 0:
                 r["device_us"] = us
             log(f"{what}: {us:.2f} us device time per call (profiler, {per} "
-                f"launches per call"
-                f"{', and the copies of the call' if whole else ''}), "
-                f"{bound_ms * 1e3 / us:.1%} of its {bound_ms * 1e3:.2f} us "
-                f"bound")
+                f"launches per call), {bound_ms * 1e3 / us:.1%} of its "
+                f"{bound_ms * 1e3:.2f} us bound")
 
 
 def mc_bound(args):
@@ -1285,10 +1318,10 @@ def decode_main_path(device, frames, bitstream):
         check(dp.pictures == len(got) and dp.envelope_host == 0,
               f"{name}: {dp.pictures} pictures through the pipeline, "
               f"{dp.envelope_host} on the host")
-        # two deblocking launches per picture; SAO on vfy_sweep (GOP8 with
+        # one deblocking launch per picture; SAO on vfy_sweep (GOP8 with
         # SAO), one launch per component of each picture that codes it
         sl = stream_launches[name]
-        check(sl["deblock"] == 2 * dp.pictures
+        check(sl["deblock"] == dp.pictures
               and (sl["sao"] > 0 or name != "vfy_sweep.hevc"),
               f"{name}: launches {sl} for {dp.pictures} pictures")
         log(f"decode {name} with device={dev}: {len(got)} frames, md5 "
@@ -1322,11 +1355,11 @@ def decode_main_path(device, frames, bitstream):
     # its blocks use (6 before: one per list and component)
     # one residual launch per picture with coded inter TUs (9 per inter
     # picture before: one per (component, size, mode) bucket)
-    # two deblocking launches per picture (the vertical edges, then the
-    # horizontal ones); no SAO in this stream
+    # one deblocking launch per picture (both directions); no SAO in this
+    # stream
     check(0 < launches["mc_block_grid"] <= 3 * (n - 1)
           and 0 < coded <= n - 1 and launches["dequant_idct"] == coded
-          and launches["deblock"] == 2 * n
+          and launches["deblock"] == n
           and launches["dense_me"] == launches["fwd_transform"]
           == launches["interp_all_phases"] == launches["rank_satd"]
           == launches["subpel_planes"] == launches["sao"] == 0,
@@ -1350,7 +1383,7 @@ def deep_decode(device):
     """The 13-bit stream of tools/deep_bits.py decoded on the card (kernel
     counts read around this run) to the JAX pipeline's md5, every picture
     through the pipeline, MC and the residuals each launched on its inter
-    pictures, two deblocking launches per picture; then its 14- and 16-bit
+    pictures, one deblocking launch per picture; then its 14- and 16-bit
     streams raise the reference's error. Returns the 13-bit decode's
     launches."""
     from turingcodec_tpu_torch.tools import deep_bits
@@ -1358,7 +1391,7 @@ def deep_decode(device):
     deep_bits.check_13(str(device), log)
     launches = read_launches()
     check(launches["mc_block_grid"] and launches["dequant_idct"]
-          and launches["deblock"] == 6,
+          and launches["deblock"] == 3,
           f"13-bit decode of 3 pictures launched {launches}")
     log(f"13-bit decode on the card: launches {launches}")
     deep_bits.check_raises(str(device), log)
@@ -1626,12 +1659,12 @@ def gop_stages(device, frames, bitstream, reps):
                    f)
     log(f"GOP residuals: {time.perf_counter() - t0:.1f} s")
 
-    # deblocking of the 8 pictures in the kernel's two launches
+    # deblocking of the 8 pictures in the kernel's one launch
     t0 = time.perf_counter()
     args, geo = gd.deblock_inputs(pics, device)
     before = path.get("deblock", 0)
     got = driven(path, lambda: gd.gop_deblock(*args, *geo))
-    check(path["deblock"] - before == 2, "GOP deblock took more launches")
+    check(path["deblock"] - before == 1, "GOP deblock took more launches")
     per = [((args[0][i], args[1][i], args[2][i], tuple(m[i] for m in args[3]),
              tuple(v[i] for v in args[4]), *geo, bool(args[5][i])))
            for i in range(f)]
@@ -1642,7 +1675,7 @@ def gop_stages(device, frames, bitstream, reps):
                       for k, g in enumerate(got)),
               "GOP deblocking differs from the per-frame call or the host")
     h, w = frames[0][0].shape
-    log(f"GOP deblock, {f} pictures {w}x{h} in two deblock launches: equal "
+    log(f"GOP deblock, {f} pictures {w}x{h} in one deblock launch: equal "
         f"to the per-frame calls and the host decoder's planes "
         f"({time.perf_counter() - t0:.1f} s)")
     timing(f"GOP deblock, {f} pictures", lambda: gd.gop_deblock(*args, *geo),
@@ -1804,6 +1837,7 @@ def main() -> int:
 
     # 2. build: the CUDA kernels from source, and the native host core
     build_all()
+    occupancy()
 
     from turingcodec_tpu_torch.tools import device_enc_check
     frames = device_enc_check.decode_inputs(N_FRAMES, 3, log)

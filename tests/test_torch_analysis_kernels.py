@@ -231,6 +231,44 @@ def test_kernels_match_plain_on_card(bd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10, 16])
+@pytest.mark.parametrize("hw", [(136, 200), (136, 203), (136, 204),
+                                (9, 5), (1, 1)])
+def test_subpel_kernel_store_paths_on_card(hw, bd):
+    """Both store paths of the subpel kernel: TMA tensor stores where the
+    padded width is a multiple of 8 (w = 200), the threads' own stores of
+    the staging tile where it is not (w = 203, 204; the ragged last tile
+    clipped either way), and planes smaller than one tile (9x5, 1x1),
+    whose source windows clamp at every edge."""
+    dev = _card()
+    h, w = hw
+    plane = torch.from_numpy(_subpel_plane((h, w), bd, "random",
+                                           seed=bd + w)).to(dev)
+    tda.subpel_launches = 0
+    sub = tda.subpel_planes(plane, bd)
+    assert sub.shape == (15, h + 56, w + 56)
+    assert torch.equal(sub, tda._subpel_planes(plane.to(torch.int32), bd))
+    assert tda.subpel_launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10, 12, 14])
+def test_subpel_kernel_exact_for_any_int16(bd):
+    """The kernel's vertical pass runs in floats where every sum of a tile
+    stays below 2^22, in int32 where it does not: samples over the whole
+    int16 range (the right half of the plane; the left half in range)
+    take both in one launch, and both equal the plain version."""
+    dev = _card()
+    h, w = 136, 200
+    rng = np.random.RandomState(bd)
+    plane = rng.randint(0, 1 << bd, (h, w))
+    plane[:, w // 2:] = rng.randint(-32768, 32768, (h, w - w // 2))
+    x = torch.from_numpy(plane.astype(np.int16)).to(dev)
+    assert torch.equal(tda.subpel_planes(x, bd),
+                       tda._subpel_planes(x.to(torch.int32), bd))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bd", [8, 10])
 def test_rank_kernel_matches_plain_on_checkerboards(bd):
     """The packed butterflies at their largest differences, on a plane

@@ -193,5 +193,5 @@ def test_13_bit_stream_on_card():
     tinter.launches = ttransform.launches = tdeblock.launches = 0
     deep_bits.check_13("cuda")
     assert tinter.launches and ttransform.launches
-    assert tdeblock.launches == 6      # two per picture
+    assert tdeblock.launches == 3      # one per picture
     deep_bits.check_raises("cuda")

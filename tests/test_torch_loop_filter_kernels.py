@@ -115,6 +115,75 @@ def test_deblock_plain_matches_jax_variants(jax_ops, case):
         np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
 
 
+# the deblocking kernel's windows: a CTA owns the luma window
+# [x0 - 4, x0 + T - 4) x [y0 - 4, y0 + T - 4) for x0, y0 multiples of T,
+# and the chroma window [x0/2 - 2, x0/2 + T/2 - 2) likewise, clipped to
+# the picture; 152x200 leaves ragged last windows at T = 32 and 64
+WINDOW_PICTURE = (152, 200)
+
+
+def _window(t, where):
+    """(x0, y0) of the window at the picture's top-left corner, inside it,
+    or its ragged bottom-right corner."""
+    h, w = WINDOW_PICTURE
+    return {"corner": (0, 0), "inner": (t, t),
+            "ragged": (t * ((w + 3) // t), t * ((h + 3) // t))}[where]
+
+
+def _noise_outside(rng, plane, bd, y_lo, y_hi, x_lo, x_hi):
+    """plane with every sample outside [y_lo, y_hi) x [x_lo, x_hi)
+    replaced by noise in range."""
+    out = rng.integers(0, 1 << bd, plane.shape).astype(np.int16)
+    out[max(y_lo, 0):y_hi, max(x_lo, 0):x_hi] = \
+        plane[max(y_lo, 0):y_hi, max(x_lo, 0):x_hi]
+    return out
+
+
+@pytest.mark.parametrize("where", ["corner", "inner", "ragged"])
+@pytest.mark.parametrize("t", [32, 64])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_deblock_window_depends_on_nothing_outside_it(bd, t, where):
+    """The premise of the kernel's one launch: the filtered samples of a
+    window (luma shifted by 4, chroma by 2) depend on that window's input
+    samples alone, so windows filtered independently tile the output.
+    Noise outside the window leaves deblock_device_ref's output inside it
+    unchanged (slices, tiles, a disabled slice, +-12 offsets), and the
+    filters do change samples there."""
+    h, w = WINDOW_PICTURE
+    rng = np.random.default_rng(100 * bd + t)
+    planes, maps, sl, across = deblock_synthetic(rng, h, w, bd, ctb_log2=4)
+    # the disabled slice moved from the last (the bottom rows, where the
+    # ragged window lies) to the third
+    sl = (np.roll(sl[0], -1),) + sl[1:]
+    assert sl[0].tolist() == [False, False, True, False]
+    x0, y0 = _window(t, where)
+    luma = (y0 - 4, y0 + t - 4, x0 - 4, x0 + t - 4)
+    chroma = (y0 // 2 - 2, y0 // 2 + t // 2 - 2, x0 // 2 - 2,
+              x0 // 2 + t // 2 - 2)
+    assert luma[0] < h and luma[2] < w
+    noisy = [_noise_outside(rng, planes[0], bd, *luma)] + [
+        _noise_outside(rng, p, bd, *chroma) for p in planes[1:]]
+    want = _deblock_torch(planes, maps, sl, 4, bd, across)
+    got = _deblock_torch(noisy, maps, sl, 4, bd, across)
+    for k, (y_lo, y_hi, x_lo, x_hi) in enumerate([luma, chroma, chroma]):
+        win = np.s_[max(y_lo, 0):y_hi, max(x_lo, 0):x_hi]
+        np.testing.assert_array_equal(got[k].numpy()[win],
+                                      want[k].numpy()[win])
+        assert not np.array_equal(want[k].numpy()[win], planes[k][win])
+    if where == "inner":
+        # the window unshifted is not enough: noise at its left and top
+        # borders reaches the filtered samples inside it
+        bare = [_noise_outside(rng, planes[0], bd, y0, y0 + t, x0, x0 + t)]
+        bare += [_noise_outside(rng, p, bd, y0 // 2, (y0 + t) // 2, x0 // 2,
+                                (x0 + t) // 2) for p in planes[1:]]
+        got = _deblock_torch(bare, maps, sl, 4, bd, across)
+        for k, (y_lo, x_lo, n) in enumerate([(y0, x0, t)]
+                                            + [(y0 // 2, x0 // 2, t // 2)] * 2):
+            win = np.s_[y_lo:y_lo + n, x_lo:x_lo + n]
+            assert not np.array_equal(got[k].numpy()[win],
+                                      want[k].numpy()[win]), k
+
+
 def test_deblock_frames_equal_per_picture_calls():
     """deblock_frames (gop_deblock) on the CPU: three synthetic pictures
     with per-picture across-tiles flags, each equal to its own call."""
@@ -299,7 +368,57 @@ def test_deblock_kernel_matches_plain_on_card(bd):
                              across)
     want = _deblock_torch(planes, maps, sl, 4, bd, across)
     assert all(torch.equal(g.cpu(), wnt) for g, wnt in zip(got, want))
-    assert tdb.launches == 2
+    assert tdb.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10, 16])
+@pytest.mark.parametrize("hw", [(152, 200), (120, 136), (56, 40), (8, 8),
+                                (16, 24)])
+def test_deblock_kernel_ragged_windows_on_card(hw, bd):
+    """The kernel's 64-sample windows where they are ragged: sides that
+    are multiples of 8 but not of 16 or 64 (152x200, 120x136), and
+    pictures smaller than one window (56x40, 16x24, and 8x8 with no edge
+    at all, which the kernel copies)."""
+    dev = _card()
+    h, w = hw
+    planes, maps, sl, across = deblock_synthetic(
+        np.random.default_rng(h + w + bd), h, w, bd, ctb_log2=4)
+    tdb.launches = 0
+    got = tdb.deblock_device(*(_t(p).to(dev) for p in planes),
+                             tuple(_t(m).to(dev) for m in maps),
+                             tuple(_t(v).to(dev) for v in sl), 4, bd, bd,
+                             across)
+    want = _deblock_torch(planes, maps, sl, 4, bd, across)
+    assert all(torch.equal(g.cpu(), wnt) for g, wnt in zip(got, want))
+    assert tdb.launches == 1
+
+
+@pytest.mark.cuda
+def test_deblock_frames_batch_on_card():
+    """deblock_frames over 3 pictures in one launch, with per-picture
+    across-tiles flags, against per-picture plain calls; the inputs stay
+    as they were."""
+    dev = _card()
+    pics = [deblock_synthetic(np.random.default_rng(60 + i), 88, 136, 10,
+                              ctb_log2=4) for i in range(3)]
+    across = torch.tensor([True, False, True])
+    stacked = [torch.stack([_t(p[0][k]) for p in pics]).to(dev)
+               for k in range(3)]
+    kept = [p.clone() for p in stacked]
+    tdb.launches = 0
+    got = tdb.deblock_frames(
+        *stacked,
+        tuple(torch.stack([_t(p[1][k]) for p in pics]).to(dev)
+              for k in range(11)),
+        tuple(torch.stack([_t(p[2][k]) for p in pics]).to(dev)
+              for k in range(6)),
+        4, 10, 10, across.to(dev))
+    assert tdb.launches == 1
+    assert all(torch.equal(a, b) for a, b in zip(stacked, kept))
+    for i, (planes, maps, sl, _) in enumerate(pics):
+        want = _deblock_torch(planes, maps, sl, 4, 10, bool(across[i]))
+        assert all(torch.equal(g[i].cpu(), wnt) for g, wnt in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -4,36 +4,47 @@
 // (:272-288, _dir_pass :81): bS from the 4x4 maps, the luma dE decisions
 // with the strong and weak filters, and the chroma filter on every second
 // luma edge where bS is 2, bit-exact for any int16 samples and bit depth
-// 8..16. One launch per direction for F pictures: the vertical edges, then
-// the horizontal edges on the vertical pass's output (stream order). The
-// XLA program gets the horizontal pass by transposing planes and maps; this
-// kernel indexes rows and columns directly.
+// 8..16: the vertical edges, then the horizontal edges on the vertical
+// pass's output. The XLA program gets the horizontal pass by transposing
+// planes and maps; this kernel indexes rows and columns directly.
 //
-// One thread per 4-line edge segment: the segment at A (4 lines from A,
-// along the edge) of the edge at E = 8 (e + 1) (across it), for
-// e < side / 8 - 1, so no edge lies at 0 or at the picture's side. Vertical
-// edges have x = E, y = A; horizontal ones y = E, x = A. The thread derives
-// the edge flag and bS of its segment from the maps (tu/pu/cu ids; the
-// per-slice disabled flag at the q side's slice index clamped to
-// [0, n_slices - 1]; the across-slices and across-tiles rules), then
-// filters the luma window E-4 .. E+3 of its 4 lines and, where e is odd,
-// the chroma window E/2-2 .. E/2+1 of 2 chroma lines in Cb and Cr. Within
-// one direction the windows of all segments are disjoint (edges are 8
-// luma samples apart, a luma window writes E-3 .. E+2 and a chroma window
-// E/2-1 .. E/2), so filtering in place is safe; no read or write leaves the
-// plane (the XLA program pads the last chroma window past the plane's edge
-// by replication but writes only p0 and q0, which lie inside). Every
-// intermediate value is int32. The beta, tc and 4:2:0 chroma QP tables are
-// compiled in as immediates from decode/deblock.py and hevc/tables.py by
+// Edges lie at E = 8, 16, .. below the picture's side; a 4-line segment
+// at A (4 lines from A, along the edge) of the edge at E (across it) has
+// x = E, y = A for a vertical edge and y = E, x = A for a horizontal one.
+// Its edge flag and bS come from the maps (tu/pu/cu ids; the per-slice
+// disabled flag at the q side's slice index clamped to [0, n_slices - 1];
+// the across-slices and across-tiles rules); the luma filter reads
+// E-4 .. E+3 of its 4 lines and writes E-3 .. E+2, and where E is a
+// multiple of 16 and bS is 2, the chroma filter reads E/2-2 .. E/2+1 of 2
+// chroma lines in Cb and Cr and writes E/2-1 .. E/2. Every intermediate
+// value is int32. The beta, tc and 4:2:0 chroma QP tables are compiled in
+// as immediates from decode/deblock.py and hevc/tables.py by
 // ops/kernel_build.py.
 //
-// What bounds it. At 1080p each pass reads the luma and chroma planes
-// (6.2 MB of int16) and, per segment, its two 4x4 blocks of maps (4 MB
-// per picture in all) and writes the windows it filters: bytes bound it,
-// about 10 us for both passes. The design is the simple one: a thread's
-// luma line is two 8-byte loads (vertical edges) or its 4 lines one
-// 8-byte load per row (horizontal edges); a warp covers 32 neighbouring
-// segments of one line band, so its loads are contiguous.
+// What bounds it. At 1080p a picture's three planes are 6.2 MB of int16,
+// read once and written once, and the maps another 4 MB read once:
+// about 5 us at 3.35 TB/s. Bytes bound it.
+//
+// Design: one launch for F pictures (blockIdx.z), out of place. A CTA owns
+// the luma window [x0-4, x0+60) x [y0-4, y0+60) for x0, y0 multiples of
+// 64, and the chroma windows [x0/2-2, x0/2+30) x [y0/2-2, y0/2+30), all
+// clipped to the picture. Inside such a window the vertical pass's output
+// depends only on the window's samples (an edge E in [x0, x0+64) reads
+// E-4 .. E+3, and no edge outside writes into the window), the horizontal
+// pass reads only the vertical pass's output inside the window, and the
+// windows' 4-line segments start on multiples of 4, so no segment's
+// decision straddles two windows; chroma likewise, shifted by 2. Windows
+// are disjoint and cover the picture, so a CTA
+//   1. loads its luma window (8-byte loads) and both chroma windows
+//      (4-byte loads) into shared memory, 12 KB;
+//   2. derives, one thread a segment, the flag, bS and thresholds of its
+//      128 vertical and 128 horizontal segments from the maps (256
+//      threads, each reading its segment's two 4x4 blocks);
+//   3. filters the vertical edges in shared memory, then, after a barrier,
+//      the horizontal ones;
+//   4. writes the whole window, filtered or not, to the output.
+// The copy of the planes is the kernel's own read and write, and each
+// sample is read from and written to device memory once.
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -44,7 +55,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kT = 64;                       // a CTA's luma window side
+constexpr int kTw = kT / 2;                  // its chroma windows' side
+constexpr int kSegs = (kT / 8) * (kT / 4);   // 4-line segments a direction
+constexpr int kThreads = 2 * kSegs;          // one a segment of either
 
 __constant__ int kBeta[] = {TC_BETA_TABLE};
 __constant__ int kTc[] = {TC_TC_TABLE};
@@ -124,36 +138,12 @@ __device__ int motion_bs(const Maps& m, size_t f4, size_t plane4, int ip,
     return poc0p == poc0q ? !direct_ok : !crossed_ok;
 }
 
-// 4 int16 samples at p (8-byte aligned) as int32, and back
-__device__ inline void load4(const int16_t* p, int (&v)[4]) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    v[0] = (int16_t)(u.x & 0xffff); v[1] = (int16_t)(u.x >> 16);
-    v[2] = (int16_t)(u.y & 0xffff); v[3] = (int16_t)(u.y >> 16);
-}
 
-__device__ inline void store4(int16_t* p, const int (&v)[4]) {
-    uint2 u;
-    u.x = (uint32_t)(uint16_t)v[0] | ((uint32_t)(uint16_t)v[1] << 16);
-    u.y = (uint32_t)(uint16_t)v[2] | ((uint32_t)(uint16_t)v[3] << 16);
-    *reinterpret_cast<uint2*>(p) = u;
-}
-
-// one direction over F pictures: vertical (horiz = 0) or horizontal edges
-__global__ void __launch_bounds__(kThreads)
-deblock_kernel(int16_t* __restrict__ y_planes, int16_t* __restrict__ cb_planes,
-               int16_t* __restrict__ cr_planes, Maps m, Dims d, int horiz) {
-    const int along = horiz ? d.w : d.h;       // the segments' axis
-    const int across = horiz ? d.h : d.w;      // the edges' axis
-    const int n_e = across / 8 - 1, n_s = along / 4;
-    const int t = blockIdx.x * kThreads + threadIdx.x;
-    if (t >= n_e * n_s) return;
-    // neighbouring threads take neighbouring segments in memory: along
-    // the row of a horizontal edge, down the edges of a row band otherwise
-    const int s = horiz ? t % n_s : t / n_e;
-    const int e = horiz ? t / n_s : t % n_e;
-    const int E = 8 * (e + 1), A = 4 * s;
-    const int f = blockIdx.y;
-
+// The segment at A of the edge at E of picture f: false where it is not
+// filtered; else its bS and the luma beta and tc, and the Cb and Cr tc
+// (0 where the chroma filter does not run).
+__device__ bool segment(const Maps& m, const Dims& d, int f, int E, int A,
+                        bool horiz, int& beta, int& tc, int (&tc_c)[2]) {
     const size_t plane4 = (size_t)d.h4 * d.w4;
     const size_t f4 = f * plane4;
     const size_t fc = (size_t)f * d.hc * d.wc;
@@ -169,16 +159,17 @@ deblock_kernel(int16_t* __restrict__ y_planes, int16_t* __restrict__ cb_planes,
                          : ca * d.wc + ((E - 1) >> d.ctb_log2);
 
     const bool tu_edge = m.tu_id[f4 + ip] != m.tu_id[f4 + iq];
-    bool edge = tu_edge || m.pu_id[f4 + ip] != m.pu_id[f4 + iq]
-                || m.cu_id[f4 + ip] != m.cu_id[f4 + iq];
-    if (!edge) return;
+    const bool edge = tu_edge || m.pu_id[f4 + ip] != m.pu_id[f4 + iq]
+                      || m.cu_id[f4 + ip] != m.cu_id[f4 + iq];
+    if (!edge) return false;
     const int slice_q = m.slice_idx[fc + cq];
     const int sl = f * d.n_sl + clip3(0, d.n_sl - 1, slice_q);
-    if (m.disabled[sl]) return;
-    if (m.slice_idx[fc + cp] != slice_q && !m.across[sl]) return;
+    if (m.disabled[sl]) return false;
+    if (m.slice_idx[fc + cp] != slice_q && !m.across[sl]) return false;
     const bool across_tiles = m.across_tiles ? m.across_tiles[f] != 0
                                              : d.across_all != 0;
-    if (!across_tiles && m.tile_id[fc + cp] != m.tile_id[fc + cq]) return;
+    if (!across_tiles && m.tile_id[fc + cp] != m.tile_id[fc + cq])
+        return false;
 
     int bs;
     if (m.pred_mode[f4 + ip] == 1 || m.pred_mode[f4 + iq] == 1)
@@ -187,151 +178,213 @@ deblock_kernel(int16_t* __restrict__ y_planes, int16_t* __restrict__ cb_planes,
         bs = 1;
     else
         bs = motion_bs(m, f4, plane4, ip, iq);
-    if (bs == 0) return;
+    if (bs == 0) return false;
 
     const int qp_p = m.qp_y[f4 + ip], qp_q = m.qp_y[f4 + iq];
     const int tc_off = m.tc_off[sl];
+    const int qpl = (qp_p + qp_q + 1) >> 1;
+    beta = kBeta[clip3(0, 51, qpl + m.beta_off[sl])] << (d.bd_y - 8);
+    tc = kTc[clip3(0, 53, qpl + 2 * (bs - 1) + tc_off)] << (d.bd_y - 8);
+    tc_c[0] = tc_c[1] = 0;
+    // chroma: every second luma edge, bS 2
+    if (E % 16 || bs != 2) return true;
+    const int qp_bd_off_c = 6 * (d.bd_c - 8);
+    for (int c = 0; c < 2; ++c) {
+        const int off = c ? m.cr_off[sl] : m.cb_off[sl];
+        const int qpi = clip3(-qp_bd_off_c, 57, qpl + off);
+        const int qpc = qpi < 0 ? qpi : kChromaQp[clip3(0, 57, qpi)];
+        tc_c[c] = max(kTc[clip3(0, 53, qpc + 2 + tc_off)] << (d.bd_c - 8), 0);
+    }
+    return true;
+}
 
-    // ---- luma: 4 lines of p3 p2 p1 p0 | q0 q1 q2 q3 ----------------------
-    {
-        const int max_val = (1 << d.bd_y) - 1;
-        const int qpl = (qp_p + qp_q + 1) >> 1;
-        const int beta = kBeta[clip3(0, 51, qpl + m.beta_off[sl])]
-                         << (d.bd_y - 8);
-        const int tc = kTc[clip3(0, 53, qpl + 2 * (bs - 1) + tc_off)]
-                       << (d.bd_y - 8);
-        int16_t* plane = y_planes + (size_t)f * d.h * d.w;
-        int px[4][4], qx[4][4];   // [line][distance from the edge]
-        if (horiz) {
-            // row E - 1 - k holds p_k, row E + k holds q_k, of 4 columns
-            for (int k = 0; k < 4; ++k) {
-                int a[4], b[4];
-                load4(plane + (size_t)(E - 1 - k) * d.w + A, a);
-                load4(plane + (size_t)(E + k) * d.w + A, b);
-                for (int l = 0; l < 4; ++l) { px[l][k] = a[l]; qx[l][k] = b[l]; }
-            }
-        } else {
-            for (int l = 0; l < 4; ++l) {
-                int a[4], b[4];
-                const int16_t* row = plane + (size_t)(A + l) * d.w + E;
-                load4(row - 4, a);
-                load4(row, b);
-                for (int k = 0; k < 4; ++k) { px[l][k] = a[3 - k]; qx[l][k] = b[k]; }
-            }
+// The luma filter of one segment in shared memory: q0 is line 0's q0
+// sample, `line` the step to the next line, `step` the step across the
+// edge (p_k at q0 - (k + 1) step, q_k at q0 + k step).
+__device__ void filter_luma(int16_t* q0, int line, int step, int beta,
+                            int tc, int max_val) {
+    int px[4][4], qx[4][4];   // [line][distance from the edge]
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            px[l][k] = q0[l * line - (k + 1) * step];
+            qx[l][k] = q0[l * line + k * step];
         }
-        const int dp0 = abs(px[0][2] - 2 * px[0][1] + px[0][0]);
-        const int dp3 = abs(px[3][2] - 2 * px[3][1] + px[3][0]);
-        const int dq0 = abs(qx[0][2] - 2 * qx[0][1] + qx[0][0]);
-        const int dq3 = abs(qx[3][2] - 2 * qx[3][1] + qx[3][0]);
-        if (dp0 + dp3 + dq0 + dq3 < beta) {
-            auto dsam = [&](int l, int dpq) {
-                return 2 * dpq < (beta >> 2)
-                       && abs(px[l][3] - px[l][0]) + abs(qx[l][0] - qx[l][3])
-                              < (beta >> 3)
-                       && abs(px[l][0] - qx[l][0]) < ((5 * tc + 1) >> 1);
-            };
-            const bool strong = dsam(0, dp0 + dq0) && dsam(3, dp3 + dq3);
-            const int side = (beta + (beta >> 1)) >> 3;
-            const bool d_ep = dp0 + dp3 < side, d_eq = dq0 + dq3 < side;
-            const int t2 = 2 * tc, tch = tc >> 1;
-            for (int l = 0; l < 4; ++l) {
-                const int p0 = px[l][0], p1 = px[l][1], p2 = px[l][2],
-                          p3 = px[l][3];
-                const int q0 = qx[l][0], q1 = qx[l][1], q2 = qx[l][2],
-                          q3 = qx[l][3];
-                if (strong) {
-                    px[l][0] = clip3(0, max_val, clip3(p0 - t2, p0 + t2,
-                        (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3));
-                    px[l][1] = clip3(0, max_val, clip3(p1 - t2, p1 + t2,
-                        (p2 + p1 + p0 + q0 + 2) >> 2));
-                    px[l][2] = clip3(0, max_val, clip3(p2 - t2, p2 + t2,
-                        (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3));
-                    qx[l][0] = clip3(0, max_val, clip3(q0 - t2, q0 + t2,
-                        (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3));
-                    qx[l][1] = clip3(0, max_val, clip3(q1 - t2, q1 + t2,
-                        (p0 + q0 + q1 + q2 + 2) >> 2));
-                    qx[l][2] = clip3(0, max_val, clip3(q2 - t2, q2 + t2,
-                        (p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3));
-                } else {
-                    const int delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4;
-                    if (abs(delta) < tc * 10) {
-                        const int dlt = clip3(-tc, tc, delta);
-                        px[l][0] = clip3(0, max_val, p0 + dlt);
-                        qx[l][0] = clip3(0, max_val, q0 - dlt);
-                        if (d_ep)
-                            px[l][1] = clip3(0, max_val, p1 + clip3(-tch, tch,
-                                (((p2 + p0 + 1) >> 1) - p1 + dlt) >> 1));
-                        if (d_eq)
-                            qx[l][1] = clip3(0, max_val, q1 + clip3(-tch, tch,
-                                (((q2 + q0 + 1) >> 1) - q1 - dlt) >> 1));
-                    }
-                }
-            }
-            if (horiz) {
-                for (int k = 0; k < 3; ++k) {
-                    int a[4], b[4];
-                    for (int l = 0; l < 4; ++l) { a[l] = px[l][k]; b[l] = qx[l][k]; }
-                    store4(plane + (size_t)(E - 1 - k) * d.w + A, a);
-                    store4(plane + (size_t)(E + k) * d.w + A, b);
-                }
-            } else {
-                for (int l = 0; l < 4; ++l) {
-                    int16_t* row = plane + (size_t)(A + l) * d.w + E;
-                    const int a[4] = {px[l][3], px[l][2], px[l][1], px[l][0]};
-                    store4(row - 4, a);
-                    store4(row, qx[l]);
-                }
+    }
+    const int dp0 = abs(px[0][2] - 2 * px[0][1] + px[0][0]);
+    const int dp3 = abs(px[3][2] - 2 * px[3][1] + px[3][0]);
+    const int dq0 = abs(qx[0][2] - 2 * qx[0][1] + qx[0][0]);
+    const int dq3 = abs(qx[3][2] - 2 * qx[3][1] + qx[3][0]);
+    if (dp0 + dp3 + dq0 + dq3 >= beta) return;
+    auto dsam = [&](int l, int dpq) {
+        return 2 * dpq < (beta >> 2)
+               && abs(px[l][3] - px[l][0]) + abs(qx[l][0] - qx[l][3])
+                      < (beta >> 3)
+               && abs(px[l][0] - qx[l][0]) < ((5 * tc + 1) >> 1);
+    };
+    const bool strong = dsam(0, dp0 + dq0) && dsam(3, dp3 + dq3);
+    const int side = (beta + (beta >> 1)) >> 3;
+    const bool d_ep = dp0 + dp3 < side, d_eq = dq0 + dq3 < side;
+    const int t2 = 2 * tc, tch = tc >> 1;
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+        const int p0 = px[l][0], p1 = px[l][1], p2 = px[l][2], p3 = px[l][3];
+        const int q0v = qx[l][0], q1 = qx[l][1], q2 = qx[l][2],
+                  q3 = qx[l][3];
+        int16_t* at = q0 + l * line;
+        if (strong) {
+            at[-step] = (int16_t)clip3(0, max_val, clip3(p0 - t2, p0 + t2,
+                (p2 + 2 * p1 + 2 * p0 + 2 * q0v + q1 + 4) >> 3));
+            at[-2 * step] = (int16_t)clip3(0, max_val, clip3(
+                p1 - t2, p1 + t2, (p2 + p1 + p0 + q0v + 2) >> 2));
+            at[-3 * step] = (int16_t)clip3(0, max_val, clip3(
+                p2 - t2, p2 + t2, (2 * p3 + 3 * p2 + p1 + p0 + q0v + 4) >> 3));
+            at[0] = (int16_t)clip3(0, max_val, clip3(q0v - t2, q0v + t2,
+                (p1 + 2 * p0 + 2 * q0v + 2 * q1 + q2 + 4) >> 3));
+            at[step] = (int16_t)clip3(0, max_val, clip3(
+                q1 - t2, q1 + t2, (p0 + q0v + q1 + q2 + 2) >> 2));
+            at[2 * step] = (int16_t)clip3(0, max_val, clip3(
+                q2 - t2, q2 + t2, (p0 + q0v + q1 + 3 * q2 + 2 * q3 + 4) >> 3));
+        } else {
+            const int delta = (9 * (q0v - p0) - 3 * (q1 - p1) + 8) >> 4;
+            if (abs(delta) < tc * 10) {
+                const int dlt = clip3(-tc, tc, delta);
+                at[-step] = (int16_t)clip3(0, max_val, p0 + dlt);
+                at[0] = (int16_t)clip3(0, max_val, q0v - dlt);
+                if (d_ep)
+                    at[-2 * step] = (int16_t)clip3(0, max_val, p1 + clip3(
+                        -tch, tch, (((p2 + p0 + 1) >> 1) - p1 + dlt) >> 1));
+                if (d_eq)
+                    at[step] = (int16_t)clip3(0, max_val, q1 + clip3(
+                        -tch, tch, (((q2 + q0v + 1) >> 1) - q1 - dlt) >> 1));
             }
         }
     }
+}
 
-    // ---- chroma: every second luma edge, bS 2, lines A/2 and A/2 + 1 ----
-    if (!(e & 1) || bs != 2) return;
-    const int max_c = (1 << d.bd_c) - 1;
-    const int qp_bd_off_c = 6 * (d.bd_c - 8);
-    const int wc2 = d.w / 2;
-    const int Ec = E / 2, Ac = A / 2;
-    const size_t fplane = (size_t)f * (d.h / 2) * wc2;
-    for (int c = 0; c < 2; ++c) {
-        const int off = c ? m.cr_off[sl] : m.cb_off[sl];
-        const int qpi = clip3(-qp_bd_off_c, 57, ((qp_p + qp_q + 1) >> 1) + off);
-        const int qpc = qpi < 0 ? qpi : kChromaQp[clip3(0, 57, qpi)];
-        const int tc_c = kTc[clip3(0, 53, qpc + 2 + tc_off)] << (d.bd_c - 8);
-        if (tc_c <= 0) continue;
-        int16_t* plane = (c ? cr_planes : cb_planes) + fplane;
-        for (int l = 0; l < 2; ++l) {
-            // p1 p0 | q0 q1 of line l, and the stride between them
-            int16_t* q0p;
-            size_t step;
-            if (horiz) {
-                q0p = plane + (size_t)Ec * wc2 + Ac + l;
-                step = wc2;
-            } else {
-                q0p = plane + (size_t)(Ac + l) * wc2 + Ec;
-                step = 1;
-            }
-            const int p1 = q0p[-2 * (ptrdiff_t)step], p0 = q0p[-(ptrdiff_t)step];
-            const int q0 = q0p[0], q1 = q0p[step];
-            const int dl = clip3(-tc_c, tc_c,
-                                 ((q0 - p0) * 4 + p1 - q1 + 4) >> 3);
-            q0p[-(ptrdiff_t)step] = (int16_t)clip3(0, max_c, p0 + dl);
-            q0p[0] = (int16_t)clip3(0, max_c, q0 - dl);
-        }
+// The chroma filter of 2 lines in shared memory, laid out as filter_luma's.
+__device__ void filter_chroma(int16_t* q0, int line, int step, int tc_c,
+                              int max_c) {
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+        int16_t* at = q0 + l * line;
+        const int p1 = at[-2 * step], p0 = at[-step];
+        const int q0v = at[0], q1 = at[step];
+        const int dl = clip3(-tc_c, tc_c, ((q0v - p0) * 4 + p1 - q1 + 4) >> 3);
+        at[-step] = (int16_t)clip3(0, max_c, p0 + dl);
+        at[0] = (int16_t)clip3(0, max_c, q0v - dl);
+    }
+}
+
+// F pictures, one CTA a window (blockIdx.x, blockIdx.y) of picture
+// blockIdx.z: the filtered window from `in` written to `out`.
+__global__ void __launch_bounds__(kThreads)
+deblock_kernel(const int16_t* __restrict__ y_in,
+               const int16_t* __restrict__ cb_in,
+               const int16_t* __restrict__ cr_in, int16_t* __restrict__ y_out,
+               int16_t* __restrict__ cb_out, int16_t* __restrict__ cr_out,
+               Maps m, Dims d) {
+    __shared__ __align__(16) int16_t sy[kT][kT];
+    __shared__ __align__(16) int16_t sc[2][kTw][kTw];
+    const int tid = threadIdx.x, f = blockIdx.z;
+    const int x0 = blockIdx.x * kT, y0 = blockIdx.y * kT;
+    // the windows' origins: sy[r][c] is luma (yw + r, xw + c), sc[p][r][c]
+    // chroma (ycw + r, xcw + c)
+    const int xw = x0 - 4, yw = y0 - 4, xcw = x0 / 2 - 2, ycw = y0 / 2 - 2;
+    const int wc2 = d.w / 2, hc2 = d.h / 2;
+    const size_t fy = (size_t)f * d.h * d.w, fc = (size_t)f * hc2 * wc2;
+
+    // 1. the windows in: the parts inside the picture, 4 luma samples (x a
+    // multiple of 4) or 2 chroma samples (x even) a load
+    for (int i = tid; i < kT * (kT / 4); i += kThreads) {
+        const int r = i / (kT / 4), c = (i % (kT / 4)) * 4;
+        const int y = yw + r, x = xw + c;
+        if (y >= 0 && y < d.h && x >= 0 && x < d.w)
+            *reinterpret_cast<uint2*>(&sy[r][c]) = __ldg(
+                reinterpret_cast<const uint2*>(y_in + fy + (size_t)y * d.w
+                                               + x));
+    }
+    for (int i = tid; i < 2 * kTw * (kTw / 2); i += kThreads) {
+        const int p = i / (kTw * (kTw / 2)), j = i % (kTw * (kTw / 2));
+        const int r = j / (kTw / 2), c = (j % (kTw / 2)) * 2;
+        const int y = ycw + r, x = xcw + c;
+        if (y >= 0 && y < hc2 && x >= 0 && x < wc2)
+            *reinterpret_cast<uint32_t*>(&sc[p][r][c]) = __ldg(
+                reinterpret_cast<const uint32_t*>((p ? cr_in : cb_in) + fc
+                                                  + (size_t)y * wc2 + x));
+    }
+
+    // 2. this thread's segment: the vertical edges' segments for the first
+    // kSegs threads (8 edges of 16 segments), the horizontal ones' after
+    const bool horiz = tid >= kSegs;
+    const int u = horiz ? tid - kSegs : tid;
+    int E, A;
+    bool valid;
+    if (!horiz) {
+        E = x0 + 8 * (u % (kT / 8));
+        A = yw + 4 * (u / (kT / 8));
+        valid = E >= 8 && E <= d.w - 8 && A >= 0 && A < d.h;
+    } else {
+        E = y0 + 8 * (u / (kT / 4));
+        A = xw + 4 * (u % (kT / 4));
+        valid = E >= 8 && E <= d.h - 8 && A >= 0 && A < d.w;
+    }
+    int beta = 0, tc = 0, tc_c[2] = {0, 0};
+    const bool on = valid && segment(m, d, f, E, A, horiz, beta, tc, tc_c);
+    const int max_y = (1 << d.bd_y) - 1, max_c = (1 << d.bd_c) - 1;
+    __syncthreads();
+
+    // 3. the vertical edges, then the horizontal edges
+    if (on && !horiz) {
+        filter_luma(&sy[A - yw][E - xw], kT, 1, beta, tc, max_y);
+        for (int c = 0; c < 2; ++c)
+            if (tc_c[c])
+                filter_chroma(&sc[c][A / 2 - ycw][E / 2 - xcw], kTw, 1,
+                              tc_c[c], max_c);
+    }
+    __syncthreads();
+    if (on && horiz) {
+        filter_luma(&sy[E - yw][A - xw], 1, kT, beta, tc, max_y);
+        for (int c = 0; c < 2; ++c)
+            if (tc_c[c])
+                filter_chroma(&sc[c][E / 2 - ycw][A / 2 - xcw], 1, kTw,
+                              tc_c[c], max_c);
+    }
+    __syncthreads();
+
+    // 4. the windows out, filtered or not
+    for (int i = tid; i < kT * (kT / 4); i += kThreads) {
+        const int r = i / (kT / 4), c = (i % (kT / 4)) * 4;
+        const int y = yw + r, x = xw + c;
+        if (y >= 0 && y < d.h && x >= 0 && x < d.w)
+            *reinterpret_cast<uint2*>(y_out + fy + (size_t)y * d.w + x) =
+                *reinterpret_cast<const uint2*>(&sy[r][c]);
+    }
+    for (int i = tid; i < 2 * kTw * (kTw / 2); i += kThreads) {
+        const int p = i / (kTw * (kTw / 2)), j = i % (kTw * (kTw / 2));
+        const int r = j / (kTw / 2), c = (j % (kTw / 2)) * 2;
+        const int y = ycw + r, x = xcw + c;
+        if (y >= 0 && y < hc2 && x >= 0 && x < wc2)
+            *reinterpret_cast<uint32_t*>((p ? cr_out : cb_out) + fc
+                                         + (size_t)y * wc2 + x) =
+                *reinterpret_cast<const uint32_t*>(&sc[p][r][c]);
     }
 }
 
 }  // namespace
 
 // y (F, h, w), cb and cr (F, h / 2, w / 2) int16, contiguous on the device,
-// filtered in place; h and w multiples of 8. The maps as struct Maps says,
-// contiguous; n_sl >= 1 slices per picture. across_tiles: (F,) bool, or
-// null for across_all. Launches the vertical pass (horizontal = 0) or the
-// horizontal pass on `stream` and returns cudaGetLastError() (0 on
-// success; nothing launches where the pictures have no edge), or
-// cudaErrorInvalidValue for a bit depth outside 8..16 or bad sizes; never
-// synchronises.
+// y 8-byte and cb, cr 4-byte aligned, filtered into y_out, cb_out and
+// cr_out of the same shapes and alignment (every sample written); h and w
+// multiples of 8. The maps as struct Maps says, contiguous; n_sl >= 1
+// slices per picture. across_tiles: (F,) bool, or null for across_all.
+// Launches once on `stream` and returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for a bit depth outside 8..16, bad
+// sizes or misaligned planes; never synchronises.
 extern "C" int deblock_launch(
-    void* y, void* cb, void* cr, int frames, int h, int w,
+    const void* y, const void* cb, const void* cr, void* y_out, void* cb_out,
+    void* cr_out, int frames, int h, int w,
     const void* tu_id, const void* pu_id, const void* cu_id,
     const void* pred_mode, const void* cbf_y, const void* ref_idx,
     const void* ref_poc, const void* mv, const void* qp_y,
@@ -339,10 +392,16 @@ extern "C" int deblock_launch(
     const void* disabled, const void* across, const void* beta_off,
     const void* tc_off, const void* cb_off, const void* cr_off, int n_sl,
     const void* across_tiles, int across_all, int ctb_log2, int bd_y,
-    int bd_c, int horizontal, void* stream) {
+    int bd_c, void* stream) {
+    auto misaligned = [](const void* p, uintptr_t a) {
+        return (reinterpret_cast<uintptr_t>(p) & (a - 1)) != 0;
+    };
     if (bd_y < 8 || bd_y > 16 || bd_c < 8 || bd_c > 16 || h % 8 || w % 8
-        || h < 8 || w < 8 || frames < 1 || n_sl < 1 || hc < 1 || wc < 1
-        || ctb_log2 < 3 || ctb_log2 > 6)
+        || h < 8 || w < 8 || frames < 1 || frames > 65535 || n_sl < 1
+        || hc < 1 || wc < 1 || ctb_log2 < 3 || ctb_log2 > 6
+        || misaligned(y, 8) || misaligned(y_out, 8) || misaligned(cb, 4)
+        || misaligned(cr, 4) || misaligned(cb_out, 4)
+        || misaligned(cr_out, 4))
         return (int)cudaErrorInvalidValue;
     Maps m{(const int32_t*)tu_id, (const int32_t*)pu_id,
            (const int32_t*)cu_id, (const uint8_t*)pred_mode,
@@ -355,11 +414,29 @@ extern "C" int deblock_launch(
            (const uint8_t*)across_tiles};
     Dims d{h, w, h / 4, w / 4, hc, wc, n_sl, ctb_log2, bd_y, bd_c,
            across_all};
-    const int along = horizontal ? w : h, across_side = horizontal ? h : w;
-    const int work = (across_side / 8 - 1) * (along / 4);
-    if (work <= 0) return (int)cudaGetLastError();
-    const dim3 grid((work + kThreads - 1) / kThreads, frames);
+    // windows from x0 = 0 while x0 - 4 < w
+    const dim3 grid((w + 4 + kT - 1) / kT, (h + 4 + kT - 1) / kT, frames);
     deblock_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (int16_t*)y, (int16_t*)cb, (int16_t*)cr, m, d, horizontal);
+        (const int16_t*)y, (const int16_t*)cb, (const int16_t*)cr,
+        (int16_t*)y_out, (int16_t*)cb_out, (int16_t*)cr_out, m, d);
     return (int)cudaGetLastError();
+}
+
+// The kernel's resources on the current device: out[0] registers a
+// thread, [1] local (spilled) bytes a thread, [2] shared bytes a CTA,
+// [3] CTAs an SM, [4] threads a CTA, [5] CTAs a 1920x1080 picture
+// launches. Returns a CUDA error code (0 on success).
+extern "C" int deblock_occupancy(int* out) {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, deblock_kernel);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &out[3], deblock_kernel, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[4] = kThreads;
+    out[5] = ((1920 + 4 + kT - 1) / kT) * ((1080 + 4 + kT - 1) / kT);
+    return 0;
 }

@@ -20,23 +20,65 @@
 // What bounds it. At 1080p the output is 15 x 1136 x 1976 int16, 67.3 MB,
 // against a 4.1 MB plane read: 21.3 us at 3.35 TB/s. The multiply-adds (3 x
 // 8 per sample of the horizontal pass, 12 x 8 per output sample) take about
-// 16 us at the INT32 issue rate. Writing the output bounds it.
+// 16 us at the INT32 issue rate, so the arithmetic has to run while the
+// stores drain, and on the FP32 pipes (twice INT32's rate) where exact.
+// What the card takes for the stores alone depends on the tile's shape
+// (on an H100 SXM at 700 W, PERF.md section 6): 16-byte register stores of
+// all 15 planes by tiles of 64x32 samples take 35 us, of 128x16 29 us, of
+// 256x8 26 us; TMA stores of the same tiles 38, 33 and 30 us; torch's
+// zero_() of the output 23 us. Writing the output by TMA bounds this
+// design.
 //
-// Design. One launch per plane. A CTA owns a tile of 32 output rows by 64
-// output columns of every plane. It
-//   1. reads the 39 x 71 plane samples the tile's taps reach, clamped to the
-//      picture (no padded copy), into shared memory as int32;
-//   2. computes the three horizontal phases once per sample of the tile's
-//      39 rows, into shared memory (int32: exact whatever the samples);
-//   3. gives each thread 8 consecutive output columns of one row: per
-//      horizontal phase it reads the 8 x 8 sources of its vertical taps as
-//      two 16-byte shared loads per row, forms the three vertical phases,
-//      and writes each plane's 8 samples with one 16-byte streaming store
-//      (st.global.cs); a warp's store covers 4 rows of 128 contiguous bytes.
-// Where the padded width is not a multiple of 8 (16-byte stores would be
-// misaligned), or at a ragged tile edge, the samples are stored one by one.
+// Design. One launch per plane, of persistent CTAs: as many as fit on the
+// card at once (two an SM: 256 threads each, 107 KB of shared memory),
+// each walking the tiles of 16 output rows by 128 output columns of every
+// plane with a stride of the grid. For each tile a CTA
+//   1. waits for the tile's source window (23 rows by 136 samples, clamped
+//      to the picture), loaded while the last tile was filtered, and
+//      starts loading the next tile's window into the other of two
+//      buffers: cp.async of 16 bytes where 8 samples lie inside the
+//      picture's row (a row index is clamped, so whole rows replicate for
+//      free), a sample at a time where the window crosses the left or
+//      right edge;
+//   2. computes the three horizontal phases of the window's 23 rows, four
+//      columns a thread, into shared memory as floats: every sum of up to
+//      8 int16 samples times taps is an integer below 2^22 in magnitude,
+//      exact in a float, and the shift is an exact scaling rounded down;
+//   3. gives each thread 4 consecutive output columns of 2 rows: per
+//      horizontal phase (and the samples themselves) it reads the 9 x 4
+//      sources of its vertical taps, one 16-byte shared load a row (a
+//      warp's 512 contiguous bytes), forms the three vertical phases with
+//      float multiply-adds and writes all 15 planes' samples into a
+//      staging tile (15 x 16 x 128 int16, 60 KB). The vertical sums over a
+//      horizontal phase stay exact in floats while every |H| of the tile
+//      is at most 37449 (112 x 37449 < 2^22): always for samples within
+//      their bit depth, and at 15 and 16 bits for any int16; a tile with a
+//      larger |H| (samples far outside their bit depth) takes the same
+//      sums in int32 instead;
+//   4. hands each horizontal phase's 3 or 4 planes to the TMA as soon as
+//      step 3 has staged them: one thread issues a cp.async.bulk.tensor
+//      store of a (128, 16, 1) box per plane into the output, whose tensor
+//      map (built on the host with cuTensorMapEncodeTiled, reached through
+//      cudaGetDriverEntryPoint, so nothing links libcuda) is a
+//      __grid_constant__ parameter, one bulk group per phase. The TMA clips
+//      the boxes at the output's ragged edges. Before a phase's planes are
+//      staged again for the next tile, the issuing thread waits
+//      (cp.async.bulk.wait_group.read) until the TMA has read them.
+// So a CTA's stores drain while it filters the rest of the tile and
+// loads and filters the next one, and the other CTA of its SM fills the
+// gaps (one store of the whole staging tile a tile took 4% longer). Why these sizes: a tile row of
+// 256 bytes writes longer runs than 64 columns would, and 16 rows keep
+// the window's 7 extra rows at 44%; 4 x 2 outputs a thread read each
+// source 4.5 times less often from shared memory than 8 x 1 did, without
+// bank conflicts; one staging tile (not two) keeps two CTAs an SM.
+// The TMA needs a row stride of a multiple of 16 bytes: where the padded
+// width is not a multiple of 8, or the output is not 16-byte aligned, the
+// CTA's threads copy the staging tile out themselves, a sample each,
+// clipped to the output (the same kernel, another store path).
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifndef TC_LUMA_FILTER
 #error "TC_LUMA_FILTER undefined: build with ops/kernel_build.py, which pre-includes hevc/tables.py's luma filter"
@@ -45,105 +87,310 @@
 namespace {
 
 constexpr int kPad = 28;        // enc_core SP_P
-constexpr int kTileX = 64;      // output columns of a tile
-constexpr int kTileY = 32;      // output rows of a tile
-constexpr int kThreads = kTileY * kTileX / 8;
-constexpr int kRows = kTileY + 7;
-constexpr int kCols = kTileX + 7;
-constexpr int kInStride = kTileX + 8;
+constexpr int kTileX = 128;     // output columns of a tile
+constexpr int kTileY = 16;      // output rows of a tile
+constexpr int kPlanes = 15;
+constexpr int kThreads = kTileY * kTileX / 8;   // 4 columns by 2 rows each
+constexpr int kRows = kTileY + 7;   // source rows of a tile
+constexpr int kInCols = kTileX + 8; // source samples of a row, from x0 - 32
+constexpr int kChunks = kInCols / 8;
 
-__device__ inline uint32_t pack2(int a, int b) {
+struct __align__(128) Smem {
+    int16_t stage[kPlanes][kTileY][kTileX];   // the TMA's source
+    float hor[3][kRows][kTileX];              // horizontal phases 1..3
+    int16_t in[2][kRows][kInCols];            // source windows
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ uint32_t pack2(int a, int b) {
     return (uint32_t)(uint16_t)(int16_t)a
            | ((uint32_t)(uint16_t)(int16_t)b << 16);
 }
 
-__global__ void __launch_bounds__(kThreads)
-subpel_planes_kernel(const int16_t* __restrict__ ref, int w, int h, int pw,
-                     int ph, int shift1, int vec,
+__device__ __forceinline__ int lo16(uint32_t u) { return (int16_t)(u & 0xffff); }
+__device__ __forceinline__ int hi16(uint32_t u) { return (int16_t)(u >> 16); }
+
+// Integers of magnitude below 2^22 as floats, exactly: kMagic = 1.5 * 2^23
+// has a unit in the last place of 1, so kMagic + v holds v in its low
+// mantissa bits (two's complement), and those bits' low 16 are v's int16.
+constexpr float kMagic = 12582912.f;
+constexpr int kMagicBits = 0x4B400000;
+// the largest |H| whose vertical sums (|taps| sum to 112) stay below 2^22
+constexpr float kWide = 37449.f;
+
+__device__ __forceinline__ float to_float(int v) {
+    return __int_as_float(kMagicBits + v) - kMagic;
+}
+
+// floor(a * scale) for a power-of-two scale, as an exact float: the fused
+// multiply-add rounds once, down, at a unit in the last place of 1
+__device__ __forceinline__ float floor_scaled(float a, float scale) {
+    return __fmaf_rd(a, scale, kMagic) - kMagic;
+}
+
+// an integer-valued float below 2^22 in magnitude, plus kMagic, as bits:
+// the integer is these bits less kMagicBits, its int16 their low 16 bits
+__device__ __forceinline__ int low_bits(float v) {
+    return __float_as_int(v + kMagic);
+}
+
+// Issue the loads of the source window of the tile at output (ox0, oy0):
+// column c of `buf` holds the plane's sample x0 - 32 + c of row y0 - 31 + r
+// (clamped); one cp.async group.
+__device__ __forceinline__ void load_window(
+        int16_t (*buf)[kInCols], const int16_t* __restrict__ ref, int w,
+        int h, int ox0, int oy0, bool vec_in, int tid) {
+    const int xs = ox0 - kPad - 4, ys = oy0 - kPad - 3;
+    for (int i = tid; i < kRows * kChunks; i += kThreads) {
+        const int r = i / kChunks, c = (i - r * kChunks) * 8;
+        const int16_t* row = ref + (size_t)min(max(ys + r, 0), h - 1) * w;
+        const int x = xs + c;
+        if (vec_in && x >= 0 && x + 8 <= w) {
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                         :: "r"(smem_addr(&buf[r][c])), "l"(row + x)
+                         : "memory");
+        } else {
+            int v[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+                v[e] = __ldg(row + min(max(x + e, 0), w - 1));
+            *reinterpret_cast<uint4*>(&buf[r][c]) = make_uint4(
+                pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+                pack2(v[6], v[7]));
+        }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+subpel_planes_kernel(const __grid_constant__ CUtensorMap tmap,
+                     const int16_t* __restrict__ ref, int w, int h, int pw,
+                     int ph, float scale1, int vec_in, int tma,
                      int16_t* __restrict__ out) {
     // the (4 phases, 8 taps) luma filter; folded into the arithmetic
     constexpr int f[4][8] = {TC_LUMA_FILTER};
-    __shared__ __align__(16) int32_t s_in[kRows][kInStride];
-    __shared__ __align__(16) int32_t s_h[3][kRows][kTileX];
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    Smem& s = *reinterpret_cast<Smem*>(smem_raw);
     const int tid = threadIdx.x;
-    const int ox0 = blockIdx.x * kTileX, oy0 = blockIdx.y * kTileY;
-    // plane position of the tile's first source sample
-    const int x0 = ox0 - kPad - 3, y0 = oy0 - kPad - 3;
+    const int ntx = (pw + kTileX - 1) / kTileX;
+    const int n_tiles = ntx * ((ph + kTileY - 1) / kTileY);
+    int tile = blockIdx.x;
+    if (tile >= n_tiles) return;
+    load_window(s.in[0], ref, w, h, (tile % ntx) * kTileX,
+                (tile / ntx) * kTileY, vec_in, tid);
 
-    // 1. the sources, clamped to the picture
-    for (int i = tid; i < kRows * kCols; i += kThreads) {
-        const int r = i / kCols, c = i - r * kCols;
-        const int y = min(max(y0 + r, 0), h - 1);
-        const int x = min(max(x0 + c, 0), w - 1);
-        s_in[r][c] = __ldg(ref + (size_t)y * w + x);
-    }
-    __syncthreads();
+    for (int i = 0; tile < n_tiles; ++i, tile += gridDim.x) {
+        const int ox0 = (tile % ntx) * kTileX, oy0 = (tile / ntx) * kTileY;
+        int16_t (*src)[kInCols] = s.in[i & 1];
+        // 1. this tile's window in, the next tile's loads out
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        __syncthreads();
+        const int next = tile + gridDim.x;
+        if (next < n_tiles)
+            load_window(s.in[(i + 1) & 1], ref, w, h, (next % ntx) * kTileX,
+                        (next / ntx) * kTileY, vec_in, tid);
 
-    // 2. the horizontal phases 1..3 of every source row
-    for (int i = tid; i < kRows * kTileX; i += kThreads) {
-        const int r = i / kTileX, c = i - r * kTileX;
-        int v[8];
+        // 2. the horizontal phases 1..3 as floats, four output columns a
+        // thread: output column c reads window columns c + 1 .. c + 8
+        bool wide = false;
+        for (int j = tid; j < kRows * (kTileX / 4); j += kThreads) {
+            const int r = j / (kTileX / 4), c = (j % (kTileX / 4)) * 4;
+            const uint2* q = reinterpret_cast<const uint2*>(&src[r][c]);
+            const uint2 a = q[0], b = q[1], d = q[2];
+            const float x[12] = {
+                to_float(lo16(a.x)), to_float(hi16(a.x)), to_float(lo16(a.y)),
+                to_float(hi16(a.y)), to_float(lo16(b.x)), to_float(hi16(b.x)),
+                to_float(lo16(b.y)), to_float(hi16(b.y)), to_float(lo16(d.x)),
+                to_float(hi16(d.x)), to_float(lo16(d.y)), to_float(hi16(d.y))};
 #pragma unroll
-        for (int t = 0; t < 8; ++t) v[t] = s_in[r][c + t];
+            for (int p = 1; p < 4; ++p) {
+                float hp[4];
 #pragma unroll
-        for (int p = 1; p < 4; ++p) {
-            int acc = 0;
+                for (int e = 0; e < 4; ++e) {
+                    float acc = 0.f;
 #pragma unroll
-            for (int t = 0; t < 8; ++t) acc += f[p][t] * v[t];
-            s_h[p - 1][r][c] = acc >> shift1;
+                    for (int t = 0; t < 8; ++t)
+                        acc = fmaf((float)f[p][t], x[e + 1 + t], acc);
+                    hp[e] = floor_scaled(acc, scale1);
+                    wide |= fabsf(hp[e]) > kWide;
+                }
+                *reinterpret_cast<float4*>(&s.hor[p - 1][r][c]) =
+                    make_float4(hp[0], hp[1], hp[2], hp[3]);
+            }
         }
-    }
-    __syncthreads();
+        // the vertical pass over the horizontal phases in floats where
+        // every sum stays below 2^22, in int32 otherwise
+        const bool exact = !__syncthreads_or(wide);
 
-    // 3. 8 columns of one output row, all 15 planes
-    const int cx = (tid & 7) * 8, r = tid >> 3;
-    const int oy = oy0 + r, ox = ox0 + cx;
-    if (oy >= ph || ox >= pw) return;
-    const size_t plane = (size_t)ph * pw;
-    int16_t* o = out + (size_t)oy * pw + ox;
-    const bool full = vec && ox + 8 <= pw;
-    const int n = min(8, pw - ox);
-    auto store = [&](int p, const int (&val)[8]) {
-        int16_t* d = o + p * plane;
-        if (full) {
-            int4 q = make_int4(pack2(val[0], val[1]), pack2(val[2], val[3]),
-                               pack2(val[4], val[5]), pack2(val[6], val[7]));
-            __stcs(reinterpret_cast<int4*>(d), q);
-        } else {
-            for (int e = 0; e < n; ++e) d[e] = (int16_t)val[e];
-        }
-    };
+        // 3. 4 columns of 2 output rows, all 15 planes, into the staging
+        // tile: a warp takes 2 rows of the tile, so its 16-byte shared
+        // loads of a source row are 512 contiguous bytes
+        const int cx = (tid % (kTileX / 4)) * 4;
+        const int r0 = (tid / (kTileX / 4)) * 2;
+        auto stage = [&](int p, int rr, const int (&val)[4]) {
+            *reinterpret_cast<uint2*>(&s.stage[p][r0 + rr][cx]) = make_uint2(
+                pack2(val[0], val[1]), pack2(val[2], val[3]));
+        };
 #pragma unroll
-    for (int xf = 0; xf < 4; ++xf) {
-        // rows r .. r + 7 of the source: the plane itself for xf = 0
-        int v[8][8];
+        for (int xf = 0; xf < 4; ++xf) {
+            // source rows r0 .. r0 + 8: the samples (window columns
+            // cx + 4 .. cx + 7) for xf = 0, else horizontal phase xf
+            float v[9][4];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-            if (xf == 0) {
+            for (int k = 0; k < 9; ++k) {
+                if (xf == 0) {
+                    const uint2 a = *reinterpret_cast<const uint2*>(
+                        &src[r0 + k][cx + 4]);
+                    v[k][0] = to_float(lo16(a.x));
+                    v[k][1] = to_float(hi16(a.x));
+                    v[k][2] = to_float(lo16(a.y));
+                    v[k][3] = to_float(hi16(a.y));
+                } else {
+                    const float4 a = *reinterpret_cast<const float4*>(
+                        &s.hor[xf - 1][r0 + k][cx]);
+                    v[k][0] = a.x; v[k][1] = a.y; v[k][2] = a.z; v[k][3] = a.w;
+                }
+            }
+            if (xf) {
 #pragma unroll
-                for (int e = 0; e < 8; ++e) v[k][e] = s_in[r + k][cx + 3 + e];
+                for (int rr = 0; rr < 2; ++rr) {
+                    int val[4];
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) val[e] = low_bits(v[rr + 3][e]);
+                    stage(xf - 1, rr, val);
+                }
+            }
+            if (xf && !exact) {
+#pragma unroll
+                for (int yf = 1; yf < 4; ++yf) {
+#pragma unroll
+                    for (int rr = 0; rr < 2; ++rr) {
+                        int val[4];
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            int acc = 0;
+#pragma unroll
+                            for (int k = 0; k < 8; ++k)
+                                acc += f[yf][k]
+                                       * (low_bits(v[rr + k][e]) - kMagicBits);
+                            val[e] = acc >> 6;
+                        }
+                        stage(yf * 4 + xf - 1, rr, val);
+                    }
+                }
             } else {
-                const int4* s = reinterpret_cast<const int4*>(
-                    &s_h[xf - 1][r + k][cx]);
-                const int4 a = s[0], b = s[1];
-                v[k][0] = a.x; v[k][1] = a.y; v[k][2] = a.z; v[k][3] = a.w;
-                v[k][4] = b.x; v[k][5] = b.y; v[k][6] = b.z; v[k][7] = b.w;
+#pragma unroll
+                for (int yf = 1; yf < 4; ++yf) {
+#pragma unroll
+                    for (int rr = 0; rr < 2; ++rr) {
+                        int val[4];
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            float acc = 0.f;
+#pragma unroll
+                            for (int k = 0; k < 8; ++k)
+                                acc = fmaf((float)f[yf][k], v[rr + k][e],
+                                           acc);
+                            val[e] = __float_as_int(__fmaf_rd(
+                                acc, xf ? 0.015625f : scale1, kMagic));
+                        }
+                        stage(yf * 4 + xf - 1, rr, val);
+                    }
+                }
+            }
+            // 4. this phase's planes out: the generic proxy's writes made
+            // visible to the TMA's; the issuing thread first waits until
+            // the TMA has read the next phase's planes of the last tile
+            // (all but the newest two groups of stores), so that they can
+            // be written over after the barrier
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            if (tma && tid == 0)
+                asm volatile("cp.async.bulk.wait_group.read 2;\n" ::: "memory");
+            __syncthreads();
+            if (tma && tid == 0) {
+#pragma unroll
+                for (int yf = xf ? 0 : 1; yf < 4; ++yf) {
+                    const int p = yf * 4 + xf - 1;
+                    asm volatile(
+                        "cp.async.bulk.tensor.3d.global.shared::cta"
+                        ".bulk_group [%0, {%2, %3, %4}], [%1];\n"
+                        :: "l"(reinterpret_cast<uint64_t>(&tmap)),
+                           "r"(smem_addr(&s.stage[p][0][0])), "r"(ox0),
+                           "r"(oy0), "r"(p)
+                        : "memory");
+                }
+                asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
             }
         }
-        if (xf) store(xf - 1, v[3]);
-#pragma unroll
-        for (int yf = 1; yf < 4; ++yf) {
-            int val[8];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-                int acc = 0;
-#pragma unroll
-                for (int k = 0; k < 8; ++k) acc += f[yf][k] * v[k][e];
-                val[e] = acc >> (xf ? 6 : shift1);
+        if (!tma) {
+            const size_t plane = (size_t)ph * pw;
+            const int nx = min(kTileX, pw - ox0), ny = min(kTileY, ph - oy0);
+            for (int j = tid; j < kPlanes * kTileY * kTileX; j += kThreads) {
+                const int p = j / (kTileY * kTileX);
+                const int rr = (j / kTileX) % kTileY, c = j % kTileX;
+                if (rr < ny && c < nx)
+                    out[p * plane + (size_t)(oy0 + rr) * pw + ox0 + c] =
+                        s.stage[p][rr][c];
             }
-            store(yf * 4 + xf - 1, val);
         }
     }
+    // the shared memory stays until the TMA has read the last tile
+    if (tma && tid == 0)
+        asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (!fn) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        cudaError_t e = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+        cudaError_t e = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+        if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+constexpr int kSmem = (int)sizeof(Smem);
+
+// CTAs an SM holds, per device (the kernel's shared memory opted in first)
+int ctas_per_sm(int* sms) {
+    static int cached[64][2];
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+        return 0;
+    if (!cached[dev][0]) {
+        if (cudaFuncSetAttribute(subpel_planes_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmem) != cudaSuccess)
+            return 0;
+        int n = 0, m = 0;
+        if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, subpel_planes_kernel, kThreads, kSmem) != cudaSuccess
+            || cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount, dev)
+                   != cudaSuccess)
+            return 0;
+        cached[dev][0] = n;
+        cached[dev][1] = m;
+    }
+    *sms = cached[dev][1];
+    return cached[dev][0];
 }
 
 }  // namespace
@@ -151,17 +398,66 @@ subpel_planes_kernel(const int16_t* __restrict__ ref, int w, int h, int pw,
 // ref: (h, w) int16; out: (15, h + 56, w + 56) int16; both contiguous on
 // the device; bit_depth in 8..16. Launches on `stream` and returns
 // cudaGetLastError() (0 on success, cudaErrorInvalidValue for a bit depth
-// outside 8..16 or an empty plane); never synchronises.
+// outside 8..16 or an empty plane, or where the driver cannot encode the
+// output's tensor map); never synchronises.
 extern "C" int subpel_planes_launch(const void* ref, int w, int h,
                                     int bit_depth, void* out, void* stream) {
     if (bit_depth < 8 || bit_depth > 16 || w < 1 || h < 1)
         return (int)cudaErrorInvalidValue;
     const int pw = w + 2 * kPad, ph = h + 2 * kPad;
-    const int vec = pw % 8 == 0
+    const int vec_in = w % 8 == 0
+                       && (reinterpret_cast<uintptr_t>(ref) & 15) == 0;
+    const int tma = pw % 8 == 0
                     && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-    const dim3 grid((pw + kTileX - 1) / kTileX, (ph + kTileY - 1) / kTileY);
-    subpel_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int16_t*)ref, w, h, pw, ph, bit_depth - 8, vec,
+    CUtensorMap tmap;
+    memset(&tmap, 0, sizeof tmap);
+    if (tma) {
+        // the samples' bits, stored as they are (the map has no int16)
+        EncodeTiled enc = encode_tiled();
+        const cuuint64_t dims[3] = {(cuuint64_t)pw, (cuuint64_t)ph,
+                                    (cuuint64_t)kPlanes};
+        const cuuint64_t strides[2] = {(cuuint64_t)pw * 2,
+                                       (cuuint64_t)ph * pw * 2};
+        const cuuint32_t box[3] = {kTileX, kTileY, 1};
+        const cuuint32_t one[3] = {1, 1, 1};
+        if (!enc || enc(&tmap, CU_TENSOR_MAP_DATA_TYPE_UINT16, 3, out, dims,
+                        strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+            return (int)cudaErrorInvalidValue;
+    }
+    int sms = 0;
+    const int per_sm = ctas_per_sm(&sms);
+    if (per_sm < 1) return (int)cudaGetLastError();
+    const int tiles = ((pw + kTileX - 1) / kTileX)
+                      * ((ph + kTileY - 1) / kTileY);
+    const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
+    subpel_planes_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+        tmap, (const int16_t*)ref, w, h, pw, ph,
+        1.f / (float)(1 << (bit_depth - 8)), vec_in, tma,
         (int16_t*)out);
     return (int)cudaGetLastError();
+}
+
+// The kernel's resources on the current device: out[0] registers a
+// thread, [1] local (spilled) bytes a thread, [2] shared bytes a CTA,
+// [3] CTAs an SM, [4] threads a CTA, [5] CTAs a 1920x1080 plane launches.
+// Returns a CUDA error code (0 on success).
+extern "C" int subpel_planes_occupancy(int* out) {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, subpel_planes_kernel);
+    if (e != cudaSuccess) return (int)e;
+    int sms = 0;
+    const int per_sm = ctas_per_sm(&sms);
+    if (per_sm < 1) return (int)cudaGetLastError();
+    const int tiles = ((1920 + 2 * kPad + kTileX - 1) / kTileX)
+                      * ((1080 + 2 * kPad + kTileY - 1) / kTileY);
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = kSmem;
+    out[3] = per_sm;
+    out[4] = kThreads;
+    out[5] = tiles < per_sm * sms ? tiles : per_sm * sms;
+    return 0;
 }

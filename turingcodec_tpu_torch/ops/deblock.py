@@ -3,9 +3,9 @@ of `turingcodec_tpu/ops/deblock.py`).
 
 `deblock_device` on CUDA tensors launches the CUDA kernel in
 `csrc/deblock.cu` (its header states the design and what bounds it on an
-H100): one launch for the vertical edges and one for the horizontal edges,
-over the luma and both chroma planes; `deblock_frames` takes F pictures in
-the same two launches. On CPU tensors both run the plain torch version,
+H100) once: both directions, the luma and both chroma planes, read from
+the input and written to new planes; `deblock_frames` takes F pictures in
+the same one launch. On CPU tensors both run the plain torch version,
 `deblock_device_ref`: every 4-line edge segment of the picture is one lane
 of a dense (segments, edges) batch, with inactive segments masked to
 passthrough. The written windows of neighbouring edges tile the sample
@@ -31,7 +31,7 @@ from turingcodec_tpu_torch.ops import kernel_build
 from turingcodec_tpu_torch.ops.dense_me import edge_pad
 from turingcodec_tpu_torch.ops.kernel_build import table
 
-# kernel launches since import (or since a caller reset it to 0): two per
+# kernel launches since import (or since a caller reset it to 0): one per
 # deblock_device or deblock_frames call on the card
 launches = 0
 _LAUNCH = None
@@ -309,7 +309,7 @@ def deblock_device(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
     rcb/rcr (H/2, W/2) int16, the 11 plan maps and 6 per-slice vectors of
     plan_tensors; returns new contiguous (ry, rcb, rcr). across_tiles: a
     bool, or a bool tensor (a frame's flag under torch.func.vmap). CPU
-    tensors take deblock_device_ref; CUDA tensors launch the kernel twice,
+    tensors take deblock_device_ref; CUDA tensors launch the kernel once,
     and a failed build or launch raises."""
     if ry.device.type == "cpu":
         return deblock_device_ref(ry, rcb, rcr, maps, sl, ctb_log2, bd_y,
@@ -329,8 +329,8 @@ def _launcher():
         fn = kernel_build.load("deblock").deblock_launch
         fn.restype = ctypes.c_int
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 3 + [i] * 3 + [p] * 11 + [i] * 2 + [p] * 6
-                       + [i] + [p] + [i] * 5 + [p])
+        fn.argtypes = ([p] * 6 + [i] * 3 + [p] * 11 + [i] * 2 + [p] * 6
+                       + [i] + [p] + [i] * 4 + [p])
         _LAUNCH = fn
     return _LAUNCH
 
@@ -342,9 +342,12 @@ def deblock_frames(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
     per-slice vector with a leading F; across_tiles a bool or an (F,) bool
     tensor. Returns the filtered (ry, rcb, rcr) as new tensors, bit-exact
     with per-picture calls. CPU tensors take deblock_device_ref under
-    torch.func.vmap; CUDA tensors launch the kernel twice (vertical, then
-    horizontal edges, every picture and plane in each launch), and a
-    failed build or launch raises; bit depths 8..16."""
+    torch.func.vmap; CUDA tensors launch the kernel once (both directions,
+    every picture and plane, read from the inputs and written to new
+    tensors: the inputs stay as they were), and a failed build or launch
+    raises; bit depths 8..16; contiguous CUDA planes must start on 8-byte
+    (luma) and 4-byte (chroma) boundaries, as allocations and whole
+    pictures of a batch do."""
     global launches
     dev = ry.device
     if dev.type == "cpu":
@@ -391,21 +394,22 @@ def deblock_frames(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
         across_ptr = across_tiles.data_ptr()
     else:
         across_all = int(bool(across_tiles))
-    out = [p.clone(memory_format=torch.contiguous_format)
-           for p in (ry, rcb, rcr)]
+    planes = [p.contiguous() for p in (ry, rcb, rcr)]
+    if any(p.data_ptr() % a for p, a in zip(planes, (8, 4, 4))):
+        raise ValueError("planes must start on 8-byte (luma) and 4-byte "
+                         "(chroma) boundaries")
+    out = [torch.empty_like(p) for p in planes]
     fn = _launcher()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        for horizontal in (0, 1):
-            if (h if horizontal else w) < 16:
-                continue    # no edge in this direction: nothing to launch
-            rc = fn(*(p.data_ptr() for p in out), f, h, w,
-                    *(m.data_ptr() for m in maps), hc, wc,
-                    *(v.data_ptr() for v in sl), n_sl, across_ptr,
-                    across_all, ctb_log2, bd_y, bd_c, horizontal, stream)
-            if rc != 0:
-                raise RuntimeError(f"deblock launch failed: CUDA error {rc}")
-            launches += 1
+        rc = fn(*(p.data_ptr() for p in planes),
+                *(p.data_ptr() for p in out), f, h, w,
+                *(m.data_ptr() for m in maps), hc, wc,
+                *(v.data_ptr() for v in sl), n_sl, across_ptr, across_all,
+                ctb_log2, bd_y, bd_c, stream)
+    if rc != 0:
+        raise RuntimeError(f"deblock launch failed: CUDA error {rc}")
+    launches += 1
     return tuple(out)
 
 

@@ -9,7 +9,7 @@ a GOP and shards the "frame" axis over a device mesh (the reference's
   laid end to end in one list of F * R planes;
 - residuals: one launch of the residual kernel (`dequant_idct_add`, its
   int16-clip instance over zero planes) for all F * N blocks;
-- deblocking: the kernel's two launches (`deblock_frames`) for all F
+- deblocking: one launch of the deblocking kernel (`deblock_frames`) for all F
   pictures;
 - SAO: one launch of the SAO kernel (`sao_frames`) per component for all
   F pictures.

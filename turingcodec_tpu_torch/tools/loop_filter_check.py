@@ -19,7 +19,10 @@ against the JAX package and by chip_smoke.py):
 ops/sao.sao_frames against deblock_device_ref and _sao_plane on those
 inputs at 1920x1080 (deblocking at 8, 10, 12, 13, 14 and 16 bits, SAO at
 8, 10, 13, 14 and 16; at 16 bits the int16 samples above 32767 wrap, as
-the JAX pipeline holds them) and on every picture of tests/streams that reaches
+the JAX pipeline holds them), deblocking also where the kernel's windows
+are ragged (1912x1080, 1920x1072, 200x152) or larger than the picture
+(40x56, 24x16, 8x8) at 8, 10 and 16 bits and three pictures in one
+launch, and on every picture of tests/streams that reaches
 deblocking (their SAO on every picture that codes it). The card decode's
 stages per picture are timed by TURING_TPU_PIPELINE_TRACE
 (decode/device_pipeline.py).
@@ -280,14 +283,44 @@ def check_kernels(device, log=print):
                                                      ctb_log2=ctb_log2)
         deblock(f"deblock synthetic {w}x{h} {bd}-bit ctb {1 << ctb_log2}",
                 planes, maps, sl, across, ctb_log2, bd, bd)
+    # the kernel's windows where they are ragged (sides no multiple of 16
+    # or 64) or larger than the picture (56x40, 16x24, 8x8 with no edge)
+    for hr, wr in ((1080, 1912), (1072, 1920), (152, 200), (56, 40),
+                   (16, 24), (8, 8)):
+        for bd in (8, 10, 16):
+            planes, maps, sl, across = deblock_synthetic(rng, hr, wr, bd,
+                                                         ctb_log2=4)
+            deblock(f"deblock synthetic {wr}x{hr} {bd}-bit", planes, maps,
+                    sl, across, 4, bd, bd)
+    # three pictures in one launch, each with its own across-tiles flag
+    pics = [deblock_synthetic(rng, 136, 200, 10, ctb_log2=5)
+            for _ in range(3)]
+    flags = torch.tensor([True, False, True])
+    got = db.deblock_frames(
+        *(torch.stack([torch.from_numpy(p[0][k]) for p in pics]).to(device)
+          for k in range(3)),
+        tuple(torch.stack([torch.from_numpy(np.ascontiguousarray(p[1][k]))
+                           for p in pics]).to(device) for k in range(11)),
+        tuple(torch.stack([torch.from_numpy(p[2][k]) for p in pics])
+              .to(device) for k in range(6)),
+        5, 10, 10, flags.to(device))
+    for i, (planes, maps, sl, _) in enumerate(pics):
+        want = db.deblock_device_ref(
+            *(torch.from_numpy(a) for a in planes),
+            tuple(torch.from_numpy(np.ascontiguousarray(m)) for m in maps),
+            tuple(torch.from_numpy(v) for v in sl), 5, 10, 10,
+            bool(flags[i]))
+        errs["deblock"] = max(errs["deblock"], same(
+            f"deblock_frames picture {i} of 3", [g[i] for g in got], want))
+    names["deblock"].append("deblock_frames, 3 pictures 200x136 10-bit")
     for bd in (8, 10, 13, 14, 16):
         for sub in (1, 2):
             sao_one(f"sao synthetic {w // sub}x{h // sub} {bd}-bit",
                     tensors(sao_synthetic(rng, h // sub, w // sub, bd,
                                           64 // sub, sub), "cpu"))
     log(f"kernel vs plain, deblock on {len(names['deblock'])} synthetic "
-        f"1080p pictures and sao on {len(names['sao'])} synthetic planes: "
-        f"equal")
+        f"cases (1080p, ragged windows, a batch of 3) and sao on "
+        f"{len(names['sao'])} synthetic planes: equal")
 
     from turingcodec_tpu_torch.ops.deblock import plan_tensors
     from turingcodec_tpu_torch.ops.sao import _picture_maps, sao_ctb_args
