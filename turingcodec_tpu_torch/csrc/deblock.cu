@@ -35,16 +35,22 @@
 // windows' 4-line segments start on multiples of 4, so no segment's
 // decision straddles two windows; chroma likewise, shifted by 2. Windows
 // are disjoint and cover the picture, so a CTA
-//   1. loads its luma window (8-byte loads) and both chroma windows
-//      (4-byte loads) into shared memory, 12 KB;
+//   1. copies its luma window (8 bytes a copy) and both chroma windows
+//      (4 bytes) into shared memory with cp.async, all in flight at once,
+//      and stages the 4x4 maps of the window's 16 x 16 blocks beside them,
+//      a block a thread (21 KB in all); meanwhile each thread reads its
+//      segment's slice and tile rules from the CTB maps;
 //   2. derives, one thread a segment, the flag, bS and thresholds of its
-//      128 vertical and 128 horizontal segments from the maps (256
-//      threads, each reading its segment's two 4x4 blocks);
+//      128 vertical and 128 horizontal segments from the staged maps (the
+//      p side of the window's first edge is its first block);
 //   3. filters the vertical edges in shared memory, then, after a barrier,
 //      the horizontal ones;
 //   4. writes the whole window, filtered or not, to the output.
 // The copy of the planes is the kernel's own read and write, and each
-// sample is read from and written to device memory once.
+// sample and map is read from and written to device memory once. At 1080p
+// the 527 CTAs (256 threads, 4 an SM) run in one wave, so the time is
+// about one round trip to device memory for the windows and maps, one more
+// for the slice rules, the filters, and the stores draining.
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -102,24 +108,32 @@ __device__ inline bool dge4(int ax, int ay, int bx, int by) {
     return abs(ax - bx) >= 4 || abs(ay - by) >= 4;
 }
 
-// the motion bS of blocks p and q (ops/deblock.py _motion_bs): indices
-// into one picture's (h4, w4) grid
-__device__ int motion_bs(const Maps& m, size_t f4, size_t plane4, int ip,
-                         int iq) {
-    const int8_t* ri = m.ref_idx + 2 * f4;
-    const int32_t* rp = m.ref_poc + 2 * f4;
-    const int16_t* mv = m.mv + 4 * f4;
-    const int r0p = ri[ip], r1p = ri[plane4 + ip];
-    const int r0q = ri[iq], r1q = ri[plane4 + iq];
+constexpr int kB = kT / 4;   // 4x4 blocks a window side
+
+// the 4x4 maps of a window's kB x kB blocks, staged in shared memory: the
+// block at (r, c) is the picture's (yw / 4 + r, xw / 4 + c)
+struct Blocks {
+    int32_t tu[kB][kB], pu[kB][kB], cu[kB][kB];
+    int32_t poc[2][kB][kB];
+    int16_t mv[2][kB][kB][2];   // (x, y)
+    int8_t ri[2][kB][kB];
+    uint8_t pred[kB][kB], cbf[kB][kB];
+    int8_t qp[kB][kB];
+};
+
+// the motion bS of blocks p and q (ops/deblock.py _motion_bs)
+__device__ int motion_bs(const Blocks& b, int py, int px, int qy, int qx) {
+    const int r0p = b.ri[0][py][px], r1p = b.ri[1][py][px];
+    const int r0q = b.ri[0][qy][qx], r1q = b.ri[1][qy][qx];
     const int np = (r0p >= 0) + (r1p >= 0), nq = (r0q >= 0) + (r1q >= 0);
     if (np != nq) return 1;
     if (np == 0) return 0;
-    const int poc0p = rp[ip], poc1p = rp[plane4 + ip];
-    const int poc0q = rp[iq], poc1q = rp[plane4 + iq];
-    const int m0px = mv[2 * ip], m0py = mv[2 * ip + 1];
-    const int m1px = mv[2 * (plane4 + ip)], m1py = mv[2 * (plane4 + ip) + 1];
-    const int m0qx = mv[2 * iq], m0qy = mv[2 * iq + 1];
-    const int m1qx = mv[2 * (plane4 + iq)], m1qy = mv[2 * (plane4 + iq) + 1];
+    const int poc0p = b.poc[0][py][px], poc1p = b.poc[1][py][px];
+    const int poc0q = b.poc[0][qy][qx], poc1q = b.poc[1][qy][qx];
+    const int m0px = b.mv[0][py][px][0], m0py = b.mv[0][py][px][1];
+    const int m1px = b.mv[1][py][px][0], m1py = b.mv[1][py][px][1];
+    const int m0qx = b.mv[0][qy][qx][0], m0qy = b.mv[0][qy][qx][1];
+    const int m1qx = b.mv[1][qy][qx][0], m1qy = b.mv[1][qy][qx][1];
     if (np == 1) {
         const bool p0 = r0p >= 0, q0 = r0q >= 0;
         const int pp = p0 ? poc0p : poc1p, pq = q0 ? poc0q : poc1q;
@@ -138,62 +152,70 @@ __device__ int motion_bs(const Maps& m, size_t f4, size_t plane4, int ip,
     return poc0p == poc0q ? !direct_ok : !crossed_ok;
 }
 
+// What a segment reads outside the window's blocks: its slice's and
+// tile's rules and offsets, from the CTBs of its p and q sides.
+struct SliceRules {
+    bool crosses_off;   // filtering across this slice or tile edge is off
+    bool disabled;
+    int beta_off, tc_off, cb_off, cr_off;
+};
 
-// The segment at A of the edge at E of picture f: false where it is not
-// filtered; else its bS and the luma beta and tc, and the Cb and Cr tc
-// (0 where the chroma filter does not run).
-__device__ bool segment(const Maps& m, const Dims& d, int f, int E, int A,
-                        bool horiz, int& beta, int& tc, int (&tc_c)[2]) {
-    const size_t plane4 = (size_t)d.h4 * d.w4;
-    const size_t f4 = f * plane4;
+__device__ SliceRules slice_rules(const Maps& m, const Dims& d, int f, int E,
+                                  int A, bool horiz) {
     const size_t fc = (size_t)f * d.hc * d.wc;
-    // the p and q 4x4 blocks, and the CTBs of the q and p sides
-    const int ip = horiz ? ((E - 1) >> 2) * d.w4 + (A >> 2)
-                         : (A >> 2) * d.w4 + ((E - 1) >> 2);
-    const int iq = horiz ? (E >> 2) * d.w4 + (A >> 2)
-                         : (A >> 2) * d.w4 + (E >> 2);
     const int ca = A >> d.ctb_log2;
     const int cq = horiz ? (E >> d.ctb_log2) * d.wc + ca
                          : ca * d.wc + (E >> d.ctb_log2);
     const int cp = horiz ? ((E - 1) >> d.ctb_log2) * d.wc + ca
                          : ca * d.wc + ((E - 1) >> d.ctb_log2);
-
-    const bool tu_edge = m.tu_id[f4 + ip] != m.tu_id[f4 + iq];
-    const bool edge = tu_edge || m.pu_id[f4 + ip] != m.pu_id[f4 + iq]
-                      || m.cu_id[f4 + ip] != m.cu_id[f4 + iq];
-    if (!edge) return false;
-    const int slice_q = m.slice_idx[fc + cq];
+    const int slice_q = m.slice_idx[fc + cq], slice_p = m.slice_idx[fc + cp];
+    const int tile_q = m.tile_id[fc + cq], tile_p = m.tile_id[fc + cp];
     const int sl = f * d.n_sl + clip3(0, d.n_sl - 1, slice_q);
-    if (m.disabled[sl]) return false;
-    if (m.slice_idx[fc + cp] != slice_q && !m.across[sl]) return false;
     const bool across_tiles = m.across_tiles ? m.across_tiles[f] != 0
                                              : d.across_all != 0;
-    if (!across_tiles && m.tile_id[fc + cp] != m.tile_id[fc + cq])
-        return false;
+    SliceRules r;
+    r.crosses_off = (slice_p != slice_q && !m.across[sl])
+                    || (!across_tiles && tile_p != tile_q);
+    r.disabled = m.disabled[sl];
+    r.beta_off = m.beta_off[sl];
+    r.tc_off = m.tc_off[sl];
+    r.cb_off = m.cb_off[sl];
+    r.cr_off = m.cr_off[sl];
+    return r;
+}
 
+// Whether the segment between blocks p and q of the edge at E is
+// filtered; if so its luma beta and tc, and the Cb and Cr tc (0 where the
+// chroma filter does not run).
+__device__ bool segment(const Blocks& b, const Dims& d, const SliceRules& r,
+                        int E, int py, int px, int qy, int qx, int& beta,
+                        int& tc, int (&tc_c)[2]) {
+    const bool tu_edge = b.tu[py][px] != b.tu[qy][qx];
+    const bool edge = tu_edge || b.pu[py][px] != b.pu[qy][qx]
+                      || b.cu[py][px] != b.cu[qy][qx];
+    if (!edge || r.disabled || r.crosses_off) return false;
     int bs;
-    if (m.pred_mode[f4 + ip] == 1 || m.pred_mode[f4 + iq] == 1)
+    if (b.pred[py][px] == 1 || b.pred[qy][qx] == 1)
         bs = 2;
-    else if (tu_edge && (m.cbf_y[f4 + ip] > 0 || m.cbf_y[f4 + iq] > 0))
+    else if (tu_edge && (b.cbf[py][px] > 0 || b.cbf[qy][qx] > 0))
         bs = 1;
     else
-        bs = motion_bs(m, f4, plane4, ip, iq);
+        bs = motion_bs(b, py, px, qy, qx);
     if (bs == 0) return false;
 
-    const int qp_p = m.qp_y[f4 + ip], qp_q = m.qp_y[f4 + iq];
-    const int tc_off = m.tc_off[sl];
-    const int qpl = (qp_p + qp_q + 1) >> 1;
-    beta = kBeta[clip3(0, 51, qpl + m.beta_off[sl])] << (d.bd_y - 8);
-    tc = kTc[clip3(0, 53, qpl + 2 * (bs - 1) + tc_off)] << (d.bd_y - 8);
+    const int qpl = (b.qp[py][px] + b.qp[qy][qx] + 1) >> 1;
+    beta = kBeta[clip3(0, 51, qpl + r.beta_off)] << (d.bd_y - 8);
+    tc = kTc[clip3(0, 53, qpl + 2 * (bs - 1) + r.tc_off)] << (d.bd_y - 8);
     tc_c[0] = tc_c[1] = 0;
     // chroma: every second luma edge, bS 2
     if (E % 16 || bs != 2) return true;
     const int qp_bd_off_c = 6 * (d.bd_c - 8);
     for (int c = 0; c < 2; ++c) {
-        const int off = c ? m.cr_off[sl] : m.cb_off[sl];
-        const int qpi = clip3(-qp_bd_off_c, 57, qpl + off);
+        const int qpi = clip3(-qp_bd_off_c, 57,
+                              qpl + (c ? r.cr_off : r.cb_off));
         const int qpc = qpi < 0 ? qpi : kChromaQp[clip3(0, 57, qpi)];
-        tc_c[c] = max(kTc[clip3(0, 53, qpc + 2 + tc_off)] << (d.bd_c - 8), 0);
+        tc_c[c] = max(kTc[clip3(0, 53, qpc + 2 + r.tc_off)] << (d.bd_c - 8),
+                      0);
     }
     return true;
 }
@@ -287,6 +309,7 @@ deblock_kernel(const int16_t* __restrict__ y_in,
                Maps m, Dims d) {
     __shared__ __align__(16) int16_t sy[kT][kT];
     __shared__ __align__(16) int16_t sc[2][kTw][kTw];
+    __shared__ __align__(16) Blocks blk;
     const int tid = threadIdx.x, f = blockIdx.z;
     const int x0 = blockIdx.x * kT, y0 = blockIdx.y * kT;
     // the windows' origins: sy[r][c] is luma (yw + r, xw + c), sc[p][r][c]
@@ -296,27 +319,58 @@ deblock_kernel(const int16_t* __restrict__ y_in,
     const size_t fy = (size_t)f * d.h * d.w, fc = (size_t)f * hc2 * wc2;
 
     // 1. the windows in: the parts inside the picture, 4 luma samples (x a
-    // multiple of 4) or 2 chroma samples (x even) a load
+    // multiple of 4) or 2 chroma samples (x even) a copy, all in flight at
+    // once (cp.async)
     for (int i = tid; i < kT * (kT / 4); i += kThreads) {
         const int r = i / (kT / 4), c = (i % (kT / 4)) * 4;
         const int y = yw + r, x = xw + c;
         if (y >= 0 && y < d.h && x >= 0 && x < d.w)
-            *reinterpret_cast<uint2*>(&sy[r][c]) = __ldg(
-                reinterpret_cast<const uint2*>(y_in + fy + (size_t)y * d.w
-                                               + x));
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                         :: "r"((uint32_t)__cvta_generic_to_shared(&sy[r][c])),
+                            "l"(y_in + fy + (size_t)y * d.w + x)
+                         : "memory");
     }
     for (int i = tid; i < 2 * kTw * (kTw / 2); i += kThreads) {
         const int p = i / (kTw * (kTw / 2)), j = i % (kTw * (kTw / 2));
         const int r = j / (kTw / 2), c = (j % (kTw / 2)) * 2;
         const int y = ycw + r, x = xcw + c;
         if (y >= 0 && y < hc2 && x >= 0 && x < wc2)
-            *reinterpret_cast<uint32_t*>(&sc[p][r][c]) = __ldg(
-                reinterpret_cast<const uint32_t*>((p ? cr_in : cb_in) + fc
-                                                  + (size_t)y * wc2 + x));
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                         :: "r"((uint32_t)__cvta_generic_to_shared(
+                                &sc[p][r][c])),
+                            "l"((p ? cr_in : cb_in) + fc + (size_t)y * wc2
+                                + x)
+                         : "memory");
+    }
+
+    // the window's 4x4 maps, a block a thread
+    {
+        const int r = tid / kB, c = tid % kB;
+        const int gy = yw / 4 + r, gx = xw / 4 + c;
+        if (gy >= 0 && gy < d.h4 && gx >= 0 && gx < d.w4) {
+            const size_t plane4 = (size_t)d.h4 * d.w4;
+            const size_t i = f * plane4 + (size_t)gy * d.w4 + gx;
+            const size_t i1 = i + f * plane4, i2 = i1 + plane4;
+            blk.tu[r][c] = m.tu_id[i];
+            blk.pu[r][c] = m.pu_id[i];
+            blk.cu[r][c] = m.cu_id[i];
+            blk.pred[r][c] = m.pred_mode[i];
+            blk.cbf[r][c] = m.cbf_y[i];
+            blk.qp[r][c] = m.qp_y[i];
+            blk.ri[0][r][c] = m.ref_idx[i1];
+            blk.ri[1][r][c] = m.ref_idx[i2];
+            blk.poc[0][r][c] = m.ref_poc[i1];
+            blk.poc[1][r][c] = m.ref_poc[i2];
+            *reinterpret_cast<uint32_t*>(blk.mv[0][r][c]) =
+                reinterpret_cast<const uint32_t*>(m.mv)[i1];
+            *reinterpret_cast<uint32_t*>(blk.mv[1][r][c]) =
+                reinterpret_cast<const uint32_t*>(m.mv)[i2];
+        }
     }
 
     // 2. this thread's segment: the vertical edges' segments for the first
-    // kSegs threads (8 edges of 16 segments), the horizontal ones' after
+    // kSegs threads (8 edges of 16 segments), the horizontal ones' after;
+    // its slice rules read while the window and its maps arrive
     const bool horiz = tid >= kSegs;
     const int u = horiz ? tid - kSegs : tid;
     int E, A;
@@ -330,10 +384,18 @@ deblock_kernel(const int16_t* __restrict__ y_in,
         A = xw + 4 * (u % (kT / 4));
         valid = E >= 8 && E <= d.h - 8 && A >= 0 && A < d.w;
     }
-    int beta = 0, tc = 0, tc_c[2] = {0, 0};
-    const bool on = valid && segment(m, d, f, E, A, horiz, beta, tc, tc_c);
-    const int max_y = (1 << d.bd_y) - 1, max_c = (1 << d.bd_c) - 1;
+    SliceRules rules{};
+    if (valid) rules = slice_rules(m, d, f, E, A, horiz);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
+    // the p and q blocks in the window's grid
+    const int ea = (E - (horiz ? yw : xw)) / 4, aa = (A - (horiz ? xw : yw)) / 4;
+    const int py = horiz ? ea - 1 : aa, px = horiz ? aa : ea - 1;
+    const int qy = horiz ? ea : aa, qx = horiz ? aa : ea;
+    int beta = 0, tc = 0, tc_c[2] = {0, 0};
+    const bool on = valid && segment(blk, d, rules, E, py, px, qy, qx, beta,
+                                     tc, tc_c);
+    const int max_y = (1 << d.bd_y) - 1, max_c = (1 << d.bd_c) - 1;
 
     // 3. the vertical edges, then the horizontal edges
     if (on && !horiz) {

@@ -26,21 +26,19 @@
 // (on an H100 SXM at 700 W, PERF.md section 6): 16-byte register stores of
 // all 15 planes by tiles of 64x32 samples take 35 us, of 128x16 29 us, of
 // 256x8 26 us; TMA stores of the same tiles 38, 33 and 30 us; torch's
-// zero_() of the output 23 us. Writing the output by TMA bounds this
-// design.
+// zero_() of the output 23 us.
 //
 // Design. One launch per plane, of persistent CTAs: as many as fit on the
-// card at once (two an SM: 256 threads each, 107 KB of shared memory),
-// each walking the tiles of 16 output rows by 128 output columns of every
+// card at once (two an SM: 256 threads each, 113 KB of shared memory),
+// each walking the tiles of 8 output rows by 256 output columns of every
 // plane with a stride of the grid. For each tile a CTA
-//   1. waits for the tile's source window (23 rows by 136 samples, clamped
-//      to the picture), loaded while the last tile was filtered, and
-//      starts loading the next tile's window into the other of two
-//      buffers: cp.async of 16 bytes where 8 samples lie inside the
-//      picture's row (a row index is clamped, so whole rows replicate for
-//      free), a sample at a time where the window crosses the left or
-//      right edge;
-//   2. computes the three horizontal phases of the window's 23 rows, four
+//   1. waits for the tile's source window (15 rows by 264 samples, clamped
+//      to the picture), whose loads were issued during the last tile's
+//      vertical pass, as soon as its samples had been read for the last
+//      time: cp.async of 16 bytes where 8 samples lie inside the picture's
+//      row (a row index is clamped, so whole rows replicate for free), a
+//      sample at a time where the window crosses the left or right edge;
+//   2. computes the three horizontal phases of the window's 15 rows, four
 //      columns a thread, into shared memory as floats: every sum of up to
 //      8 int16 samples times taps is an integer below 2^22 in magnitude,
 //      exact in a float, and the shift is an exact scaling rounded down;
@@ -48,8 +46,8 @@
 //      horizontal phase (and the samples themselves) it reads the 9 x 4
 //      sources of its vertical taps, one 16-byte shared load a row (a
 //      warp's 512 contiguous bytes), forms the three vertical phases with
-//      float multiply-adds and writes all 15 planes' samples into a
-//      staging tile (15 x 16 x 128 int16, 60 KB). The vertical sums over a
+//      float multiply-adds and writes the planes' samples into a staging
+//      tile (15 x 8 x 256 int16, 60 KB). The vertical sums over a
 //      horizontal phase stay exact in floats while every |H| of the tile
 //      is at most 37449 (112 x 37449 < 2^22): always for samples within
 //      their bit depth, and at 15 and 16 bits for any int16; a tile with a
@@ -57,7 +55,7 @@
 //      sums in int32 instead;
 //   4. hands each horizontal phase's 3 or 4 planes to the TMA as soon as
 //      step 3 has staged them: one thread issues a cp.async.bulk.tensor
-//      store of a (128, 16, 1) box per plane into the output, whose tensor
+//      store of a (256, 8, 1) box per plane into the output, whose tensor
 //      map (built on the host with cuTensorMapEncodeTiled, reached through
 //      cudaGetDriverEntryPoint, so nothing links libcuda) is a
 //      __grid_constant__ parameter, one bulk group per phase. The TMA clips
@@ -66,11 +64,14 @@
 //      (cp.async.bulk.wait_group.read) until the TMA has read them.
 // So a CTA's stores drain while it filters the rest of the tile and
 // loads and filters the next one, and the other CTA of its SM fills the
-// gaps (one store of the whole staging tile a tile took 4% longer). Why these sizes: a tile row of
-// 256 bytes writes longer runs than 64 columns would, and 16 rows keep
-// the window's 7 extra rows at 44%; 4 x 2 outputs a thread read each
-// source 4.5 times less often from shared memory than 8 x 1 did, without
-// bank conflicts; one staging tile (not two) keeps two CTAs an SM.
+// gaps. Why these sizes (PERF.md section 6): TMA stores of 512-byte tile
+// rows are the fastest measured (30 us for the output against 33 us for
+// 256-byte rows and 38 for 128), and 8 x 256 tiles ran 4% faster than
+// 16 x 128 ones, though their windows' 7 extra rows add 88% to the
+// horizontal pass, not 44%; a single window buffer keeps two CTAs an SM
+// in shared memory; 4 x 2 outputs a thread read each source 4.5 times
+// less often from shared memory than 8 x 1 did, without bank conflicts;
+// one store per phase instead of one per tile saved 4%.
 // The TMA needs a row stride of a multiple of 16 bytes: where the padded
 // width is not a multiple of 8, or the output is not 16-byte aligned, the
 // CTA's threads copy the staging tile out themselves, a sample each,
@@ -87,8 +88,8 @@
 namespace {
 
 constexpr int kPad = 28;        // enc_core SP_P
-constexpr int kTileX = 128;     // output columns of a tile
-constexpr int kTileY = 16;      // output rows of a tile
+constexpr int kTileX = 256;     // output columns of a tile
+constexpr int kTileY = 8;       // output rows of a tile
 constexpr int kPlanes = 15;
 constexpr int kThreads = kTileY * kTileX / 8;   // 4 columns by 2 rows each
 constexpr int kRows = kTileY + 7;   // source rows of a tile
@@ -98,7 +99,7 @@ constexpr int kChunks = kInCols / 8;
 struct __align__(128) Smem {
     int16_t stage[kPlanes][kTileY][kTileX];   // the TMA's source
     float hor[3][kRows][kTileX];              // horizontal phases 1..3
-    int16_t in[2][kRows][kInCols];            // source windows
+    int16_t in[kRows][kInCols];               // the source window
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -179,19 +180,16 @@ subpel_planes_kernel(const __grid_constant__ CUtensorMap tmap,
     const int n_tiles = ntx * ((ph + kTileY - 1) / kTileY);
     int tile = blockIdx.x;
     if (tile >= n_tiles) return;
-    load_window(s.in[0], ref, w, h, (tile % ntx) * kTileX,
+    load_window(s.in, ref, w, h, (tile % ntx) * kTileX,
                 (tile / ntx) * kTileY, vec_in, tid);
 
-    for (int i = 0; tile < n_tiles; ++i, tile += gridDim.x) {
+    for (; tile < n_tiles; tile += gridDim.x) {
         const int ox0 = (tile % ntx) * kTileX, oy0 = (tile / ntx) * kTileY;
-        int16_t (*src)[kInCols] = s.in[i & 1];
-        // 1. this tile's window in, the next tile's loads out
+        int16_t (*src)[kInCols] = s.in;
+        // 1. this tile's window in (its loads were issued during the last
+        // tile's vertical pass)
         asm volatile("cp.async.wait_group 0;\n" ::: "memory");
         __syncthreads();
-        const int next = tile + gridDim.x;
-        if (next < n_tiles)
-            load_window(s.in[(i + 1) & 1], ref, w, h, (next % ntx) * kTileX,
-                        (next / ntx) * kTileY, vec_in, tid);
 
         // 2. the horizontal phases 1..3 as floats, four output columns a
         // thread: output column c reads window columns c + 1 .. c + 8
@@ -324,6 +322,11 @@ subpel_planes_kernel(const __grid_constant__ CUtensorMap tmap,
                 }
                 asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
             }
+            // the window read for the last time: the next tile's loads out
+            const int next = tile + gridDim.x;
+            if (xf == 0 && next < n_tiles)
+                load_window(s.in, ref, w, h, (next % ntx) * kTileX,
+                            (next / ntx) * kTileY, vec_in, tid);
         }
         if (!tma) {
             const size_t plane = (size_t)ph * pw;

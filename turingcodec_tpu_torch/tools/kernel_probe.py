@@ -1,5 +1,5 @@
-"""CLI: time csrc/subpel_planes.cu against other versions of its source,
-in turns, on the card.
+"""CLI: time csrc/subpel_planes.cu (or csrc/deblock.cu) against other
+versions of its source, in turns, on the card.
 
 Each --src is a complete .cu with subpel_planes.cu's C entry point
 (`subpel_planes_launch(ref, w, h, bit_depth, out, stream)`), built as
@@ -22,8 +22,15 @@ every plane, one CTA a tile; and TMA tensor stores of (64, 32, 15),
 persistent CTAs (two an SM, as the kernel), with one (and for two shapes
 four) stores in flight a CTA.
 
+--deblock times versions of csrc/deblock.cu instead (its C entry point
+as in the tree), on a synthetic 1920x1080 8-bit picture of
+tools/loop_filter_check.py (copies of it overflowing the L2 cache), the
+first held against deblock_device_ref; device time per launch from
+torch.profiler, in turns.
+
 Usage: python -m turingcodec_tpu_torch.tools.kernel_probe
            --src A.cu --src B.cu ... [--rounds 3] [--launches 20]
+           [--deblock]
        python -m turingcodec_tpu_torch.tools.kernel_probe --stores
 """
 from __future__ import annotations
@@ -195,6 +202,93 @@ def build_stores():
             for i, name in enumerate(STORE_VARIANTS)]
 
 
+def build_deblock(src: str, tag: str):
+    """csrc/deblock.cu's entry point built from `src`; prints its
+    resources (deblock_occupancy)."""
+    from turingcodec_tpu_torch.ops import deblock as db
+    from turingcodec_tpu_torch.ops import kernel_build as kb
+    out_dir = os.path.join(os.path.dirname(kb.BUILD_DIR), "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, f"lib{tag}.so")
+    os.makedirs(kb.BUILD_DIR, exist_ok=True)
+    r = subprocess.run([kb._nvcc()] + kb.NVCC_FLAGS + kb._tables("deblock")
+                       + ["-o", so, src], capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"nvcc failed for {src}:\n{r.stderr}")
+    lib = ctypes.CDLL(so)
+    info = (ctypes.c_int * 6)()
+    if lib.deblock_occupancy(info):
+        raise RuntimeError(f"{tag}: occupancy query failed")
+    print(f"{tag}: registers {info[0]}, local bytes {info[1]}, shared bytes "
+          f"{info[2]}, CTAs per SM {info[3]}, threads {info[4]}")
+    fn = lib.deblock_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = db._launcher().argtypes
+    return fn
+
+
+def time_deblock(args, dev) -> int:
+    import torch
+
+    from turingcodec_tpu_torch.ops import deblock as db
+    from turingcodec_tpu_torch.tools.loop_filter_check import (
+        deblock_synthetic, tensors)
+    fns = [build_deblock(s, f"d{i}") for i, s in enumerate(args.src)]
+    h, w, bd = 1080, 1920, 8
+    planes, maps, sl, across = deblock_synthetic(np.random.default_rng(19),
+                                                 h, w, bd, ctb_log2=4)
+    one = tensors((planes[0], planes[1], planes[2], maps, sl), dev)
+    size = sum(t.nbytes for t in one[:3] + one[3] + one[4])
+    copies = [one] + [(*(p.clone() for p in one[:3]),
+                       tuple(m.clone() for m in one[3]),
+                       tuple(v.clone() for v in one[4]))
+                      for _ in range(-(-(200 << 20) // size) - 1)]
+    out = [torch.empty_like(p) for p in one[:3]]
+    hc, wc = one[3][9].shape[1:]
+    n_sl = one[4][0].shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(fn, a):
+        rc = fn(*(p.data_ptr() for p in a[:3]), *(p.data_ptr() for p in out),
+                1, h, w, *(m.data_ptr() for m in a[3]), hc, wc,
+                *(v.data_ptr() for v in a[4]), n_sl, None, int(across), 4,
+                bd, bd, stream)
+        if rc:
+            raise RuntimeError(f"launch failed: CUDA error {rc}")
+    run(fns[0], one)
+    torch.cuda.synchronize()
+    want = db.deblock_device_ref(
+        *(torch.from_numpy(p) for p in planes),
+        tuple(torch.from_numpy(np.ascontiguousarray(m)) for m in maps),
+        tuple(torch.from_numpy(v) for v in sl), 4, bd, bd, across)
+    if not all(torch.equal(g[0].cpu(), x) for g, x in zip(out, want)):
+        raise RuntimeError(f"{args.src[0]} differs from deblock_device_ref")
+    print(f"{args.src[0]}: equal to deblock_device_ref at {w}x{h}")
+    # device time from the profiler: the launches' host side (35
+    # arguments through ctypes) takes longer than the kernel
+    from torch.profiler import ProfilerActivity, profile
+    times = {i: [] for i in range(len(fns))}
+    order = list(range(len(fns)))
+    k = 0
+    for _ in range(args.rounds):
+        for i in order + order[::-1]:
+            run(fns[i], copies[k % len(copies)])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(args.launches):
+                    k += 1
+                    run(fns[i], copies[k % len(copies)])
+                torch.cuda.synchronize()
+            us = sum(getattr(e, "self_device_time_total", 0)
+                     for e in prof.key_averages() if "deblock" in e.key)
+            times[i].append(us / args.launches)
+    for i, s in enumerate(args.src):
+        print(f"{s}: " + " / ".join(f"{t:.2f}" for t in times[i])
+              + f" us per launch, in turns; median "
+              f"{statistics.median(times[i]):.2f}")
+    return 0
+
+
 def build(src: str, tag: str) -> ctypes.CDLL:
     from turingcodec_tpu_torch.ops import kernel_build as kb
     out_dir = os.path.join(os.path.dirname(kb.BUILD_DIR), "probe")
@@ -239,6 +333,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", action="append", default=[])
     ap.add_argument("--stores", action="store_true")
+    ap.add_argument("--deblock", action="store_true")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--launches", type=int, default=20)
     args = ap.parse_args(argv)
@@ -246,6 +341,8 @@ def main(argv=None) -> int:
 
     from turingcodec_tpu_torch.encode import device_analysis as da
     dev = torch.device("cuda")
+    if args.deblock:
+        return time_deblock(args, dev)
     h, w = 1080, 1920
     if args.stores:
         return time_stores(args, dev, h, w)
