@@ -29,49 +29,50 @@
 // zero_() of the output 23 us.
 //
 // Design. One launch per plane, of persistent CTAs: as many as fit on the
-// card at once (two an SM: 256 threads each, 113 KB of shared memory),
+// card at once (three an SM: 256 threads each, 70 KB of shared memory),
 // each walking the tiles of 8 output rows by 256 output columns of every
 // plane with a stride of the grid. For each tile a CTA
 //   1. waits for the tile's source window (15 rows by 264 samples, clamped
-//      to the picture), whose loads were issued during the last tile's
-//      vertical pass, as soon as its samples had been read for the last
-//      time: cp.async of 16 bytes where 8 samples lie inside the picture's
-//      row (a row index is clamped, so whole rows replicate for free), a
-//      sample at a time where the window crosses the left or right edge;
-//   2. computes the three horizontal phases of the window's 15 rows, four
-//      columns a thread, into shared memory as floats: every sum of up to
-//      8 int16 samples times taps is an integer below 2^22 in magnitude,
-//      exact in a float, and the shift is an exact scaling rounded down;
-//   3. gives each thread 4 consecutive output columns of 2 rows: per
-//      horizontal phase (and the samples themselves) it reads the 9 x 4
-//      sources of its vertical taps, one 16-byte shared load a row (a
-//      warp's 512 contiguous bytes), forms the three vertical phases with
-//      float multiply-adds and writes the planes' samples into a staging
-//      tile (15 x 8 x 256 int16, 60 KB). The vertical sums over a
-//      horizontal phase stay exact in floats while every |H| of the tile
-//      is at most 37449 (112 x 37449 < 2^22): always for samples within
-//      their bit depth, and at 15 and 16 bits for any int16; a tile with a
-//      larger |H| (samples far outside their bit depth) takes the same
-//      sums in int32 instead;
-//   4. hands each horizontal phase's 3 or 4 planes to the TMA as soon as
-//      step 3 has staged them: one thread issues a cp.async.bulk.tensor
+//      to the picture), loaded during the last tile, turns it into floats
+//      (every int16 is exact) and issues the next tile's loads into the
+//      freed buffer: cp.async of 16 bytes where 8 samples lie inside the
+//      picture's row (a row index is clamped, so whole rows replicate for
+//      free), a sample at a time where the window crosses the left or
+//      right edge;
+//   then, for each horizontal phase xf = 0..3 (0: the samples themselves):
+//   2. computes phase xf of the window's 15 rows, four columns a thread,
+//      into shared memory as floats: every sum of 8 int16 samples times
+//      taps is an integer below 2^22 in magnitude, exact in a float, and
+//      the shift is an exact scaling rounded down;
+//   3. gives each thread 4 consecutive output columns of 2 rows: it reads
+//      the 9 x 4 sources of its vertical taps, one 16-byte shared load a
+//      row (a warp's 512 contiguous bytes), forms the vertical phases with
+//      float multiply-adds and writes the phase's 3 or 4 planes into a
+//      staging slot (4 x 8 x 256 int16, 16 KB; a ring of two). The
+//      vertical sums over a horizontal phase stay exact in floats while
+//      every |H| of the tile is at most 37449 (112 x 37449 < 2^22): always
+//      for samples within their bit depth, and at 15 and 16 bits for any
+//      int16; a tile and phase with a larger |H| (samples far outside
+//      their bit depth) takes the same sums in int32 instead;
+//   4. hands the slot to the TMA: one thread issues a cp.async.bulk.tensor
 //      store of a (256, 8, 1) box per plane into the output, whose tensor
 //      map (built on the host with cuTensorMapEncodeTiled, reached through
 //      cudaGetDriverEntryPoint, so nothing links libcuda) is a
 //      __grid_constant__ parameter, one bulk group per phase. The TMA clips
-//      the boxes at the output's ragged edges. Before a phase's planes are
-//      staged again for the next tile, the issuing thread waits
-//      (cp.async.bulk.wait_group.read) until the TMA has read them.
-// So a CTA's stores drain while it filters the rest of the tile and
-// loads and filters the next one, and the other CTA of its SM fills the
-// gaps. Why these sizes (PERF.md section 6): TMA stores of 512-byte tile
-// rows are the fastest measured (30 us for the output against 33 us for
-// 256-byte rows and 38 for 128), and 8 x 256 tiles ran 4% faster than
-// 16 x 128 ones, though their windows' 7 extra rows add 88% to the
-// horizontal pass, not 44%; a single window buffer keeps two CTAs an SM
-// in shared memory; 4 x 2 outputs a thread read each source 4.5 times
-// less often from shared memory than 8 x 1 did, without bank conflicts;
-// one store per phase instead of one per tile saved 4%.
+//      the boxes at the output's ragged edges. Before a slot is staged
+//      again, the issuing thread waits (cp.async.bulk.wait_group.read)
+//      until the TMA has read it.
+// So a phase's stores drain while the CTA computes the next phase, and
+// the other CTAs of its SM fill the gaps. Why these sizes (PERF.md section
+// 6): TMA stores of 512-byte tile rows are the fastest measured (30 us for
+// the output against 33 us for 256-byte rows and 38 for 128), and 8 x 256
+// tiles ran 4% faster than 16 x 128 ones, though their windows' 7 extra
+// rows add 88% to the horizontal pass, not 44%; one phase at a time in
+// shared memory keeps three CTAs an SM (2% faster than all three phases
+// and all 15 planes at once, two CTAs an SM); 4 x 2 outputs a thread read
+// each source 4.5 times less often from shared memory than 8 x 1 did,
+// without bank conflicts; one store per phase instead of one per tile
+// saved 4%.
 // The TMA needs a row stride of a multiple of 16 bytes: where the padded
 // width is not a multiple of 8, or the output is not 16-byte aligned, the
 // CTA's threads copy the staging tile out themselves, a sample each,
@@ -96,10 +97,14 @@ constexpr int kRows = kTileY + 7;   // source rows of a tile
 constexpr int kInCols = kTileX + 8; // source samples of a row, from x0 - 32
 constexpr int kChunks = kInCols / 8;
 
+constexpr int kGroup = 4;           // planes of one horizontal phase
+
 struct __align__(128) Smem {
-    int16_t stage[kPlanes][kTileY][kTileX];   // the TMA's source
-    float hor[3][kRows][kTileX];              // horizontal phases 1..3
-    int16_t in[kRows][kInCols];               // the source window
+    // the TMA's source, a ring of two phases' planes
+    int16_t stage[2][kGroup][kTileY][kTileX];
+    float win[kRows][kInCols];        // the tile's source window as floats
+    float hor[kRows][kTileX];         // one horizontal phase
+    int16_t in[kRows][kInCols];       // the next tile's source window
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -166,7 +171,7 @@ __device__ __forceinline__ void load_window(
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 3)
 subpel_planes_kernel(const __grid_constant__ CUtensorMap tmap,
                      const int16_t* __restrict__ ref, int w, int h, int pw,
                      int ph, float scale1, int vec_in, int tma,
@@ -182,75 +187,84 @@ subpel_planes_kernel(const __grid_constant__ CUtensorMap tmap,
     if (tile >= n_tiles) return;
     load_window(s.in, ref, w, h, (tile % ntx) * kTileX,
                 (tile / ntx) * kTileY, vec_in, tid);
+    // this thread's 4 output columns of 2 rows: a warp's 16-byte shared
+    // loads of a source row are 512 contiguous bytes
+    const int cx = (tid % (kTileX / 4)) * 4;
+    const int r0 = (tid / (kTileX / 4)) * 2;
+    int group = 0;   // bulk groups of stores issued, each from slot group % 2
 
     for (; tile < n_tiles; tile += gridDim.x) {
         const int ox0 = (tile % ntx) * kTileX, oy0 = (tile / ntx) * kTileY;
-        int16_t (*src)[kInCols] = s.in;
-        // 1. this tile's window in (its loads were issued during the last
-        // tile's vertical pass)
+        // 1. the tile's window in, as floats (every sample is exact); the
+        // next tile's loads out
         asm volatile("cp.async.wait_group 0;\n" ::: "memory");
         __syncthreads();
-
-        // 2. the horizontal phases 1..3 as floats, four output columns a
-        // thread: output column c reads window columns c + 1 .. c + 8
-        bool wide = false;
-        for (int j = tid; j < kRows * (kTileX / 4); j += kThreads) {
-            const int r = j / (kTileX / 4), c = (j % (kTileX / 4)) * 4;
-            const uint2* q = reinterpret_cast<const uint2*>(&src[r][c]);
-            const uint2 a = q[0], b = q[1], d = q[2];
-            const float x[12] = {
-                to_float(lo16(a.x)), to_float(hi16(a.x)), to_float(lo16(a.y)),
-                to_float(hi16(a.y)), to_float(lo16(b.x)), to_float(hi16(b.x)),
-                to_float(lo16(b.y)), to_float(hi16(b.y)), to_float(lo16(d.x)),
-                to_float(hi16(d.x)), to_float(lo16(d.y)), to_float(hi16(d.y))};
-#pragma unroll
-            for (int p = 1; p < 4; ++p) {
-                float hp[4];
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    float acc = 0.f;
-#pragma unroll
-                    for (int t = 0; t < 8; ++t)
-                        acc = fmaf((float)f[p][t], x[e + 1 + t], acc);
-                    hp[e] = floor_scaled(acc, scale1);
-                    wide |= fabsf(hp[e]) > kWide;
-                }
-                *reinterpret_cast<float4*>(&s.hor[p - 1][r][c]) =
-                    make_float4(hp[0], hp[1], hp[2], hp[3]);
-            }
+        for (int j = tid; j < kRows * (kInCols / 4); j += kThreads) {
+            const int r = j / (kInCols / 4), c = (j % (kInCols / 4)) * 4;
+            const uint2 a = *reinterpret_cast<const uint2*>(&s.in[r][c]);
+            *reinterpret_cast<float4*>(&s.win[r][c]) = make_float4(
+                to_float(lo16(a.x)), to_float(hi16(a.x)),
+                to_float(lo16(a.y)), to_float(hi16(a.y)));
         }
-        // the vertical pass over the horizontal phases in floats where
-        // every sum stays below 2^22, in int32 otherwise
-        const bool exact = !__syncthreads_or(wide);
+        // the staging slot of the first phase free: the TMA has read it
+        if (tma && tid == 0)
+            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        __syncthreads();
+        const int next = tile + gridDim.x;
+        if (next < n_tiles)
+            load_window(s.in, ref, w, h, (next % ntx) * kTileX,
+                        (next / ntx) * kTileY, vec_in, tid);
 
-        // 3. 4 columns of 2 output rows, all 15 planes, into the staging
-        // tile: a warp takes 2 rows of the tile, so its 16-byte shared
-        // loads of a source row are 512 contiguous bytes
-        const int cx = (tid % (kTileX / 4)) * 4;
-        const int r0 = (tid / (kTileX / 4)) * 2;
-        auto stage = [&](int p, int rr, const int (&val)[4]) {
-            *reinterpret_cast<uint2*>(&s.stage[p][r0 + rr][cx]) = make_uint2(
-                pack2(val[0], val[1]), pack2(val[2], val[3]));
-        };
 #pragma unroll
         for (int xf = 0; xf < 4; ++xf) {
-            // source rows r0 .. r0 + 8: the samples (window columns
-            // cx + 4 .. cx + 7) for xf = 0, else horizontal phase xf
+            const int slot = group & 1;
+            bool exact = true;
+            if (xf) {
+                // 2. horizontal phase xf, four output columns a thread:
+                // output column c reads window columns c + 1 .. c + 8
+                bool wide = false;
+                for (int j = tid; j < kRows * (kTileX / 4); j += kThreads) {
+                    const int r = j / (kTileX / 4), c = (j % (kTileX / 4)) * 4;
+                    const float4* q =
+                        reinterpret_cast<const float4*>(&s.win[r][c]);
+                    const float4 a = q[0], b = q[1], d = q[2];
+                    const float x[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                                         b.z, b.w, d.x, d.y, d.z, d.w};
+                    float hp[4];
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        float acc = 0.f;
+#pragma unroll
+                        for (int t = 0; t < 8; ++t)
+                            acc = fmaf((float)f[xf][t], x[e + 1 + t], acc);
+                        hp[e] = floor_scaled(acc, scale1);
+                        wide |= fabsf(hp[e]) > kWide;
+                    }
+                    *reinterpret_cast<float4*>(&s.hor[r][c]) =
+                        make_float4(hp[0], hp[1], hp[2], hp[3]);
+                }
+                // this phase's staging slot free: the TMA has read it
+                if (tma && tid == 0)
+                    asm volatile("cp.async.bulk.wait_group.read 0;\n"
+                                 ::: "memory");
+                // the vertical sums in floats where every one stays below
+                // 2^22, in int32 otherwise
+                exact = !__syncthreads_or(wide);
+            }
+
+            // 3. the vertical phases of 4 columns of 2 rows into the
+            // staging slot; source rows r0 .. r0 + 8: the samples (window
+            // columns cx + 4 .. cx + 7) for xf = 0, else phase xf
+            auto stage = [&](int yf, int rr, const int (&val)[4]) {
+                *reinterpret_cast<uint2*>(&s.stage[slot][yf][r0 + rr][cx]) =
+                    make_uint2(pack2(val[0], val[1]), pack2(val[2], val[3]));
+            };
             float v[9][4];
 #pragma unroll
             for (int k = 0; k < 9; ++k) {
-                if (xf == 0) {
-                    const uint2 a = *reinterpret_cast<const uint2*>(
-                        &src[r0 + k][cx + 4]);
-                    v[k][0] = to_float(lo16(a.x));
-                    v[k][1] = to_float(hi16(a.x));
-                    v[k][2] = to_float(lo16(a.y));
-                    v[k][3] = to_float(hi16(a.y));
-                } else {
-                    const float4 a = *reinterpret_cast<const float4*>(
-                        &s.hor[xf - 1][r0 + k][cx]);
-                    v[k][0] = a.x; v[k][1] = a.y; v[k][2] = a.z; v[k][3] = a.w;
-                }
+                const float4 a = *reinterpret_cast<const float4*>(
+                    xf ? &s.hor[r0 + k][cx] : &s.win[r0 + k][cx + 4]);
+                v[k][0] = a.x; v[k][1] = a.y; v[k][2] = a.z; v[k][3] = a.w;
             }
             if (xf) {
 #pragma unroll
@@ -258,86 +272,68 @@ subpel_planes_kernel(const __grid_constant__ CUtensorMap tmap,
                     int val[4];
 #pragma unroll
                     for (int e = 0; e < 4; ++e) val[e] = low_bits(v[rr + 3][e]);
-                    stage(xf - 1, rr, val);
+                    stage(0, rr, val);
                 }
             }
-            if (xf && !exact) {
 #pragma unroll
-                for (int yf = 1; yf < 4; ++yf) {
+            for (int yf = 1; yf < 4; ++yf) {
 #pragma unroll
-                    for (int rr = 0; rr < 2; ++rr) {
-                        int val[4];
+                for (int rr = 0; rr < 2; ++rr) {
+                    int val[4];
 #pragma unroll
-                        for (int e = 0; e < 4; ++e) {
+                    for (int e = 0; e < 4; ++e) {
+                        if (xf && !exact) {
                             int acc = 0;
 #pragma unroll
                             for (int k = 0; k < 8; ++k)
                                 acc += f[yf][k]
                                        * (low_bits(v[rr + k][e]) - kMagicBits);
                             val[e] = acc >> 6;
-                        }
-                        stage(yf * 4 + xf - 1, rr, val);
-                    }
-                }
-            } else {
-#pragma unroll
-                for (int yf = 1; yf < 4; ++yf) {
-#pragma unroll
-                    for (int rr = 0; rr < 2; ++rr) {
-                        int val[4];
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) {
+                        } else {
                             float acc = 0.f;
 #pragma unroll
                             for (int k = 0; k < 8; ++k)
-                                acc = fmaf((float)f[yf][k], v[rr + k][e],
-                                           acc);
+                                acc = fmaf((float)f[yf][k], v[rr + k][e], acc);
                             val[e] = __float_as_int(__fmaf_rd(
                                 acc, xf ? 0.015625f : scale1, kMagic));
                         }
-                        stage(yf * 4 + xf - 1, rr, val);
                     }
+                    stage(yf, rr, val);
                 }
             }
+
             // 4. this phase's planes out: the generic proxy's writes made
-            // visible to the TMA's; the issuing thread first waits until
-            // the TMA has read the next phase's planes of the last tile
-            // (all but the newest two groups of stores), so that they can
-            // be written over after the barrier
+            // visible to the TMA's, then one store a plane
             asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-            if (tma && tid == 0)
-                asm volatile("cp.async.bulk.wait_group.read 2;\n" ::: "memory");
             __syncthreads();
-            if (tma && tid == 0) {
+            if (tma) {
+                if (tid == 0) {
 #pragma unroll
-                for (int yf = xf ? 0 : 1; yf < 4; ++yf) {
-                    const int p = yf * 4 + xf - 1;
-                    asm volatile(
-                        "cp.async.bulk.tensor.3d.global.shared::cta"
-                        ".bulk_group [%0, {%2, %3, %4}], [%1];\n"
-                        :: "l"(reinterpret_cast<uint64_t>(&tmap)),
-                           "r"(smem_addr(&s.stage[p][0][0])), "r"(ox0),
-                           "r"(oy0), "r"(p)
-                        : "memory");
+                    for (int yf = xf ? 0 : 1; yf < 4; ++yf)
+                        asm volatile(
+                            "cp.async.bulk.tensor.3d.global.shared::cta"
+                            ".bulk_group [%0, {%2, %3, %4}], [%1];\n"
+                            :: "l"(reinterpret_cast<uint64_t>(&tmap)),
+                               "r"(smem_addr(&s.stage[slot][yf][0][0])),
+                               "r"(ox0), "r"(oy0), "r"(yf * 4 + xf - 1)
+                            : "memory");
+                    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
                 }
-                asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+            } else {
+                const size_t plane = (size_t)ph * pw;
+                const int nx = min(kTileX, pw - ox0);
+                const int ny = min(kTileY, ph - oy0);
+                for (int j = tid; j < kGroup * kTileY * kTileX;
+                     j += kThreads) {
+                    const int yf = j / (kTileY * kTileX);
+                    const int rr = (j / kTileX) % kTileY, c = j % kTileX;
+                    if ((xf || yf) && rr < ny && c < nx)
+                        out[(yf * 4 + xf - 1) * plane
+                            + (size_t)(oy0 + rr) * pw + ox0 + c] =
+                            s.stage[slot][yf][rr][c];
+                }
             }
-            // the window read for the last time: the next tile's loads out
-            const int next = tile + gridDim.x;
-            if (xf == 0 && next < n_tiles)
-                load_window(s.in, ref, w, h, (next % ntx) * kTileX,
-                            (next / ntx) * kTileY, vec_in, tid);
-        }
-        if (!tma) {
-            const size_t plane = (size_t)ph * pw;
-            const int nx = min(kTileX, pw - ox0), ny = min(kTileY, ph - oy0);
-            for (int j = tid; j < kPlanes * kTileY * kTileX; j += kThreads) {
-                const int p = j / (kTileY * kTileX);
-                const int rr = (j / kTileX) % kTileY, c = j % kTileX;
-                if (rr < ny && c < nx)
-                    out[p * plane + (size_t)(oy0 + rr) * pw + ox0 + c] =
-                        s.stage[p][rr][c];
-            }
+            ++group;
         }
     }
     // the shared memory stays until the TMA has read the last tile
