@@ -393,8 +393,9 @@ def check_analysis_kernels(device, frames, zscan, reps):
     subpel planes of the reference at 8, 10 and 16 bits (above 32767 the
     int16 samples wrap, as in the reference), of its crops of a width 4
     mod 8 and odd and of 5x9 and 1x1 (the kernel's threads store where the
-    TMA cannot), and of samples over the whole int16 range at 8 and 12
-    bits (the kernel's int32 tiles). Times both at 8 bits on
+    TMA cannot), of 8x8 and 64x40 (the TMA's stores, smaller than one
+    tile), and of samples over the whole int16 range at 8 and 12 bits.
+    Times both at 8 bits on
     inputs read from device memory, the rank tables also one size at a
     time. Returns their kernels-line rows."""
     import numpy as np
@@ -472,14 +473,15 @@ def check_analysis_kernels(device, frames, zscan, reps):
             da._subpel_planes(x.to(torch.int32), bd)))
         # the kernel's second store path, where the padded width is no
         # multiple of 8 (widths 4 mod 8 and odd), and planes smaller than
-        # one tile
-        for ho, wo in ((h, w - 4), (h - 16, w - 7), (9, 5), (1, 1)):
+        # one tile on both paths (9x5 and 1x1 on the threads' stores, 8x8
+        # and 64x40 on the TMA's)
+        for ho, wo in ((h, w - 4), (h - 16, w - 7), (9, 5), (1, 1), (8, 8),
+                       (40, 64)):
             xo = x[:ho, :wo].contiguous()
             sub_errs.append(equal_on_card(
                 f"subpel_planes {wo}x{ho} {bd}-bit", da.subpel_planes(xo, bd),
                 da._subpel_planes(xo.to(torch.int32), bd)))
-    # samples over the whole int16 range at 8 and 12 bits: the tiles whose
-    # vertical sums leave the floats' exact range take them in int32
+    # samples over the whole int16 range at 8 and 12 bits
     wild = torch.from_numpy(np.random.default_rng(9).integers(
         -32768, 32768, (h, w)).astype(np.int16)).to(device)
     wild[:, : w // 2] = x[:, : w // 2] & 255
@@ -490,8 +492,9 @@ def check_analysis_kernels(device, frames, zscan, reps):
             da._subpel_planes(wild.to(torch.int32), bd)))
     log(f"kernel vs plain, subpel_planes of the 1080p reference at 8, 10 "
         f"and 16 bits, all 15 planes, and of its {w - 4}x{h}, "
-        f"{w - 7}x{h - 16}, 5x9 and 1x1 crops (the threads' own stores), "
-        f"and of samples over the int16 range at 8 and 12 bits: equal")
+        f"{w - 7}x{h - 16}, 5x9 and 1x1 crops (the threads' own stores) and "
+        f"8x8 and 64x40 crops (the TMA's, smaller than one tile), and of "
+        f"samples over the int16 range at 8 and 12 bits: equal")
 
     x = torch.from_numpy(np.ascontiguousarray(pics["P"])).to(device)
     cold = cold_inputs(x)

@@ -233,13 +233,15 @@ def test_kernels_match_plain_on_card(bd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bd", [8, 10, 16])
 @pytest.mark.parametrize("hw", [(136, 200), (136, 203), (136, 204),
-                                (9, 5), (1, 1)])
+                                (9, 5), (1, 1), (8, 8), (40, 64)])
 def test_subpel_kernel_store_paths_on_card(hw, bd):
     """Both store paths of the subpel kernel: TMA tensor stores where the
     padded width is a multiple of 8 (w = 200), the threads' own stores of
     the staging tile where it is not (w = 203, 204; the ragged last tile
-    clipped either way), and planes smaller than one tile (9x5, 1x1),
-    whose source windows clamp at every edge."""
+    clipped either way), and planes smaller than one tile, whose source
+    windows clamp at every edge: 9x5 and 1x1 on the threads' stores, 8x8
+    and 64x40 (padded widths 64 and 120) on the TMA's, whose box is wider
+    than the output there."""
     dev = _card()
     h, w = hw
     plane = torch.from_numpy(_subpel_plane((h, w), bd, "random",
@@ -254,10 +256,9 @@ def test_subpel_kernel_store_paths_on_card(hw, bd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bd", [8, 10, 12, 14])
 def test_subpel_kernel_exact_for_any_int16(bd):
-    """The kernel's vertical pass runs in floats where every sum of a tile
-    stays below 2^22, in int32 where it does not: samples over the whole
-    int16 range (the right half of the plane; the left half in range)
-    take both in one launch, and both equal the plain version."""
+    """The kernel's int32 sums are exact for any int16 sample: samples
+    over the whole int16 range (the right half of the plane; the left
+    half in range) equal the plain version."""
     dev = _card()
     h, w = 136, 200
     rng = np.random.RandomState(bd)

@@ -18,61 +18,58 @@
 // ops/kernel_build.py.
 //
 // What bounds it. At 1080p the output is 15 x 1136 x 1976 int16, 67.3 MB,
-// against a 4.1 MB plane read: 21.3 us at 3.35 TB/s. The multiply-adds (3 x
-// 8 per sample of the horizontal pass, 12 x 8 per output sample) take about
-// 16 us at the INT32 issue rate, so the arithmetic has to run while the
-// stores drain, and on the FP32 pipes (twice INT32's rate) where exact.
-// What the card takes for the stores alone depends on the tile's shape
-// (on an H100 SXM at 700 W, PERF.md section 6): 16-byte register stores of
-// all 15 planes by tiles of 64x32 samples take 35 us, of 128x16 29 us, of
-// 256x8 26 us; TMA stores of the same tiles 38, 33 and 30 us; torch's
-// zero_() of the output 23 us.
+// against a 4.1 MB plane read: 21.3 us at 3.35 TB/s. What the card takes
+// for the stores alone depends on the tile's shape (on an H100 SXM at
+// 700 W, PERF.md section 6): 16-byte register stores of all 15 planes by
+// tiles of 64x32 samples take 35 us, of 128x16 29 us, of 256x8 26 us; TMA
+// stores of the same tiles 38, 33 and 30 us; torch's zero_() of the
+// output 23 us. This kernel takes 35 us: copies of it without the
+// multiply-adds take 33 us, without the stores 25 us, without both 16 us
+// (the loads, shared traffic and barriers), so the stores bound it, with
+// the rest of a tile's work only partly hidden behind them.
 //
 // Design. One launch per plane, of persistent CTAs: as many as fit on the
-// card at once (three an SM: 256 threads each, 70 KB of shared memory),
+// card at once (three an SM: 256 threads each, 54 KB of shared memory),
 // each walking the tiles of 8 output rows by 256 output columns of every
-// plane with a stride of the grid. For each tile a CTA
+// plane with a stride of the grid. All arithmetic is int32, exact for any
+// int16 sample. For each tile a CTA
 //   1. waits for the tile's source window (15 rows by 264 samples, clamped
-//      to the picture), loaded during the last tile, turns it into floats
-//      (every int16 is exact) and issues the next tile's loads into the
+//      to the picture), loaded during the last tile, widens it to int32
+//      and, once every thread has, issues the next tile's loads into the
 //      freed buffer: cp.async of 16 bytes where 8 samples lie inside the
 //      picture's row (a row index is clamped, so whole rows replicate for
 //      free), a sample at a time where the window crosses the left or
 //      right edge;
 //   then, for each horizontal phase xf = 0..3 (0: the samples themselves):
 //   2. computes phase xf of the window's 15 rows, four columns a thread,
-//      into shared memory as floats: every sum of 8 int16 samples times
-//      taps is an integer below 2^22 in magnitude, exact in a float, and
-//      the shift is an exact scaling rounded down;
+//      into shared memory;
 //   3. gives each thread 4 consecutive output columns of 2 rows: it reads
 //      the 9 x 4 sources of its vertical taps, one 16-byte shared load a
-//      row (a warp's 512 contiguous bytes), forms the vertical phases with
-//      float multiply-adds and writes the phase's 3 or 4 planes into a
-//      staging slot (4 x 8 x 256 int16, 16 KB; a ring of two). The
-//      vertical sums over a horizontal phase stay exact in floats while
-//      every |H| of the tile is at most 37449 (112 x 37449 < 2^22): always
-//      for samples within their bit depth, and at 15 and 16 bits for any
-//      int16; a tile and phase with a larger |H| (samples far outside
-//      their bit depth) takes the same sums in int32 instead;
-//   4. hands the slot to the TMA: one thread issues a cp.async.bulk.tensor
-//      store of a (256, 8, 1) box per plane into the output, whose tensor
-//      map (built on the host with cuTensorMapEncodeTiled, reached through
-//      cudaGetDriverEntryPoint, so nothing links libcuda) is a
-//      __grid_constant__ parameter, one bulk group per phase. The TMA clips
-//      the boxes at the output's ragged edges. Before a slot is staged
-//      again, the issuing thread waits (cp.async.bulk.wait_group.read)
-//      until the TMA has read it.
-// So a phase's stores drain while the CTA computes the next phase, and
-// the other CTAs of its SM fill the gaps. Why these sizes (PERF.md section
-// 6): TMA stores of 512-byte tile rows are the fastest measured (30 us for
-// the output against 33 us for 256-byte rows and 38 for 128), and 8 x 256
-// tiles ran 4% faster than 16 x 128 ones, though their windows' 7 extra
-// rows add 88% to the horizontal pass, not 44%; one phase at a time in
-// shared memory keeps three CTAs an SM (2% faster than all three phases
-// and all 15 planes at once, two CTAs an SM); 4 x 2 outputs a thread read
-// each source 4.5 times less often from shared memory than 8 x 1 did,
-// without bank conflicts; one store per phase instead of one per tile
-// saved 4%.
+//      row (a warp's 512 contiguous bytes), forms the vertical phases and
+//      writes the phase's 3 or 4 planes into the staging tile (4 x 8 x 256
+//      int16, 16 KB), once the TMA has read the last phase's
+//      (cp.async.bulk.wait_group.read, by the thread that issued them);
+//   4. hands the staging tile to the TMA: one thread issues a
+//      cp.async.bulk.tensor store of a (256, 8, 1) box per plane into the
+//      output, whose tensor map (built on the host with
+//      cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
+//      nothing links libcuda) is a __grid_constant__ parameter, one bulk
+//      group per phase. The TMA clips the boxes at the output's ragged
+//      edges, and where the output is narrower than a box.
+// So a phase's stores drain while the CTA computes the next phase's
+// horizontal pass, and the other CTAs of its SM fill the gaps. Why these
+// sizes (PERF.md section 6): TMA stores of 512-byte tile rows are the
+// fastest measured (30 us for the output against 33 us for 256-byte rows
+// and 38 for 128), and 8 x 256 tiles ran 4% faster than 16 x 128 ones,
+// though their windows' 7 extra rows add 88% to the horizontal pass, not
+// 44%; one phase at a time in shared memory keeps three CTAs an SM (2%
+// faster than all three phases and all 15 planes at once, two CTAs an
+// SM); 4 x 2 outputs a thread read each source 4.5 times less often from
+// shared memory than 8 x 1 did, without bank conflicts; one store per
+// phase instead of one per tile saved 4%; a second staging tile, letting
+// a phase's stores stay in flight while the next phase is staged, read
+// the same. Sums in floats where exact, on the FP32 pipes, ran 12% slower
+// than this int32 kernel with its single staging tile.
 // The TMA needs a row stride of a multiple of 16 bytes: where the padded
 // width is not a multiple of 8, or the output is not 16-byte aligned, the
 // CTA's threads copy the staging tile out themselves, a sample each,
@@ -100,10 +97,9 @@ constexpr int kChunks = kInCols / 8;
 constexpr int kGroup = 4;           // planes of one horizontal phase
 
 struct __align__(128) Smem {
-    // the TMA's source, a ring of two phases' planes
-    int16_t stage[2][kGroup][kTileY][kTileX];
-    float win[kRows][kInCols];        // the tile's source window as floats
-    float hor[kRows][kTileX];         // one horizontal phase
+    int16_t stage[kGroup][kTileY][kTileX];   // the TMA's source, one phase
+    int win[kRows][kInCols];          // the tile's source window
+    int hor[kRows][kTileX];           // one horizontal phase
     int16_t in[kRows][kInCols];       // the next tile's source window
 };
 
@@ -118,30 +114,6 @@ __device__ __forceinline__ uint32_t pack2(int a, int b) {
 
 __device__ __forceinline__ int lo16(uint32_t u) { return (int16_t)(u & 0xffff); }
 __device__ __forceinline__ int hi16(uint32_t u) { return (int16_t)(u >> 16); }
-
-// Integers of magnitude below 2^22 as floats, exactly: kMagic = 1.5 * 2^23
-// has a unit in the last place of 1, so kMagic + v holds v in its low
-// mantissa bits (two's complement), and those bits' low 16 are v's int16.
-constexpr float kMagic = 12582912.f;
-constexpr int kMagicBits = 0x4B400000;
-// the largest |H| whose vertical sums (|taps| sum to 112) stay below 2^22
-constexpr float kWide = 37449.f;
-
-__device__ __forceinline__ float to_float(int v) {
-    return __int_as_float(kMagicBits + v) - kMagic;
-}
-
-// floor(a * scale) for a power-of-two scale, as an exact float: the fused
-// multiply-add rounds once, down, at a unit in the last place of 1
-__device__ __forceinline__ float floor_scaled(float a, float scale) {
-    return __fmaf_rd(a, scale, kMagic) - kMagic;
-}
-
-// an integer-valued float below 2^22 in magnitude, plus kMagic, as bits:
-// the integer is these bits less kMagicBits, its int16 their low 16 bits
-__device__ __forceinline__ int low_bits(float v) {
-    return __float_as_int(v + kMagic);
-}
 
 // Issue the loads of the source window of the tile at output (ox0, oy0):
 // column c of `buf` holds the plane's sample x0 - 32 + c of row y0 - 31 + r
@@ -174,7 +146,7 @@ __device__ __forceinline__ void load_window(
 __global__ void __launch_bounds__(kThreads, 3)
 subpel_planes_kernel(const __grid_constant__ CUtensorMap tmap,
                      const int16_t* __restrict__ ref, int w, int h, int pw,
-                     int ph, float scale1, int vec_in, int tma,
+                     int ph, int shift1, int vec_in, int tma,
                      int16_t* __restrict__ out) {
     // the (4 phases, 8 taps) luma filter; folded into the arithmetic
     constexpr int f[4][8] = {TC_LUMA_FILTER};
@@ -191,90 +163,72 @@ subpel_planes_kernel(const __grid_constant__ CUtensorMap tmap,
     // loads of a source row are 512 contiguous bytes
     const int cx = (tid % (kTileX / 4)) * 4;
     const int r0 = (tid / (kTileX / 4)) * 2;
-    int group = 0;   // bulk groups of stores issued, each from slot group % 2
 
     for (; tile < n_tiles; tile += gridDim.x) {
         const int ox0 = (tile % ntx) * kTileX, oy0 = (tile / ntx) * kTileY;
-        // 1. the tile's window in, as floats (every sample is exact); the
-        // next tile's loads out
+        // 1. the tile's window in, as int32
         asm volatile("cp.async.wait_group 0;\n" ::: "memory");
         __syncthreads();
         for (int j = tid; j < kRows * (kInCols / 4); j += kThreads) {
             const int r = j / (kInCols / 4), c = (j % (kInCols / 4)) * 4;
             const uint2 a = *reinterpret_cast<const uint2*>(&s.in[r][c]);
-            *reinterpret_cast<float4*>(&s.win[r][c]) = make_float4(
-                to_float(lo16(a.x)), to_float(hi16(a.x)),
-                to_float(lo16(a.y)), to_float(hi16(a.y)));
+            *reinterpret_cast<int4*>(&s.win[r][c]) = make_int4(
+                lo16(a.x), hi16(a.x), lo16(a.y), hi16(a.y));
         }
-        // the staging slot of the first phase free: the TMA has read it
-        if (tma && tid == 0)
-            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-        __syncthreads();
         const int next = tile + gridDim.x;
-        if (next < n_tiles)
-            load_window(s.in, ref, w, h, (next % ntx) * kTileX,
-                        (next / ntx) * kTileY, vec_in, tid);
 
 #pragma unroll
         for (int xf = 0; xf < 4; ++xf) {
-            const int slot = group & 1;
-            bool exact = true;
             if (xf) {
                 // 2. horizontal phase xf, four output columns a thread:
                 // output column c reads window columns c + 1 .. c + 8
-                bool wide = false;
                 for (int j = tid; j < kRows * (kTileX / 4); j += kThreads) {
                     const int r = j / (kTileX / 4), c = (j % (kTileX / 4)) * 4;
-                    const float4* q =
-                        reinterpret_cast<const float4*>(&s.win[r][c]);
-                    const float4 a = q[0], b = q[1], d = q[2];
-                    const float x[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
-                                         b.z, b.w, d.x, d.y, d.z, d.w};
-                    float hp[4];
+                    const int4* q = reinterpret_cast<const int4*>(&s.win[r][c]);
+                    const int4 a = q[0], b = q[1], d = q[2];
+                    const int x[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                                       b.z, b.w, d.x, d.y, d.z, d.w};
+                    int hp[4];
 #pragma unroll
                     for (int e = 0; e < 4; ++e) {
-                        float acc = 0.f;
+                        int acc = 0;
 #pragma unroll
                         for (int t = 0; t < 8; ++t)
-                            acc = fmaf((float)f[xf][t], x[e + 1 + t], acc);
-                        hp[e] = floor_scaled(acc, scale1);
-                        wide |= fabsf(hp[e]) > kWide;
+                            acc += f[xf][t] * x[e + 1 + t];
+                        hp[e] = acc >> shift1;
                     }
-                    *reinterpret_cast<float4*>(&s.hor[r][c]) =
-                        make_float4(hp[0], hp[1], hp[2], hp[3]);
+                    *reinterpret_cast<int4*>(&s.hor[r][c]) =
+                        make_int4(hp[0], hp[1], hp[2], hp[3]);
                 }
-                // this phase's staging slot free: the TMA has read it
-                if (tma && tid == 0)
-                    asm volatile("cp.async.bulk.wait_group.read 0;\n"
-                                 ::: "memory");
-                // the vertical sums in floats where every one stays below
-                // 2^22, in int32 otherwise
-                exact = !__syncthreads_or(wide);
             }
+            // the staging tile free: the TMA has read the last phase's
+            if (tma && tid == 0)
+                asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+            __syncthreads();
+            // the window read: the next tile's loads out
+            if (xf == 0 && next < n_tiles)
+                load_window(s.in, ref, w, h, (next % ntx) * kTileX,
+                            (next / ntx) * kTileY, vec_in, tid);
 
             // 3. the vertical phases of 4 columns of 2 rows into the
-            // staging slot; source rows r0 .. r0 + 8: the samples (window
+            // staging tile; source rows r0 .. r0 + 8: the samples (window
             // columns cx + 4 .. cx + 7) for xf = 0, else phase xf
             auto stage = [&](int yf, int rr, const int (&val)[4]) {
-                *reinterpret_cast<uint2*>(&s.stage[slot][yf][r0 + rr][cx]) =
+                *reinterpret_cast<uint2*>(&s.stage[yf][r0 + rr][cx]) =
                     make_uint2(pack2(val[0], val[1]), pack2(val[2], val[3]));
             };
-            float v[9][4];
+            int v[9][4];
 #pragma unroll
             for (int k = 0; k < 9; ++k) {
-                const float4 a = *reinterpret_cast<const float4*>(
+                const int4 a = *reinterpret_cast<const int4*>(
                     xf ? &s.hor[r0 + k][cx] : &s.win[r0 + k][cx + 4]);
                 v[k][0] = a.x; v[k][1] = a.y; v[k][2] = a.z; v[k][3] = a.w;
             }
             if (xf) {
 #pragma unroll
-                for (int rr = 0; rr < 2; ++rr) {
-                    int val[4];
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) val[e] = low_bits(v[rr + 3][e]);
-                    stage(0, rr, val);
-                }
+                for (int rr = 0; rr < 2; ++rr) stage(0, rr, v[rr + 3]);
             }
+            const int shift = xf ? 6 : shift1;
 #pragma unroll
             for (int yf = 1; yf < 4; ++yf) {
 #pragma unroll
@@ -282,21 +236,11 @@ subpel_planes_kernel(const __grid_constant__ CUtensorMap tmap,
                     int val[4];
 #pragma unroll
                     for (int e = 0; e < 4; ++e) {
-                        if (xf && !exact) {
-                            int acc = 0;
+                        int acc = 0;
 #pragma unroll
-                            for (int k = 0; k < 8; ++k)
-                                acc += f[yf][k]
-                                       * (low_bits(v[rr + k][e]) - kMagicBits);
-                            val[e] = acc >> 6;
-                        } else {
-                            float acc = 0.f;
-#pragma unroll
-                            for (int k = 0; k < 8; ++k)
-                                acc = fmaf((float)f[yf][k], v[rr + k][e], acc);
-                            val[e] = __float_as_int(__fmaf_rd(
-                                acc, xf ? 0.015625f : scale1, kMagic));
-                        }
+                        for (int k = 0; k < 8; ++k)
+                            acc += f[yf][k] * v[rr + k][e];
+                        val[e] = acc >> shift;
                     }
                     stage(yf, rr, val);
                 }
@@ -314,7 +258,7 @@ subpel_planes_kernel(const __grid_constant__ CUtensorMap tmap,
                             "cp.async.bulk.tensor.3d.global.shared::cta"
                             ".bulk_group [%0, {%2, %3, %4}], [%1];\n"
                             :: "l"(reinterpret_cast<uint64_t>(&tmap)),
-                               "r"(smem_addr(&s.stage[slot][yf][0][0])),
+                               "r"(smem_addr(&s.stage[yf][0][0])),
                                "r"(ox0), "r"(oy0), "r"(yf * 4 + xf - 1)
                             : "memory");
                     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -330,10 +274,9 @@ subpel_planes_kernel(const __grid_constant__ CUtensorMap tmap,
                     if ((xf || yf) && rr < ny && c < nx)
                         out[(yf * 4 + xf - 1) * plane
                             + (size_t)(oy0 + rr) * pw + ox0 + c] =
-                            s.stage[slot][yf][rr][c];
+                            s.stage[yf][rr][c];
                 }
             }
-            ++group;
         }
     }
     // the shared memory stays until the TMA has read the last tile
@@ -367,6 +310,15 @@ EncodeTiled encode_tiled() {
 }
 
 constexpr int kSmem = (int)sizeof(Smem);
+
+// The error behind a failed occupancy query: the runtime's, or
+// cudaErrorInvalidValue where it recorded none (a device index past the
+// cache, or no CTA fitting an SM), so that no caller takes a launch that
+// never happened for one that did.
+int occupancy_error() {
+    const cudaError_t e = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : cudaErrorInvalidValue);
+}
 
 // CTAs an SM holds, per device (the kernel's shared memory opted in first)
 int ctas_per_sm(int* sms) {
@@ -428,13 +380,13 @@ extern "C" int subpel_planes_launch(const void* ref, int w, int h,
     }
     int sms = 0;
     const int per_sm = ctas_per_sm(&sms);
-    if (per_sm < 1) return (int)cudaGetLastError();
+    if (per_sm < 1) return occupancy_error();
     const int tiles = ((pw + kTileX - 1) / kTileX)
                       * ((ph + kTileY - 1) / kTileY);
     const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
     subpel_planes_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
         tmap, (const int16_t*)ref, w, h, pw, ph,
-        1.f / (float)(1 << (bit_depth - 8)), vec_in, tma,
+        bit_depth - 8, vec_in, tma,
         (int16_t*)out);
     return (int)cudaGetLastError();
 }
@@ -449,7 +401,7 @@ extern "C" int subpel_planes_occupancy(int* out) {
     if (e != cudaSuccess) return (int)e;
     int sms = 0;
     const int per_sm = ctas_per_sm(&sms);
-    if (per_sm < 1) return (int)cudaGetLastError();
+    if (per_sm < 1) return occupancy_error();
     const int tiles = ((1920 + 2 * kPad + kTileX - 1) / kTileX)
                       * ((1080 + 2 * kPad + kTileY - 1) / kTileY);
     out[0] = a.numRegs;
