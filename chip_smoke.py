@@ -613,8 +613,8 @@ def build_all():
 
 
 def occupancy():
-    """The subpel and deblocking kernels' resources as the card's runtime
-    reports them (their <name>_occupancy entry points): registers and
+    """The subpel, deblocking and SAO kernels' resources as the card's
+    runtime reports them (their <name>_occupancy entry points): registers and
     spilled bytes a thread, shared bytes and threads a CTA, CTAs an SM,
     and CTAs launched at 1080p."""
     import ctypes
@@ -622,7 +622,7 @@ def occupancy():
     from turingcodec_tpu_torch.ops import kernel_build
     what = ("registers", "local bytes", "shared bytes", "CTAs per SM",
             "threads", "CTAs at 1080p")
-    for k in ("subpel_planes", "deblock"):
+    for k in ("subpel_planes", "deblock", "sao"):
         out = (ctypes.c_int * len(what))()
         rc = getattr(kernel_build.load(k), f"{k}_occupancy")(out)
         check(rc == 0, f"{k}_occupancy: CUDA error {rc}")
@@ -894,30 +894,29 @@ def deblock_bound(args):
 
 
 def sao_bound(args):
-    """Bound of one SAO call on one component, from its own inputs: the
-    int16 plane read once and written once, the per-CTB maps, per-slice
-    flags and skip map read once; 10 INT32 operations per sample (the
-    band or edge index, the offset and the clip)."""
-    src = args[0]
+    """Bound of one SAO call, from its own inputs (sao_frames's or
+    sao_picture_frames's): each int16 plane of the call read once and
+    written once, the per-CTB maps, per-slice flags and skip map read
+    once; 10 INT32 operations per sample (the band or edge index, the
+    offset and the clip)."""
+    planes = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
     maps = [a for a in args[4:] if hasattr(a, "nbytes")]
-    return bound(2 * src.nbytes + sum(a.nbytes for a in maps),
-                 10 * src.numel())
+    return bound(2 * sum(p.nbytes for p in planes)
+                 + sum(a.nbytes for a in maps),
+                 10 * sum(p.numel() for p in planes))
 
 
 def check_loop_filters(device, bitstream, reps):
     """The deblocking and SAO kernels against their plain versions on the
     card (tools/loop_filter_check.py: synthetic 1920x1080 pictures at 8,
-    10, 12, 13, 14 and 16 bits, synthetic SAO planes at 8, 10, 13, 14 and
-    16 bits, every picture
-    of tests/streams); then each timed on inputs read from device memory
-    at its path's shape: deblocking at a 1080p picture of the main path's
-    encode, SAO on a vfy_sweep picture's luma. Returns their kernels-line
-    rows."""
-    import numpy as np
+    10, 12, 13, 14 and 16 bits, synthetic SAO pictures at 8 to 16 bits and
+    every CTB size through the three-component and the one-component
+    launches, every picture of tests/streams); then deblocking timed on
+    inputs read from device memory at a 1080p picture of the main path's
+    encode. Returns (deblock's kernels-line row, SAO's max |diff|)."""
     import torch
 
     from turingcodec_tpu_torch.ops import deblock as db
-    from turingcodec_tpu_torch.ops import sao
     from turingcodec_tpu_torch.parallel.gop_decode import capture_pictures
     from turingcodec_tpu_torch.tools import loop_filter_check as lfc
     t0 = time.perf_counter()
@@ -945,10 +944,9 @@ def check_loop_filters(device, bitstream, reps):
     def cold_deblock():
         turn[0] += 1
         return copies[turn[0] % len(copies)]
-    rows = {}
     bnd = deblock_bound(args)
     h, w = planes[0].shape
-    rows["deblock"] = dict(
+    row = dict(
         max_abs_err=errs["deblock"], kname="deblock",
         ms=timed_ms(lambda: db.deblock_frames(*cold_deblock(), *geo,
                                               one[2]), device, reps),
@@ -959,37 +957,70 @@ def check_loop_filters(device, bitstream, reps):
             f"deblock at the {w}x{h} encode's picture 1": (
                 lambda: db.deblock_frames(*cold_deblock(), *geo, one[2]),
                 bnd[0])})
+    log(f"deblock at its row's shape: kernel {row['ms']:.4f} ms, plain "
+        f"torch {row['plain_ms']:.4f} ms (median, CUDA events around the "
+        f"wrapper); bound {row['bound_ms'] * 1e3:.2f} us "
+        f"({row['bound_by']})")
+    return row, errs["sao"]
 
+
+def sao_row(device, pic, err, reps):
+    """The SAO kernel's kernels-line row, on inputs read from device
+    memory: one launch for the three components of a picture of the 1080p
+    SAO-coded encode (the row's shape: its ms, plain version and bound),
+    beside the same picture by one launch per component (sao_frames, as
+    gop_sao calls it), a vfy_sweep 640x360 picture both ways, and a
+    synthetic 1080p luma plane (the shape PR 9's design was timed on)."""
+    import numpy as np
+    import torch
+
+    from turingcodec_tpu_torch.ops import sao
+    from turingcodec_tpu_torch.parallel.gop_decode import capture_pictures
+    from turingcodec_tpu_torch.tools import loop_filter_check as lfc
+
+    def picture(p):
+        """(one launch, one launch per component, the plain version, the
+        bound, 'WxH') for captured picture p, each on cold planes"""
+        plan, geom = p["plan"], p["geom"]
+        maps = sao._picture_maps(plan, geom, device)
+        srcs = [torch.from_numpy(x).to(device) for x in p["post"]]
+        args = sao.sao_picture_args(plan, maps, srcs)
+        plain = [sao.sao_plane_args(plan, maps, c, s)
+                 for c, s in enumerate(srcs)]
+        cold = cold_inputs(srcs)
+        h, w = srcs[0].shape
+        return (lambda: sao.sao_picture_frames([s[None] for s in cold()],
+                                               *args[1:]),
+                lambda: [sao.sao_frames(*sao.sao_ctb_args(plan, maps, c, s))
+                         for c, s in enumerate(cold())],
+                lambda: [sao._sao_plane(s, *a[1:])
+                         for s, a in zip(cold(), plain)],
+                sao_bound(args), f"{w}x{h}")
+
+    big = picture(pic)
     with open(STREAM, "rb") as fh:
-        spic = next(p for p in capture_pictures(fh.read())
-                    if p["sao"] is not None)
-    maps = sao._picture_maps(spic["plan"], spic["geom"], device)
-    src = torch.from_numpy(spic["post"][0]).to(device)
-    sargs = sao.sao_ctb_args(spic["plan"], maps, 0, src)
-    cold = cold_inputs(sargs[0])
-    plain_args = sao.sao_plane_args(spic["plan"], maps, 0, src)
-    bnd = sao_bound(sargs)
-    hs, ws = src.shape
-    rows["sao"] = dict(
-        max_abs_err=errs["sao"], kname="sao",
-        ms=timed_ms(lambda: sao.sao_frames(cold(), *sargs[1:]), device,
-                    reps),
-        plain_ms=timed_ms(lambda: sao._sao_plane(cold()[0],
-                                                 *plain_args[1:]),
-                          device, max(1, reps // 4)),
-        bound_ms=bnd[0], bound_by=bnd[1], timed={
-            f"sao at a vfy_sweep {ws}x{hs} luma plane": (
-                lambda: sao.sao_frames(cold(), *sargs[1:]), bnd[0])})
-    big = lfc.sao_synthetic(np.random.default_rng(5), 1080, 1920, 8, 64)
-    bargs = lfc.tensors(big, device)
-    bcold = cold_inputs(bargs[0])
-    rows["sao"]["timed"]["sao at a synthetic 1920x1080 luma plane"] = (
-        lambda: sao.sao_frames(bcold(), *bargs[1:]), sao_bound(bargs)[0])
-    for k, r in rows.items():
-        log(f"{k} at its row's shape: kernel {r['ms']:.4f} ms, plain torch "
-            f"{r['plain_ms']:.4f} ms (median, CUDA events around the "
-            f"wrapper); bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
-    return rows
+        small = picture(next(p for p in capture_pictures(fh.read())
+                             if p["sao"] is not None))
+    plane = lfc.tensors(lfc.sao_synthetic(np.random.default_rng(5), 1080,
+                                          1920, 8, 64), device)
+    pcold = cold_inputs(plane[0])
+    row = dict(max_abs_err=err, kname="sao",
+               ms=timed_ms(big[0], device, reps),
+               plain_ms=timed_ms(big[2], device, max(1, reps // 4)),
+               bound_ms=big[3][0], bound_by=big[3][1], timed={})
+    for name, p in (("the 1080p SAO-coded encode's", big),
+                    ("a vfy_sweep", small)):
+        row["timed"][f"sao at {name} {p[4]} picture, 3 components in one "
+                     f"launch"] = (p[0], p[3][0])
+        row["timed"][f"sao at {name} {p[4]} picture, one launch per "
+                     f"component"] = (p[1], p[3][0])
+    row["timed"]["sao at a synthetic 1920x1080 luma plane"] = (
+        lambda: sao.sao_frames(pcold(), *plane[1:]), sao_bound(plane)[0])
+    log(f"sao at its row's shape (a {big[4]} picture, 3 components): "
+        f"kernel {row['ms']:.4f} ms, plain torch {row['plain_ms']:.4f} ms "
+        f"(median, CUDA events around the wrapper); bound "
+        f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+    return row
 
 
 # one 1080p picture's block count per transform size, and the windows of
@@ -1016,13 +1047,16 @@ def interp_bound(b: int, w: int, h: int):
 
 
 def cold_inputs(x, l2_bytes: int = 50 << 20):
-    """A function returning, call after call, one of enough copies of x
+    """A function returning, call after call, one of enough copies of x (a
+    tensor, or a list of tensors copied together)
     that together they overflow the card's 50 MB L2 cache four times: a
     kernel timed on it reads its input from device memory, as one whose
     input was not just written would (a 16.6 MB batch read again at once
     would come from L2, faster than the bound counts)."""
-    copies = [x] + [x.clone() for _ in range(
-        max(1, -(-4 * l2_bytes // (x.numel() * x.element_size()))) - 1)]
+    many = isinstance(x, (list, tuple))
+    nbytes = sum(t.nbytes for t in x) if many else x.nbytes
+    copies = [x] + [[t.clone() for t in x] if many else x.clone()
+                    for _ in range(max(1, -(-4 * l2_bytes // nbytes)) - 1)]
     turn = [0]
 
     def next_copy():
@@ -1206,8 +1240,10 @@ def device_times(rows):
     shape's bound. Runs after the main paths, so that the profiler's
     tracing cannot touch their end-to-end timings."""
     for r in rows:
+        r["device_us_by_shape"] = {}
         for i, (what, (fn, bound_ms)) in enumerate(r.pop("timed").items()):
             us, per = device_us(fn, r["kname"])
+            r["device_us_by_shape"][what] = us
             if i == 0:
                 r["device_us"] = us
             log(f"{what}: {us:.2f} us device time per call (profiler, {per} "
@@ -1303,13 +1339,14 @@ def decode_main_path(device, frames, bitstream):
     from turingcodec_tpu_torch.decode import device_pipeline as dp
     dev = str(device)
 
+    from turingcodec_tpu_torch.parallel.gop_decode import capture_pictures
     stream_launches = {}
     for name in ("vfy_sweep.hevc", "static_test.hevc"):
+        data = open(os.path.join(ROOT, "tests", "streams", name), "rb").read()
+        n_sao = sum(1 for p in capture_pictures(data) if p["sao"] is not None)
         dp.pictures = dp.envelope_host = 0
         reset_launches()
-        got, dec, _ = decode_planes(
-            open(os.path.join(ROOT, "tests", "streams", name), "rb").read(),
-            dev)
+        got, dec, _ = decode_planes(data, dev)
         stream_launches[name] = read_launches()
         md5 = hashlib.md5()
         for planes in got:
@@ -1321,15 +1358,18 @@ def decode_main_path(device, frames, bitstream):
         check(dp.pictures == len(got) and dp.envelope_host == 0,
               f"{name}: {dp.pictures} pictures through the pipeline, "
               f"{dp.envelope_host} on the host")
-        # one deblocking launch per picture; SAO on vfy_sweep (GOP8 with
-        # SAO), one launch per component of each picture that codes it
+        # one deblocking launch per picture; one SAO launch (all three
+        # components) per picture that codes SAO: vfy_sweep's 9 (27, one
+        # per component, before PR 13)
         sl = stream_launches[name]
-        check(sl["deblock"] == dp.pictures
-              and (sl["sao"] > 0 or name != "vfy_sweep.hevc"),
-              f"{name}: launches {sl} for {dp.pictures} pictures")
+        check(sl["deblock"] == dp.pictures and sl["sao"] == n_sao
+              and (n_sao == 9 or name != "vfy_sweep.hevc"),
+              f"{name}: launches {sl} for {dp.pictures} pictures, {n_sao} "
+              f"of them SAO-coded")
         log(f"decode {name} with device={dev}: {len(got)} frames, md5 "
             f"{want} OK, all through the pipeline; deblock launches "
-            f"{sl['deblock']}, sao launches {sl['sao']}")
+            f"{sl['deblock']}, sao launches {sl['sao']} ({n_sao} SAO-coded "
+            f"pictures)")
 
     n = len(frames)
     dp.pictures = dp.envelope_host = 0
@@ -1399,6 +1439,58 @@ def deep_decode(device):
     log(f"13-bit decode on the card: launches {launches}")
     deep_bits.check_raises(str(device), log)
     return launches
+
+
+def sao_stream(device, frames):
+    """The main path's 1080p input, its first 3 frames, encoded with SAO on
+    (the encoder's default; the main path turns it off) on the card and on
+    the host (identical bytes); decoded on the card (kernel counts read
+    around this run) equal to the host decode, hash-clean, every picture
+    through the pipeline with one SAO launch per SAO-coded picture; then
+    one more card decode traced for each stage's ms per picture. Returns
+    (the decode's launches, the captured pictures)."""
+    import numpy as np
+
+    from turingcodec_tpu_torch.decode import device_pipeline as dp
+    from turingcodec_tpu_torch.parallel.gop_decode import capture_pictures
+    from turingcodec_tpu_torch.tools.device_enc_check import encode
+    dev = str(device)
+    clip = frames[:3]
+    t0 = time.perf_counter()
+    bs, fps = encode(clip, dev, QP, sao=True)
+    bs_host, fps_host = encode(clip, None, QP, sao=True)
+    check(bs == bs_host, "SAO encode: card and host bitstreams differ")
+    pics = capture_pictures(bs)
+    n_sao = sum(1 for p in pics if p["sao"] is not None)
+    check(len(pics) == len(clip) and n_sao > 0,
+          f"SAO encode: {len(pics)} pictures, {n_sao} SAO-coded")
+    dp.pictures = dp.envelope_host = 0
+    reset_launches()
+    got, dec, t_dev = decode_planes(bs, dev)
+    launches = read_launches()
+    pictures, envelope = dp.pictures, dp.envelope_host
+    want, dec_h, t_host = decode_planes(bs, None)
+    check(len(got) == len(clip) and dec.hash_failures == 0
+          and dec_h.hash_failures == 0, "SAO decode: frames or hashes")
+    check(all(np.array_equal(a, b) for fa, fb in zip(got, want)
+              for a, b in zip(fa, fb)),
+          "SAO decode on the card differs from the host decode")
+    check(pictures == len(clip) and envelope == 0
+          and launches["sao"] == n_sao
+          and launches["deblock"] == len(clip),
+          f"SAO decode: {pictures} pictures through the pipeline, "
+          f"{envelope} on the host, launches {launches} for {n_sao} "
+          f"SAO-coded pictures")
+    h, w = clip[0][0].shape
+    log(f"SAO-coded encode, {len(clip)} frames {w}x{h}: {len(bs)} bytes "
+        f"identical on the card ({fps:.4f} fps) and the host "
+        f"({fps_host:.4f} fps), {n_sao} SAO-coded pictures; decoded on the "
+        f"card equal to the host, 0 hash failures, all through the "
+        f"pipeline; launches {launches} ({time.perf_counter() - t0:.1f} s)")
+    split = stage_split(dev, bs, len(clip))
+    log(f"SAO-coded 1080p decode: sao stage {split['sao']:.3f} ms per "
+        f"picture (host clock, the card synchronised at each probe)")
+    return launches, pics
 
 
 def stage_split(dev, bitstream, n):
@@ -1871,12 +1963,15 @@ def main() -> int:
     # 7. decoder kernels against their plain versions on the card: MC and
     # residuals, then deblocking and SAO
     dec_kern = check_decode_kernels(device, captured, reps=20)
-    dec_kern.update(check_loop_filters(device, bitstream, reps=20))
+    dec_kern["deblock"], sao_err = check_loop_filters(device, bitstream,
+                                                      reps=20)
 
     # 8. main path: the decode on the card; then the stage split and the
-    # residual stage timed
+    # residual stage timed; a 1080p SAO-coded encode decoded on the card
     dec_launches, vfy_launches, res_pics = decode_main_path(
         device, frames, bitstream)
+    sao_launches, sao_pics = sao_stream(device, frames)
+    dec_kern["sao"] = sao_row(device, sao_pics[1], sao_err, reps=20)
     # the decode of a 13-bit stream, and the 14- and 16-bit ones that raise
     deep_launches = deep_decode(device)
 
@@ -1955,10 +2050,12 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": None,
         "device_us": r["device_us"], "bound_us": r["bound_ms"] * 1e3,
         "share": r["bound_ms"] * 1e3 / r["device_us"],
+        "device_us_by_shape": r["device_us_by_shape"],
         "launches_by_path": {
             "encode": enc_launches[r["kname"]],
             "decode": dec_launches[r["kname"]],
             "vfy_sweep_decode": vfy_launches[r["kname"]],
+            "sao_1080p_decode": sao_launches[r["kname"]],
             "decode_13_bit": deep_launches[r["kname"]],
             "dsp_tools": dsp_launches[r["kname"]],
             "signature": sig_launches[r["kname"]],

@@ -1,31 +1,56 @@
-// The decoder's SAO filter of one component, for Hopper (sm_90a).
+// The decoder's SAO filter, for Hopper (sm_90a).
 //
 // Replaces the XLA program turingcodec_tpu/ops/sao.py _sao_plane (:33-96),
-// bit-exact for any int16 samples and bit depth 8..16: per sample, the
-// band offset (band (p >> (bd - 5)) - class, mod 32, below 4 takes that
-// offset) or the edge offset of the CTB's class (the sign remap of the two
-// neighbours along the class's direction, used only where both lie in the
-// picture and, in both directions, in the same slice or the slice allows
-// filtering across, and in the same tile or the picture allows it), each
-// clipped to [0, 2^bd - 1]; unchanged where the CTB's type is 0, its slice
-// (per-slice enables, a negative index: disabled) does not enable SAO for
-// the component, or the 4x4 skip map (PCM with the loop filter off,
-// transquant bypass) holds the sample. The direction offsets and the remap
-// are compiled in as immediates from ops/sao.py by ops/kernel_build.py.
+// which sao_picture_device (:98) runs once per component, bit-exact for
+// any int16 samples and bit depth 8..16: per sample, the band offset (band
+// (p >> (bd - 5)) - class, mod 32, below 4 takes that offset) or the edge
+// offset of the CTB's class (the sign remap of the two neighbours along the
+// class's direction, used only where both lie in the picture and, in both
+// directions, in the same slice or the slice allows filtering across, and
+// in the same tile or the picture allows it), each clipped to
+// [0, 2^bd - 1]; unchanged where the CTB's type is 0, its slice (per-slice
+// enables, a negative index: disabled) does not enable SAO for the
+// component, or the 4x4 skip map (PCM with the loop filter off, transquant
+// bypass) holds the sample. The direction offsets and the remap are
+// compiled in as immediates from ops/sao.py by ops/kernel_build.py.
 //
-// The XLA program upsamples every per-CTB map to sample resolution and
-// rolls whole planes; this kernel reads the per-CTB maps (type, class,
-// offsets, slice, tile) at (y >> ctb_log2, x >> ctb_log2) and the 4x4 skip
-// map at (y >> skip_log2, x >> skip_log2), and the deblocked plane at the
-// sample and its two neighbours. It reads the source plane and writes a
-// new one: the neighbours must see samples before SAO.
+// What bounds it. A 1080p 4:2:0 picture is 6.2 MB of int16 read once and
+// written once, and its per-CTB maps and 4x4 skip map are under 0.2 MB:
+// about 3.7 us at 3.35 TB/s. Bytes bound it.
 //
-// What bounds it. One thread per sample, a warp on 32 neighbouring samples
-// of one row: each output sample is one int16 read (the neighbours' reads
-// hit L1) and one written, so bytes bound it: 2 x 4.1 MB for the luma of a
-// 1080p picture, about 2.5 us. One launch takes F pictures of one
-// component.
+// Design: one launch for F pictures (blockIdx.z) and one to three
+// components of one geometry: component 0, and for a picture Cb and Cr at
+// half its resolution, all on one CTB grid. A CTA owns component 0's
+// 64x64 window at (64 bx, 64 by) and the others' 32x32 windows at
+// (32 bx, 32 by): whole CTBs (at most 8 x 8 of them: CTBs of 8 samples or
+// more), and the 4x4 skip blocks under them. It
+//   1. issues every load at once: each window with a one-sample halo into
+//      shared memory by cp.async (16 bytes where 8 samples lie inside the
+//      row at a 16-byte address, 4 bytes for a halo pair, single samples
+//      elsewhere), and into registers each component's type, class and
+//      offsets of the window's CTBs, the slice and tile ids of those CTBs
+//      and of their ring of neighbours, the window's skip bytes and, up to
+//      kSlices slices, the per-slice enable and across flags;
+//   2. derives once per CTB, not per sample, its 3x3 mask of the
+//      neighbouring CTBs an edge offset may read (the same slice or the
+//      CTB's slice filters across slices; the same tile or the picture
+//      filters across tiles), and each component's effective type (0 where
+//      its slice disables the component, or the type or edge class is
+//      none): a sample's edge offset is valid where both neighbours lie in
+//      the picture and the mask holds both neighbours' CTBs, which is
+//      _sao_plane's per-sample rule (ops/sao.py sao_neighbour_mask is its
+//      plain version, and a CPU test holds the two rules equal);
+//   3. filters, a thread per 8 consecutive samples of a row, from shared
+//      memory, and writes them with one 16-byte store (single samples at a
+//      ragged edge or an unaligned row); type 0, a disabled slice and the
+//      skipped blocks copy the staged samples through.
+// Out of place: the neighbours must be read before SAO. The copy is the
+// kernel's own read and write, so each sample is read from and written to
+// device memory once. At 1080p the 510 CTAs (256 threads) fit one wave at
+// 4 an SM, so the time is about one round trip for the windows and maps,
+// the filter, and the stores draining.
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 #if !defined(TC_SAO_EO_A) || !defined(TC_SAO_REMAP)
@@ -34,125 +59,464 @@
 
 namespace {
 
-constexpr int kTileX = 32, kTileY = 8;
+constexpr int kT = 64;                 // component 0's window side
+constexpr int kThreads = 256;
+constexpr int kMaxComp = 3;
+constexpr int kCtbs = 8;               // CTBs a window side, at most
+constexpr int kCtbsSq = kCtbs * kCtbs;
+constexpr int kRing = kCtbs + 2;       // with their neighbours
+constexpr int kSkip = 32;              // skip bytes a window side, at most
+constexpr int kSlices = 256;           // per-slice flags staged up to this
+constexpr int kPad = 8;                // staged column of a window's x0
+constexpr int kRows0 = kT + 2, kPitch0 = kT + 2 * kPad;
+constexpr int kRows1 = kT / 2 + 2, kPitch1 = kT / 2 + 2 * kPad;
+constexpr int kGroups0 = kT * (kT / 8);              // 8-sample groups
+constexpr int kGroups1 = (kT / 2) * (kT / 16);
+constexpr int kSkipPer = kSkip * kSkip / kThreads;   // skip bytes a thread
+constexpr int kFlagPer = (1 + kMaxComp) * kSlices / kThreads;
 
-struct CtbMaps {
-    // per CTB, (F, hc, wc); offsets (F, hc, wc, n_off)
+struct Plane {
+    const int16_t* src;
+    int16_t* dst;
+    int h, w, ctb_log2, skip_log2, bd;
+};
+
+struct Params {
+    Plane pl[kMaxComp];
+    int n_comp;
+    // per CTB (F, n_comp, hc, wc); offsets (F, n_comp, hc, wc, n_off)
     const int32_t* type;
     const int32_t* cls;
     const int32_t* off;
+    // per CTB (F, hc, wc)
     const int32_t* slice;
     const int32_t* tile;
-    // per slice, (F, n_sl)
+    // per slice: enable (F, n_comp, n_sl), across (F, n_sl)
     const uint8_t* enable;
     const uint8_t* across;
     // per picture, (F,); null: across_all for every picture
     const uint8_t* across_tiles;
     // per 4x4 luma block, (F, hs, ws)
     const uint8_t* skip;
+    int hc, wc, n_off, n_sl, hs, ws, across_all;
 };
 
-struct Dims {
-    int h, w, hc, wc, n_off, n_sl, hs, ws, ctb_log2, skip_log2, bd,
-        across_all;
+struct Stage {
+    // the windows: row r, column c is (y0 - 1 + r, x0 - kPad + c)
+    int16_t t0[kRows0][kPitch0];
+    int16_t t1[2][kRows1][kPitch1];
+    int32_t off[kMaxComp][kCtbsSq][4];
+    // the CTBs (cy0 - 1 + r, cx0 - 1 + c)
+    int32_t slice[kRing][kRing];
+    int32_t tile[kRing][kRing];
+    // per CTB of the window: the 3x3 mask, bit (dy + 1) * 3 + dx + 1
+    uint16_t mask[kCtbsSq];
+    int8_t type[kMaxComp][kCtbsSq];   // effective: 0 none, 1 band, 2 edge
+    int8_t cls[kMaxComp][kCtbsSq];
+    uint8_t skip[kSkip][kSkip];
+    uint8_t across[kSlices];
+    uint8_t enable[kMaxComp][kSlices];
 };
 
-__global__ void __launch_bounds__(kTileX * kTileY)
-sao_kernel(const int16_t* __restrict__ src, int16_t* __restrict__ dst,
-           CtbMaps m, Dims d) {
-    // eoClass -> neighbour a's (dy, dx); b is its negation
+union Row8 {
+    int4 v;
+    int16_t s[8];
+};
+
+__device__ inline bool aligned(const void* p, uintptr_t a) {
+    return (reinterpret_cast<uintptr_t>(p) & (a - 1)) == 0;
+}
+
+__device__ inline void cp_async16(void* sdst, const void* gsrc) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"((uint32_t)__cvta_generic_to_shared(sdst)),
+                    "l"(gsrc) : "memory");
+}
+
+__device__ inline void cp_async4(void* sdst, const void* gsrc) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"((uint32_t)__cvta_generic_to_shared(sdst)),
+                    "l"(gsrc) : "memory");
+}
+
+__device__ inline int clip(int v, int hi) { return min(max(v, 0), hi); }
+
+__device__ inline int sgn(int v) { return (v > 0) - (v < 0); }
+
+__global__ void __launch_bounds__(kThreads, 4)
+sao_kernel(const __grid_constant__ Params P) {
     constexpr int eo_a[4][2] = {TC_SAO_EO_A};
     constexpr int remap[5] = {TC_SAO_REMAP};
-    const int x = blockIdx.x * kTileX + threadIdx.x;
-    const int y = blockIdx.y * kTileY + threadIdx.y;
-    if (x >= d.w || y >= d.h) return;
-    const int f = blockIdx.z;
-    const size_t fp = (size_t)f * d.h * d.w;
-    const int16_t* s = src + fp;
-    const int p = s[(size_t)y * d.w + x];
-    int out = p;
+    __shared__ __align__(16) Stage s;
+    const int tid = threadIdx.x, f = blockIdx.z;
+    const int bx = blockIdx.x, by = blockIdx.y;
+    const int l0 = P.pl[0].ctb_log2;
+    // the window's CTBs, the same grid cells for every component
+    const int cy0 = (by * kT) >> l0, cx0 = (bx * kT) >> l0;
+    const int ncy = ((by * kT + kT - 1) >> l0) - cy0 + 1;
+    const int ncx = ((bx * kT + kT - 1) >> l0) - cx0 + 1;
+    const int nctb = ncy * ncx;
+    // the window's skip bytes, the same for every component
+    const int S = kT >> P.pl[0].skip_log2;
+    const int sy0 = by * S, sx0 = bx * S;
+    const bool flags_staged = P.n_sl <= kSlices;
 
-    const size_t fc = (size_t)f * d.hc * d.wc;
-    const int ci = (y >> d.ctb_log2) * d.wc + (x >> d.ctb_log2);
-    const int type = m.type[fc + ci];
-    const int slice = m.slice[fc + ci];
-    const int sl = f * d.n_sl + min(max(slice, 0), d.n_sl - 1);
-    const bool enabled = slice >= 0 && m.enable[sl];
-    const bool skip = m.skip[(size_t)f * d.hs * d.ws
-                             + (size_t)(y >> d.skip_log2) * d.ws
-                             + (x >> d.skip_log2)] != 0;
-    if (enabled && type > 0 && !skip) {
-        const int max_val = (1 << d.bd) - 1;
-        const int cls = m.cls[fc + ci];
-        const int32_t* off = m.off + (fc + ci) * d.n_off;
-        if (type == 1) {
-            const int idx = ((p >> (d.bd - 5)) - cls) & 31;
-            out = min(max(idx < 4 ? p + off[idx] : p, 0), max_val);
-        } else if (type == 2 && cls >= 0 && cls < 4) {
-            const int dy = eo_a[cls][0], dx = eo_a[cls][1];
-            const int ya = y + dy, xa = x + dx, yb = y - dy, xb = x - dx;
-            bool valid = ya >= 0 && ya < d.h && xa >= 0 && xa < d.w
-                         && yb >= 0 && yb < d.h && xb >= 0 && xb < d.w;
-            if (valid) {
-                const int ca = (ya >> d.ctb_log2) * d.wc + (xa >> d.ctb_log2);
-                const int cb = (yb >> d.ctb_log2) * d.wc + (xb >> d.ctb_log2);
-                const bool allowed = slice < 0 || m.across[sl];
-                valid = allowed || (m.slice[fc + ca] == slice
-                                    && m.slice[fc + cb] == slice);
-                const bool across_tiles = m.across_tiles
-                                          ? m.across_tiles[f] != 0
-                                          : d.across_all != 0;
-                if (!across_tiles) {
-                    const int tile = m.tile[fc + ci];
-                    valid = valid && m.tile[fc + ca] == tile
-                            && m.tile[fc + cb] == tile;
+    // 1. the windows in, by cp.async: the rows y0 - 1 .. y0 + T of each
+    // component, 8 samples a copy, then the left and right halo
+    for (int c = 0; c < P.n_comp; ++c) {
+        const Plane& q = P.pl[c];
+        const int T = c ? kT / 2 : kT, pitch = c ? kPitch1 : kPitch0;
+        int16_t* t = c ? &s.t1[c - 1][0][0] : &s.t0[0][0];
+        const int x0 = bx * T, y0 = by * T, per_row = T / 8 + 2;
+        if (x0 >= q.w || y0 >= q.h) continue;   // past this plane
+        const int16_t* src = q.src + (size_t)f * q.h * q.w;
+        for (int i = tid; i < (T + 2) * per_row; i += kThreads) {
+            const int r = i / per_row, j = i % per_row;
+            const int y = y0 - 1 + r;
+            if (y < 0 || y >= q.h) continue;
+            const int16_t* row = src + (size_t)y * q.w;
+            int16_t* srow = t + r * pitch;
+            int x, col, n;
+            if (j < T / 8) {            // 8 samples from x0 + 8 j
+                x = x0 + 8 * j;
+                col = kPad + 8 * j;
+                n = min(8, q.w - x);
+                if (n == 8 && aligned(row + x, 16)) {
+                    cp_async16(srow + col, row + x);
+                    continue;
                 }
+            } else if (j == T / 8) {    // x0 - 1, with x0 - 2 as a pair
+                x = x0 - 2;
+                col = kPad - 2;
+                n = 2;
+                if (x < 0) {
+                    x = x0 - 1;
+                    col = kPad - 1;
+                    n = 1;
+                }
+            } else {                    // x0 + T, with x0 + T + 1
+                x = x0 + T;
+                col = kPad + T;
+                n = min(2, q.w - x);
             }
-            if (valid) {
-                const int a = s[(size_t)ya * d.w + xa];
-                const int b = s[(size_t)yb * d.w + xb];
-                const int e = remap[2 + (p > a) - (p < a) + (p > b) - (p < b)];
-                out = min(max(p + (e ? off[e - 1] : 0), 0), max_val);
+            if (n <= 0 || x < 0) continue;
+            if (n == 2 && aligned(row + x, 4)) {
+                cp_async4(srow + col, row + x);
+                continue;
             }
+            for (int k = 0; k < n; ++k) srow[col + k] = row[x + k];
         }
     }
-    dst[fp + (size_t)y * d.w + x] = (int16_t)out;
+
+    // the window's CTB parameters, a (component, CTB) a thread, kept in
+    // registers until the per-slice flags are staged
+    const bool has_param = tid < P.n_comp * nctb;
+    const int pc = has_param ? tid / nctb : 0, pk = has_param ? tid % nctb : 0;
+    const int pcy = cy0 + pk / ncx, pcx = cx0 + pk % ncx;
+    const bool in_grid = has_param && pcy < P.hc && pcx < P.wc;
+    int r_type = 0, r_cls = 0, r_slice = -1;
+    int4 r_off = make_int4(0, 0, 0, 0);
+    if (in_grid) {
+        const size_t ci = ((size_t)(f * P.n_comp + pc) * P.hc + pcy) * P.wc
+                          + pcx;
+        r_type = __ldg(P.type + ci);
+        r_cls = __ldg(P.cls + ci);
+        r_slice = __ldg(P.slice + ((size_t)f * P.hc + pcy) * P.wc + pcx);
+        const int32_t* o = P.off + ci * P.n_off;
+        if (P.n_off == 4 && aligned(o, 16))
+            r_off = __ldg(reinterpret_cast<const int4*>(o));
+        else
+            r_off = make_int4(__ldg(o), __ldg(o + 1), __ldg(o + 2),
+                              __ldg(o + 3));
+    }
+    // the slice and tile ids of the window's CTBs and their ring
+    const int rw = ncx + 2;
+    const bool has_ring = tid < (ncy + 2) * rw;
+    const int ry = tid / rw, rx = tid % rw;
+    const int rcy = cy0 - 1 + ry, rcx = cx0 - 1 + rx;
+    int r_rs = 0, r_rt = 0;
+    if (has_ring && rcy >= 0 && rcy < P.hc && rcx >= 0 && rcx < P.wc) {
+        const size_t i = ((size_t)f * P.hc + rcy) * P.wc + rcx;
+        r_rs = __ldg(P.slice + i);
+        r_rt = __ldg(P.tile + i);
+    }
+    // the skip bytes of the window's S x S 4x4 blocks
+    uint8_t r_skip[kSkipPer];
+#pragma unroll
+    for (int k = 0; k < kSkipPer; ++k) {
+        const int i = tid + k * kThreads;
+        const int yy = sy0 + i / S, xx = sx0 + i % S;
+        r_skip[k] = i < S * S && yy < P.hs && xx < P.ws
+                    ? __ldg(P.skip + ((size_t)f * P.hs + yy) * P.ws + xx) : 0;
+    }
+    // the per-slice across flags, then each component's enables
+    uint8_t r_flag[kFlagPer];
+#pragma unroll
+    for (int k = 0; k < kFlagPer; ++k) {
+        const int i = tid + k * kThreads;
+        const int which = i / P.n_sl, sl = i % P.n_sl;
+        r_flag[k] = 0;
+        if (flags_staged && which <= P.n_comp)
+            r_flag[k] = which ? __ldg(P.enable + ((size_t)f * P.n_comp
+                                                  + which - 1) * P.n_sl + sl)
+                              : __ldg(P.across + (size_t)f * P.n_sl + sl);
+    }
+    if (has_ring) {
+        s.slice[ry][rx] = r_rs;
+        s.tile[ry][rx] = r_rt;
+    }
+#pragma unroll
+    for (int k = 0; k < kSkipPer; ++k) {
+        const int i = tid + k * kThreads;
+        if (i < S * S) s.skip[i / S][i % S] = r_skip[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kFlagPer; ++k) {
+        const int i = tid + k * kThreads;
+        const int which = i / P.n_sl, sl = i % P.n_sl;
+        if (flags_staged && which <= P.n_comp) {
+            if (which)
+                s.enable[which - 1][sl] = r_flag[k];
+            else
+                s.across[sl] = r_flag[k];
+        }
+    }
+    __syncthreads();
+
+    // 2. once per CTB: each component's effective type, and the mask
+    const int n_sl1 = P.n_sl - 1;
+    if (has_param) {
+        const int sl = min(max(r_slice, 0), n_sl1);
+        const bool enabled =
+            r_slice >= 0
+            && (flags_staged ? s.enable[pc][sl]
+                             : __ldg(P.enable + ((size_t)f * P.n_comp + pc)
+                                                    * P.n_sl + sl)) != 0;
+        int t = 0;
+        if (enabled && r_type == 1) t = 1;
+        if (enabled && r_type == 2 && r_cls >= 0 && r_cls < 4) t = 2;
+        s.type[pc][pk] = (int8_t)t;
+        s.cls[pc][pk] = (int8_t)(t == 1 ? r_cls & 31 : r_cls & 3);
+        *reinterpret_cast<int4*>(s.off[pc][pk]) = r_off;
+    }
+    if (tid < nctb) {
+        const int ky = tid / ncx, kx = tid % ncx;
+        const int cur = s.slice[ky + 1][kx + 1], tl = s.tile[ky + 1][kx + 1];
+        const int sl = min(max(cur, 0), n_sl1);
+        const bool allowed =
+            cur < 0 || (flags_staged ? s.across[sl]
+                                     : __ldg(P.across + (size_t)f * P.n_sl
+                                             + sl)) != 0;
+        const bool across_tiles = P.across_tiles ? P.across_tiles[f] != 0
+                                                 : P.across_all != 0;
+        unsigned m = 0;
+#pragma unroll
+        for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll
+            for (int dx = -1; dx <= 1; ++dx) {
+                const int ny = cy0 + ky + dy, nx = cx0 + kx + dx;
+                const int ns = s.slice[ky + 1 + dy][kx + 1 + dx];
+                const int nt = s.tile[ky + 1 + dy][kx + 1 + dx];
+                const bool ok = ny >= 0 && ny < P.hc && nx >= 0 && nx < P.wc
+                                && (ns == cur || allowed)
+                                && (across_tiles || nt == tl);
+                m |= (unsigned)ok << ((dy + 1) * 3 + dx + 1);
+            }
+        }
+        s.mask[tid] = (uint16_t)m;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    // 3. a thread per 8 samples of a row: filtered from shared memory, out
+    // with one 16-byte store
+    const int total = kGroups0 + (P.n_comp - 1) * kGroups1;
+    for (int j = tid; j < total; j += kThreads) {
+        const int c = j < kGroups0 ? 0 : 1 + (j - kGroups0) / kGroups1;
+        const int jj = c ? (j - kGroups0) % kGroups1 : j;
+        const Plane& q = P.pl[c];
+        const int T = c ? kT / 2 : kT, pitch = c ? kPitch1 : kPitch0;
+        const int16_t* t = c ? &s.t1[c - 1][0][0] : &s.t0[0][0];
+        const int row = jj / (T / 8), g = jj % (T / 8);
+        const int y = by * T + row, x = bx * T + 8 * g;
+        if (y >= q.h || x >= q.w) continue;
+        const int r = row + 1, col = kPad + 8 * g;
+        Row8 cur;
+        cur.v = *reinterpret_cast<const int4*>(t + r * pitch + col);
+        Row8 out = cur;
+        const int l = q.ctb_log2;
+        const int cy = y >> l, cx = x >> l;
+        const int k = (cy - cy0) * ncx + (cx - cx0);
+        const int type = s.type[c][k];
+        if (type) {
+            const int bd = q.bd, max_val = (1 << bd) - 1;
+            const int cls = s.cls[c][k];
+            const int4 o4 = *reinterpret_cast<const int4*>(s.off[c][k]);
+            const int off[4] = {o4.x, o4.y, o4.z, o4.w};
+            const int sl = q.skip_log2;
+            const uint8_t* sk = s.skip[(y >> sl) - sy0];
+            if (type == 1) {
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    if (sk[((x + i) >> sl) - sx0]) continue;
+                    const int p = cur.s[i];
+                    const int idx = ((p >> (bd - 5)) - cls) & 31;
+                    int o = 0;
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        if (idx == e) o = off[e];
+                    out.s[i] = (int16_t)clip(p + o, max_val);
+                }
+            } else {
+                int dy = 0, dx = 0;
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    if (cls == e) {
+                        dy = eo_a[e][0];
+                        dx = eo_a[e][1];
+                    }
+                // the rows of neighbours a (y + dy) and b (y - dy), each
+                // from x - 1 to x + 8
+                int va[10], vb[10];
+                const int16_t* ta = t + (r + dy) * pitch + col;
+                const int16_t* tb = t + (r - dy) * pitch + col;
+                Row8 ra, rb;
+                ra.v = *reinterpret_cast<const int4*>(ta);
+                rb.v = *reinterpret_cast<const int4*>(tb);
+                va[0] = ta[-1];
+                va[9] = ta[8];
+                vb[0] = tb[-1];
+                vb[9] = tb[8];
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    va[i + 1] = ra.s[i];
+                    vb[i + 1] = rb.s[i];
+                }
+                const int ya = y + dy, yb = y - dy;
+                const bool in_y = ya >= 0 && ya < q.h && yb >= 0 && yb < q.h;
+                const int ma = ((ya >> l) - cy + 1) * 3 + 1 - cx;
+                const int mb = ((yb >> l) - cy + 1) * 3 + 1 - cx;
+                const unsigned mask = s.mask[k];
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int xa = x + i + dx, xb = x + i - dx;
+                    if (!in_y || xa < 0 || xa >= q.w || xb < 0 || xb >= q.w
+                        || !((mask >> (ma + (xa >> l))) & 1)
+                        || !((mask >> (mb + (xb >> l))) & 1)
+                        || sk[((x + i) >> sl) - sx0])
+                        continue;
+                    const int p = cur.s[i];
+                    const int a = dx < 0 ? va[i] : dx > 0 ? va[i + 2]
+                                                          : va[i + 1];
+                    const int b = dx < 0 ? vb[i + 2] : dx > 0 ? vb[i]
+                                                              : vb[i + 1];
+                    const int ri = 2 + sgn(p - a) + sgn(p - b);
+                    int o = 0;
+#pragma unroll
+                    for (int e = 0; e < 5; ++e)
+                        if (ri == e && remap[e]) o = off[remap[e] - 1];
+                    out.s[i] = (int16_t)clip(p + o, max_val);
+                }
+            }
+        }
+        int16_t* dst = q.dst + (size_t)f * q.h * q.w + (size_t)y * q.w + x;
+        if (x + 8 <= q.w && aligned(dst, 16)) {
+            *reinterpret_cast<int4*>(dst) = out.v;
+        } else {
+            const int n = min(8, q.w - x);
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+                if (i < n) dst[i] = out.s[i];
+        }
+    }
 }
 
 }  // namespace
 
-// src and dst (F, h, w) int16, contiguous on the device and distinct. The
-// per-CTB maps (F, hc, wc) int32 with hc = ceil(h / 2^ctb_log2), wc
-// likewise, the offsets (F, hc, wc, n_off >= 4) int32; the per-slice
-// enable and across flags (F, n_sl) bool, n_sl >= 1; across_tiles (F,)
-// bool or null for across_all; the skip map (F, hs, ws) bool with hs =
-// ceil(h / 2^skip_log2), ws likewise. Launches on `stream` and returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a bit
-// depth outside 8..16 or bad sizes; never synchronises.
-extern "C" int sao_launch(const void* src, void* dst, int frames, int h,
-                          int w, const void* type, const void* cls,
-                          const void* off, int n_off, const void* slice,
-                          const void* tile, int ctb_log2, const void* enable,
+// n_comp (1..3) components of F pictures: src[c] and dst[c] (F, h, w)
+// int16, contiguous on the device, distinct; dims[5 c ..] is component
+// c's (h, w, ctb_log2, skip_log2, bd). Every CTB is 8 samples a side or
+// more, component 0's 128 at most, the others' half as large as its, on
+// the same (hc, wc)
+// grid (hc = ceil(h / 2^ctb_log2) for every component, wc likewise), and
+// every component's skip_log2 maps the same window of the (hs, ws) skip
+// map (hs = ceil(h / 2^skip_log2)): component 0 at 2 (4x4 blocks) or 1,
+// the others one less. The per-CTB maps (F, n_comp, hc, wc) int32, the
+// offsets (F, n_comp, hc, wc, n_off >= 4) int32, slice and tile
+// (F, hc, wc) int32; the per-slice enables (F, n_comp, n_sl) and across
+// flags (F, n_sl) bool, n_sl >= 1; across_tiles (F,) bool or null for
+// across_all; the skip map (F, hs, ws) bool. Launches once on `stream`
+// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
+// for a bit depth outside 8..16 or sizes it does not take; never
+// synchronises.
+extern "C" int sao_launch(int n_comp, const void* const* src,
+                          void* const* dst, const int* dims, int frames,
+                          const void* type, const void* cls, const void* off,
+                          int n_off, const void* slice, const void* tile,
+                          int hc, int wc, const void* enable,
                           const void* across, int n_sl,
                           const void* across_tiles, int across_all,
-                          const void* skip, int skip_log2, int bd,
-                          void* stream) {
-    if (bd < 8 || bd > 16 || h < 1 || w < 1 || frames < 1 || n_sl < 1
-        || n_off < 4 || ctb_log2 < 0 || ctb_log2 > 7 || skip_log2 < 0
-        || skip_log2 > 2)
+                          const void* skip, int hs, int ws, void* stream) {
+    if (n_comp < 1 || n_comp > kMaxComp || frames < 1 || frames > 65535
+        || n_sl < 1 || n_off < 4 || hc < 1 || wc < 1 || hs < 1 || ws < 1)
         return (int)cudaErrorInvalidValue;
-    const int hc = ((h - 1) >> ctb_log2) + 1, wc = ((w - 1) >> ctb_log2) + 1;
-    const int hs = ((h - 1) >> skip_log2) + 1, ws = ((w - 1) >> skip_log2) + 1;
-    CtbMaps m{(const int32_t*)type, (const int32_t*)cls,
-              (const int32_t*)off, (const int32_t*)slice,
-              (const int32_t*)tile, (const uint8_t*)enable,
-              (const uint8_t*)across, (const uint8_t*)across_tiles,
-              (const uint8_t*)skip};
-    Dims d{h, w, hc, wc, n_off, n_sl, hs, ws, ctb_log2, skip_log2, bd,
-           across_all};
-    const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY,
-                    frames);
-    sao_kernel<<<grid, dim3(kTileX, kTileY), 0, (cudaStream_t)stream>>>(
-        (const int16_t*)src, (int16_t*)dst, m, d);
+    Params P{};
+    const int l0 = dims[2], sl0 = dims[3];
+    if (l0 < 3 || l0 > 7 || sl0 < 1 || sl0 > 2)
+        return (int)cudaErrorInvalidValue;
+    int gx = 1, gy = 1;
+    for (int c = 0; c < n_comp; ++c) {
+        const int h = dims[5 * c], w = dims[5 * c + 1], l = dims[5 * c + 2];
+        const int sl = dims[5 * c + 3], bd = dims[5 * c + 4];
+        const int T = c ? kT / 2 : kT, shift = c ? 1 : 0;
+        if (h < 1 || w < 1 || bd < 8 || bd > 16 || l != l0 - shift || l < 3
+            || sl != sl0 - shift || ((h - 1) >> l) + 1 != hc
+            || ((w - 1) >> l) + 1 != wc || ((h - 1) >> sl) + 1 != hs
+            || ((w - 1) >> sl) + 1 != ws || src[c] == nullptr
+            || dst[c] == nullptr)
+            return (int)cudaErrorInvalidValue;
+        P.pl[c] = Plane{(const int16_t*)src[c], (int16_t*)dst[c], h, w, l,
+                        sl, bd};
+        gx = max(gx, (w + T - 1) / T);
+        gy = max(gy, (h + T - 1) / T);
+    }
+    P.n_comp = n_comp;
+    P.type = (const int32_t*)type;
+    P.cls = (const int32_t*)cls;
+    P.off = (const int32_t*)off;
+    P.slice = (const int32_t*)slice;
+    P.tile = (const int32_t*)tile;
+    P.enable = (const uint8_t*)enable;
+    P.across = (const uint8_t*)across;
+    P.across_tiles = (const uint8_t*)across_tiles;
+    P.skip = (const uint8_t*)skip;
+    P.hc = hc;
+    P.wc = wc;
+    P.n_off = n_off;
+    P.n_sl = n_sl;
+    P.hs = hs;
+    P.ws = ws;
+    P.across_all = across_all;
+    sao_kernel<<<dim3(gx, gy, frames), kThreads, 0, (cudaStream_t)stream>>>(
+        P);
     return (int)cudaGetLastError();
+}
+
+// The kernel's resources on the current device: out[0] registers a
+// thread, [1] local (spilled) bytes a thread, [2] shared bytes a CTA,
+// [3] CTAs an SM, [4] threads a CTA, [5] CTAs a 1920x1080 picture
+// launches. Returns a CUDA error code (0 on success).
+extern "C" int sao_occupancy(int* out) {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, sao_kernel);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], sao_kernel,
+                                                          kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[4] = kThreads;
+    out[5] = ((1920 + kT - 1) / kT) * ((1080 + kT - 1) / kT);
+    return 0;
 }

@@ -1,16 +1,19 @@
 """SAO filter on a device: the twin of decode/sao.py (port of
 `turingcodec_tpu/ops/sao.py`).
 
-`sao_frames` filters one component of F pictures from their per-CTB maps:
-CUDA tensors launch the CUDA kernel in `csrc/sao.cu` (its header states
-the design and what bounds it on an H100), one launch for the F pictures;
-CPU tensors take the plain torch version `_sao_plane` per picture, which
-filters the whole plane in one dense pass: per-CTB parameter maps
-(type/class/offsets) are upsampled to sample resolution, the four
-edge-offset classes are computed with whole-plane rolls and selected per
-sample, and every mask (picture border, slice/tile neighbour rules,
-PCM/transquant-bypass skips, per-slice enables) is elementwise.
-`sao_picture_device` runs it for each component of a picture.
+`sao_picture_frames` filters every component of F pictures from their
+per-CTB maps, `sao_frames` one component: CUDA tensors launch the CUDA
+kernel in `csrc/sao.cu` (its header states the design and what bounds it
+on an H100) once a call, for the F pictures and all their components; CPU
+tensors take the plain torch version `_sao_plane` per picture and
+component, which filters the whole plane in one dense pass: per-CTB
+parameter maps (type/class/offsets) are upsampled to sample resolution,
+the four edge-offset classes are computed with whole-plane rolls and
+selected per sample, and every mask (picture border, slice/tile neighbour
+rules, PCM/transquant-bypass skips, per-slice enables) is elementwise.
+`sao_neighbour_mask` is the plain version of the kernel's per-CTB form of
+the slice and tile rules. `sao_picture_device` runs one picture: one
+kernel launch on the card.
 
 Bit-exact with decode/sao.py; reference: turing/sao.h:29-34, sao.cpp.
 """
@@ -24,7 +27,7 @@ import torch
 from turingcodec_tpu_torch.ops import kernel_build
 
 # kernel launches since import (or since a caller reset it to 0): one per
-# sao_frames call on the card
+# sao_frames or sao_picture_frames call on the card
 launches = 0
 _LAUNCH = None
 
@@ -36,6 +39,63 @@ _REMAP = (1, 2, 0, 3, 4)
 def _up(m, fy, fx, h, w):
     """Upsample a per-CTB (or per-4x4) map to sample resolution and crop."""
     return m.repeat_interleave(fy, 0).repeat_interleave(fx, 1)[:h, :w]
+
+
+def _edge_valid(slice_up, tile_up, across_s, across_tiles, eo):
+    """Where an edge offset of class eo may read both its neighbours:
+    both in the picture and, in both directions, in the same slice or the
+    sample's slice filters across slices (a negative slice: across), and
+    in the same tile or across_tiles (a bool, or a frame's flag under
+    torch.func.vmap). slice_up/tile_up are sample-resolution maps."""
+    h, w = slice_up.shape
+    dev = slice_up.device
+    ady, adx = _EO_A[eo]
+    ys = torch.arange(h, device=dev)[:, None]
+    xs = torch.arange(w, device=dev)[None, :]
+    inb = ((ys + ady >= 0) & (ys + ady < h) & (xs + adx >= 0)
+           & (xs + adx < w)
+           & (ys - ady >= 0) & (ys - ady < h) & (xs - adx >= 0)
+           & (xs - adx < w))
+    allowed = torch.where(slice_up >= 0,
+                          across_s[slice_up.clamp(min=0).long()], True)
+    # slice/tile neighbour usability (both directions)
+    nb_sl_a = torch.roll(slice_up, (-ady, -adx), (0, 1))
+    nb_sl_b = torch.roll(slice_up, (ady, adx), (0, 1))
+    ok = ((slice_up == nb_sl_a) | allowed) & ((slice_up == nb_sl_b) | allowed)
+    if across_tiles is not True:  # False, or a frame's flag under vmap
+        ok &= across_tiles | (
+            (tile_up == torch.roll(tile_up, (-ady, -adx), (0, 1)))
+            & (tile_up == torch.roll(tile_up, (ady, adx), (0, 1))))
+    return inb & ok
+
+
+def sao_neighbour_mask(slice_ctb, tile_ctb, across_s, across_tiles):
+    """The slice and tile rules once per CTB, as the kernel applies them:
+    (hc, wc, 3, 3) bool, [cy, cx, dy + 1, dx + 1] true where an edge
+    offset of a sample in CTB (cy, cx) may read a neighbour in CTB
+    (cy + dy, cx + dx): that CTB is in the grid, in the same slice or the
+    CTB's slice filters across slices (a negative slice: across; indices
+    clamped to the per-slice flags), and in the same tile or across_tiles.
+    A sample's edge offset is valid where both neighbours lie in the
+    picture and the mask holds both their CTBs: _edge_valid's rule."""
+    hc, wc = slice_ctb.shape
+    dev = slice_ctb.device
+    n_sl = across_s.shape[0]
+    allowed = torch.where(slice_ctb >= 0,
+                          across_s[slice_ctb.clamp(0, n_sl - 1).long()], True)
+    mask = torch.zeros((hc, wc, 3, 3), dtype=torch.bool, device=dev)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            ys = torch.arange(hc, device=dev) + dy
+            xs = torch.arange(wc, device=dev) + dx
+            inside = (((ys >= 0) & (ys < hc))[:, None]
+                      & ((xs >= 0) & (xs < wc))[None, :])
+            yc, xc = ys.clamp(0, hc - 1), xs.clamp(0, wc - 1)
+            ok = inside & ((slice_ctb[yc][:, xc] == slice_ctb) | allowed)
+            if not across_tiles:
+                ok &= tile_ctb[yc][:, xc] == tile_ctb
+            mask[:, :, dy + 1, dx + 1] = ok
+    return mask
 
 
 def _sao_plane(src, ctb, bd, sub, sao_type, sao_class, sao_off,
@@ -63,31 +123,12 @@ def _sao_plane(src, ctb, bd, sub, sao_type, sao_class, sao_off,
     band_res = band_res.clamp(0, max_val)
 
     # ---- edge offset: all four classes, then per-sample select ---------
-    ys = torch.arange(h, device=dev)[:, None]
-    xs = torch.arange(w, device=dev)[None, :]
-    cur_slice = slice_up
-    cur_tile = tile_up
     remap = torch.as_tensor(_REMAP, dtype=torch.int32, device=dev)
-    allowed = where(cur_slice >= 0,
-                    across_s[cur_slice.clamp(min=0).long()], True)
     edge_res = p
     for eo, (ady, adx) in enumerate(_EO_A):
         a = torch.roll(p, (-ady, -adx), (0, 1))
         b = torch.roll(p, (ady, adx), (0, 1))
-        inb = ((ys + ady >= 0) & (ys + ady < h) & (xs + adx >= 0)
-               & (xs + adx < w)
-               & (ys - ady >= 0) & (ys - ady < h) & (xs - adx >= 0)
-               & (xs - adx < w))
-        # slice/tile neighbour usability (both directions)
-        nb_sl_a = torch.roll(cur_slice, (-ady, -adx), (0, 1))
-        nb_sl_b = torch.roll(cur_slice, (ady, adx), (0, 1))
-        ok = ((cur_slice == nb_sl_a) | allowed) \
-            & ((cur_slice == nb_sl_b) | allowed)
-        if across_tiles is not True:  # False, or a frame's flag under vmap
-            ok &= across_tiles | (
-                (cur_tile == torch.roll(cur_tile, (-ady, -adx), (0, 1)))
-                & (cur_tile == torch.roll(cur_tile, (ady, adx), (0, 1))))
-        valid = inb & ok
+        valid = _edge_valid(slice_up, tile_up, across_s, across_tiles, eo)
         eidx = remap[(2 + torch.sign(p - a) + torch.sign(p - b)).long()]
         off = torch.zeros_like(p)
         for k in range(4):
@@ -95,8 +136,8 @@ def _sao_plane(src, ctb, bd, sub, sao_type, sao_class, sao_off,
         res = where(valid, (p + off).clamp(0, max_val), p)
         edge_res = where(cls_up == eo, res, edge_res)
 
-    enabled = where(cur_slice >= 0,
-                    enable_s[cur_slice.clamp(min=0).long()], False)
+    enabled = where(slice_up >= 0,
+                    enable_s[slice_up.clamp(min=0).long()], False)
     out = where(t_up == 1, band_res, where(t_up == 2, edge_res, p))
     out = where(enabled & (t_up > 0) & ~skip_up, out, p)
     return out.to(src.dtype)
@@ -185,16 +226,113 @@ def sao_ctb_args(plan, maps, c_idx, src):
             maps["across_tiles"], maps["skip4"][None])
 
 
+def sao_picture_args(plan, maps, planes):
+    """sao_picture_frames's arguments for one picture, with a frame axis
+    of 1: planes its deblocked planes as tensors on the maps' device
+    (`maps` from _picture_maps), [y] for a monochrome picture or
+    [y, cb, cr]."""
+    sps = plan.sps
+    n = len(planes)
+    return ([p[None] for p in planes], int(sps.ctb_size_y),
+            int(sps.bit_depth_y), int(sps.bit_depth_c),
+            *(maps[k][:n][None] for k in ("sao_type", "sao_class",
+                                          "sao_off")),
+            maps["slice_idx"][None], maps["tile_id"][None],
+            maps["enable"][:n][None], maps["across_s"][None],
+            maps["across_tiles"], maps["skip4"][None])
+
+
 def _launcher():
     global _LAUNCH
     if _LAUNCH is None:
         fn = kernel_build.load("sao").sao_launch
         fn.restype = ctypes.c_int
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p, p] + [i] * 3 + [p] * 3 + [i] + [p] * 2 + [i]
+        fn.argtypes = ([i, p, p, p, i] + [p] * 3 + [i] + [p] * 2 + [i] * 2
                        + [p] * 2 + [i] + [p] + [i] + [p] + [i] * 2 + [p])
         _LAUNCH = fn
     return _LAUNCH
+
+
+def _launch(planes, ctbs, subs, bds, sao_type, sao_class, sao_off,
+            slice_ctb, tile_ctb, enable_s, across_s, across_tiles, skip4):
+    """One kernel launch for the C planes of F pictures, each (F, h, w)
+    int16 on one card: plane c with CTBs of ctbs[c] samples, 4x4 luma
+    blocks of 4 // subs[c] samples a side, bit depth bds[c]; the per-CTB
+    maps and per-slice enables with a component axis after the frame axis
+    ((F, C, hc, wc), (F, C, hc, wc, n_off), (F, C, S)), the rest as
+    sao_frames takes them. Returns the C new planes."""
+    global launches
+    dev = planes[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if any(p.dtype != torch.int16 for p in planes):
+        raise TypeError("int16 planes required, got "
+                        f"{[p.dtype for p in planes]}")
+    if any(not 8 <= bd <= 16 for bd in bds):
+        raise ValueError(f"bit depths {bds} outside 8..16")
+    if any(ctb < 8 or ctb & (ctb - 1) or sub not in (1, 2)
+           for ctb, sub in zip(ctbs, subs)):
+        raise ValueError(f"ctb {ctbs} (powers of two, 8 or more on the "
+                         f"card), sub {subs} (1 or 2)")
+    n_comp = len(planes)
+    f, h, w = planes[0].shape
+    hc, wc = -(-h // ctbs[0]), -(-w // ctbs[0])
+    k = 4 // subs[0]
+    hs, ws = -(-h // k), -(-w // k)
+    ctb_maps = [a.contiguous() for a in (sao_type, sao_class, sao_off,
+                                         slice_ctb, tile_ctb)]
+    flags = [a.contiguous() for a in (enable_s, across_s, skip4)]
+    if (any(a.dtype != torch.int32 for a in ctb_maps)
+            or any(a.dtype != torch.bool for a in flags)):
+        raise TypeError("int32 per-CTB maps and bool flags required")
+    n_sl, n_off = flags[1].shape[-1], ctb_maps[2].shape[-1]
+    if (any(tuple(a.shape) != (f, n_comp, hc, wc) for a in ctb_maps[:2])
+            or tuple(ctb_maps[2].shape) != (f, n_comp, hc, wc, n_off)
+            or n_off < 4
+            or any(tuple(a.shape) != (f, hc, wc) for a in ctb_maps[3:])
+            or tuple(flags[0].shape) != (f, n_comp, n_sl)
+            or tuple(flags[1].shape) != (f, n_sl) or n_sl < 1
+            or tuple(flags[2].shape) != (f, hs, ws)
+            or any(p.shape[0] != f or -(-p.shape[1] // c) != hc
+                   or -(-p.shape[2] // c) != wc
+                   or -(-p.shape[1] // (4 // s)) != hs
+                   or -(-p.shape[2] // (4 // s)) != ws
+                   for p, c, s in zip(planes, ctbs, subs))
+            or any(a.device != dev for a in planes + ctb_maps + flags)):
+        raise ValueError("maps do not fit the planes")
+    across_ptr, across_all = None, 1
+    if isinstance(across_tiles, torch.Tensor):
+        across_tiles = across_tiles.to(dev, torch.bool).contiguous()
+        if tuple(across_tiles.shape) != (f,):
+            raise ValueError("across_tiles must be a bool or (F,) tensor")
+        across_ptr = across_tiles.data_ptr()
+    else:
+        across_all = int(bool(across_tiles))
+    planes = [p.contiguous() for p in planes]
+    outs = [torch.empty_like(p) for p in planes]
+    if any(o.numel() == 0 for o in outs):
+        return outs
+    src = (ctypes.c_void_p * n_comp)(*(p.data_ptr() for p in planes))
+    dst = (ctypes.c_void_p * n_comp)(*(o.data_ptr() for o in outs))
+    dims = (ctypes.c_int * (5 * n_comp))(*(
+        v for p, c, s, bd in zip(planes, ctbs, subs, bds)
+        for v in (p.shape[1], p.shape[2], c.bit_length() - 1,
+                  (4 // s).bit_length() - 1, bd)))
+    fn = _launcher()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = fn(n_comp, ctypes.cast(src, ctypes.c_void_p),
+                ctypes.cast(dst, ctypes.c_void_p),
+                ctypes.cast(dims, ctypes.c_void_p), f,
+                *(a.data_ptr() for a in ctb_maps[:3]), n_off,
+                *(a.data_ptr() for a in ctb_maps[3:]), hc, wc,
+                flags[0].data_ptr(), flags[1].data_ptr(), n_sl, across_ptr,
+                across_all, flags[2].data_ptr(), hs, ws, stream)
+    if rc != 0:
+        raise RuntimeError(f"sao launch failed: CUDA error {rc}")
+    launches += 1
+    return outs
 
 
 def sao_frames(src, ctb, bd, sub, sao_type, sao_class, sao_off, slice_ctb,
@@ -208,12 +346,12 @@ def sao_frames(src, ctb, bd, sub, sao_type, sao_class, sao_off, slice_ctb,
     2 for 4:2:0 chroma). Returns new (F, h, w) planes, each equal to
     _sao_plane's. CPU tensors take _sao_plane under torch.func.vmap on the
     maps upsampled to sample resolution; CUDA tensors launch the kernel
-    once, and a failed build or launch raises; bit depths 8..16."""
-    global launches
+    once (CTBs of 8 samples or more), and a failed build or launch raises;
+    bit depths 8..16."""
     f, h, w = src.shape
-    dev = src.device
-    k = 4 // sub
-    if dev.type == "cpu":
+    if src.device.type == "cpu":
+        k = 4 // sub
+
         def one(s, t, c, o, sl, tl, en, ac, at, sk):
             return _sao_plane(s, ctb, bd, sub, t, c, o,
                               _up(sl, ctb, ctb, h, w), _up(tl, ctb, ctb, h, w),
@@ -223,72 +361,54 @@ def sao_frames(src, ctb, bd, sub, sao_type, sao_class, sao_off, slice_ctb,
         return torch.func.vmap(one)(src, sao_type, sao_class, sao_off,
                                     slice_ctb, tile_ctb, enable_s, across_s,
                                     across_tiles, skip4)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if src.dtype != torch.int16:
-        raise TypeError(f"int16 planes required, got {src.dtype}")
-    if not 8 <= bd <= 16:
-        raise ValueError(f"bit depth {bd} outside 8..16")
-    if ctb < 1 or ctb & (ctb - 1) or sub not in (1, 2):
-        raise ValueError(f"ctb {ctb} (a power of two), sub {sub} (1 or 2)")
-    ctb_log2, skip_log2 = ctb.bit_length() - 1, k.bit_length() - 1
-    hc, wc = -(-h // ctb), -(-w // ctb)
-    ctb_maps = [a.contiguous() for a in (sao_type, sao_class, sao_off,
-                                         slice_ctb, tile_ctb)]
-    flags = [a.contiguous() for a in (enable_s, across_s, skip4)]
-    if (any(a.dtype != torch.int32 for a in ctb_maps)
-            or any(a.dtype != torch.bool for a in flags)):
-        raise TypeError("int32 per-CTB maps and bool flags required")
-    n_sl, n_off = flags[0].shape[-1], ctb_maps[2].shape[-1]
-    if (any(tuple(a.shape) != (f, hc, wc) for a in ctb_maps[:2]
-            + ctb_maps[3:])
-            or tuple(ctb_maps[2].shape) != (f, hc, wc, n_off) or n_off < 4
-            or tuple(flags[1].shape) != (f, n_sl) or n_sl < 1
-            or tuple(flags[2].shape) != (f, -(-h // k), -(-w // k))
-            or any(a.device != dev for a in ctb_maps + flags)):
-        raise ValueError("maps do not fit the planes")
-    across_ptr, across_all = None, 1
-    if isinstance(across_tiles, torch.Tensor):
-        across_tiles = across_tiles.to(dev, torch.bool).contiguous()
-        if tuple(across_tiles.shape) != (f,):
-            raise ValueError("across_tiles must be a bool or (F,) tensor")
-        across_ptr = across_tiles.data_ptr()
-    else:
-        across_all = int(bool(across_tiles))
-    src = src.contiguous()
-    out = torch.empty_like(src)
-    if out.numel() == 0:
-        return out
-    fn = _launcher()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = fn(src.data_ptr(), out.data_ptr(), f, h, w,
-                *(a.data_ptr() for a in ctb_maps[:3]), n_off,
-                *(a.data_ptr() for a in ctb_maps[3:]), ctb_log2,
-                flags[0].data_ptr(), flags[1].data_ptr(), n_sl, across_ptr,
-                across_all, flags[2].data_ptr(), skip_log2, bd, stream)
-    if rc != 0:
-        raise RuntimeError(f"sao launch failed: CUDA error {rc}")
-    launches += 1
-    return out
+    return _launch([src], [ctb], [sub], [bd], sao_type[:, None],
+                   sao_class[:, None], sao_off[:, None], slice_ctb, tile_ctb,
+                   enable_s[:, None], across_s, across_tiles, skip4)[0]
+
+
+def sao_picture_frames(planes, ctb, bd_y, bd_c, sao_type, sao_class, sao_off,
+                       slice_ctb, tile_ctb, enable_s, across_s, across_tiles,
+                       skip4):
+    """SAO of every component of F 4:2:0 or monochrome pictures of one
+    size: planes [y] or [y, cb, cr], (F, h, w) int16 deblocked planes (the
+    chroma half the luma's sides); ctb the luma CTB side (chroma CTBs half
+    of it); bd_y the luma and bd_c the chroma bit depth; per CTB
+    sao_type/sao_class (F, C, hc, wc) and sao_off (F, C, hc, wc, 4 or
+    more) for the C planes, slice_ctb/tile_ctb (F, hc, wc); per slice
+    enable_s (F, C, S) and across_s (F, S) bool; across_tiles a bool or an
+    (F,) bool tensor; skip4 (F, h/4, w/4) bool. Returns the C new planes,
+    each equal to _sao_plane's. CPU tensors take sao_frames's plain
+    version per component; CUDA tensors launch the kernel once for every
+    component, and a failed build or launch raises."""
+    n = len(planes)
+    if n not in (1, 3):
+        raise ValueError(f"{n} planes: 1 (monochrome) or 3 (4:2:0)")
+    ctbs, subs, bds = ([ctb, ctb // 2, ctb // 2][:n], [1, 2, 2][:n],
+                       [bd_y, bd_c, bd_c][:n])
+    if planes[0].device.type == "cpu":
+        return [sao_frames(planes[c], ctbs[c], bds[c], subs[c],
+                           sao_type[:, c], sao_class[:, c], sao_off[:, c],
+                           slice_ctb, tile_ctb, enable_s[:, c], across_s,
+                           across_tiles, skip4) for c in range(n)]
+    return _launch(planes, ctbs, subs, bds, sao_type, sao_class, sao_off,
+                   slice_ctb, tile_ctb, enable_s, across_s, across_tiles,
+                   skip4)
 
 
 def sao_picture_device(plan, geom, deblocked, device, pull=True):
     """Apply SAO on `device` to [y, cb, cr] (numpy planes or tensors on
     `device`); returns new numpy planes (drop-in for decode/sao.sao_picture)
     or, with pull=False, new tensors left on the device: the chained
-    pipeline's mode (decode/device_pipeline.py). One sao_frames call per
-    component: one kernel launch each on the card."""
+    pipeline's mode (decode/device_pipeline.py). One sao_picture_frames
+    call for the picture's components (luma alone when monochrome): one
+    kernel launch on the card."""
     maps = _picture_maps(plan, geom, device)
-    out = []
-    n_planes = 3 if plan.sps.chroma_array_type else 1
-    for c_idx in range(len(deblocked)):
-        src = deblocked[c_idx]
-        if c_idx >= n_planes:
-            out.append(src.copy() if isinstance(src, np.ndarray)
-                       else src.clone())
-            continue
-        res = sao_frames(*sao_ctb_args(
-            plan, maps, c_idx, torch.as_tensor(src, device=device)))[0]
-        out.append(res.cpu().numpy() if pull else res)
+    n = 3 if plan.sps.chroma_array_type else 1
+    res = sao_picture_frames(*sao_picture_args(
+        plan, maps, [torch.as_tensor(deblocked[c], device=device)
+                     for c in range(n)]))
+    out = [r[0].cpu().numpy() if pull else r[0] for r in res]
+    for src in deblocked[n:]:
+        out.append(src.copy() if isinstance(src, np.ndarray)
+                   else src.clone())
     return out

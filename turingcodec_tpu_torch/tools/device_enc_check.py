@@ -175,13 +175,14 @@ def analysis_checks(orig, ref, zscan, device, reps: int = 3, log=print):
     return times
 
 
-def encode(frames, device, qp: int = 30):
+def encode(frames, device, qp: int = 30, sao: bool = False):
     """Encode at bench.py's fast low-delay operating point (QP 30 unless
-    given); returns (bitstream, frames/s)."""
+    given; SAO off unless given, as there); returns (bitstream,
+    frames/s)."""
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
     h, w = frames[0][0].shape
     cfg = EncoderConfig(width=w, height=h, qp=qp, rd_candidates=1,
-                        search_range=32, gop_m=1, sao=False, rdoq=True,
+                        search_range=32, gop_m=1, sao=sao, rdoq=True,
                         sdh=True, device=device)
     enc = Encoder(cfg)
     out = [enc.headers()]

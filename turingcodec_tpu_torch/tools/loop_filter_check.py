@@ -219,6 +219,76 @@ def sao_synthetic(rng, h: int, w: int, bd: int, ctb: int, sub: int = 1,
             tile_ctb, enable, across, bool(rng.random() < 0.5), skip4)
 
 
+def sao_picture_synthetic(rng, h: int, w: int, bd_y: int, bd_c=None,
+                          ctb: int = 64, chroma: bool = True,
+                          n_slices: int = 3, tiles=(2, 2)):
+    """One synthetic SAO-coded picture as the decoder hands it to
+    sao_picture_device (h, w multiples of 8): (plan, geom, [y, cb, cr]
+    int16 deblocked planes), plan and geom namespaces with the fields SAO
+    reads. Every type, band position and edge class in every component
+    (Cr sharing Cb's type and edge class), slices in raster order with
+    luma SAO off in slice 1 and chroma SAO off in slice 2, filtering
+    across slices off in some, a CTB no slice covers (index -1), tiles
+    with filtering across them on or off, PCM and transquant-bypass
+    blocks; monochrome (chroma_array_type 0) when chroma is False."""
+    from types import SimpleNamespace as NS
+    bd_c = bd_y if bd_c is None else bd_c
+    hc, wc = -(-h // ctb), -(-w // ctb)
+    n_ctb = hc * wc
+    sao_type = rng.integers(0, 3, (hc, wc, 3)).astype(np.uint8)
+    sao_type[:, :, 2] = sao_type[:, :, 1]
+    sao_type.reshape(-1, 3)[:3] = np.array([[1, 2, 2], [2, 1, 1],
+                                            [0, 0, 0]])[:n_ctb]
+    sao_class = np.where(sao_type == 1, rng.integers(0, 32, (hc, wc, 3)),
+                         rng.integers(0, 4, (hc, wc, 3))).astype(np.uint8)
+    sao_class[:, :, 2] = np.where(sao_type[:, :, 2] == 2, sao_class[:, :, 1],
+                                  sao_class[:, :, 2])
+    offsets = np.zeros((hc, wc, 3, 4), np.int32)
+    for c, bd in enumerate((bd_y, bd_c, bd_c)):
+        lim = (1 << (min(bd, 10) - 5)) - 1
+        offsets[:, :, c] = rng.integers(-lim, lim + 1, (hc, wc, 4)) \
+            << (bd - min(bd, 10))
+    cuts = np.sort(rng.choice(np.arange(1, n_ctb), min(n_slices, n_ctb) - 1,
+                              replace=False)) if n_ctb > 1 else []
+    slice_idx = np.searchsorted(cuts, np.arange(n_ctb), side="right") \
+        .astype(np.int32).reshape(hc, wc)
+    if n_ctb > 4:
+        slice_idx.flat[-1] = -1
+    ty, tx = tiles
+    tile_id = ((np.arange(hc)[:, None] * ty // hc) * tx
+               + np.arange(wc)[None, :] * tx // wc).astype(np.int32)
+    n_sl = min(n_slices, n_ctb)
+    across = rng.random(n_sl) < 0.5
+    across[0] = False
+    shs = [NS(slice_loop_filter_across_slices_enabled_flag=int(across[i]),
+              slice_sao_luma_flag=int(i != 1),
+              slice_sao_chroma_flag=int(i != 2)) for i in range(n_sl)]
+    h4, w4 = h // 4, w // 4
+    sps = NS(pic_height_in_luma_samples=h, pic_width_in_luma_samples=w,
+             pic_height_in_ctbs_y=hc, pic_width_in_ctbs_y=wc, ctb_size_y=ctb,
+             ctb_log2_size_y=ctb.bit_length() - 1, bit_depth_y=bd_y,
+             bit_depth_c=bd_c, chroma_array_type=int(chroma),
+             pcm_enabled_flag=1, pcm_loop_filter_disabled_flag=1)
+    pps = NS(loop_filter_across_tiles_enabled_flag=int(rng.random() < 0.5),
+             transquant_bypass_enabled_flag=1)
+    plan = NS(sps=sps, pps=pps, slice_headers=shs, slice_idx=slice_idx,
+              sao_type=sao_type, sao_class=sao_class, sao_offsets=offsets,
+              pcm_flag=rng.random((h4, w4)) < 0.03,
+              tq_bypass=rng.random((h4, w4)) < 0.03)
+    geom = NS(tile_id=tile_id, num_tiles=ty * tx)
+
+    def plane(hh, ww, bd):
+        # plateaus with noise: local minima, maxima, edges and flat runs
+        hi = (1 << bd) - 1
+        level = rng.integers(0, hi + 1, (-(-hh // 4), -(-ww // 4)))
+        p = np.repeat(np.repeat(level, 4, 0), 4, 1)[:hh, :ww] \
+            + rng.integers(-2, 3, (hh, ww))
+        return np.clip(p, 0, hi).astype(np.int16)
+    planes = [plane(h, w, bd_y), plane(h // 2, w // 2, bd_c),
+              plane(h // 2, w // 2, bd_c)]
+    return plan, geom, planes
+
+
 def tensors(arrays, device):
     """numpy arrays or tensors (nested in tuples) as tensors on `device`,
     each with a leading frame axis of 1; other values as they are."""
@@ -267,12 +337,41 @@ def check_kernels(device, log=print):
             name, [g[0] for g in got], want))
         names["deblock"].append(name)
 
+    def on(a):
+        if isinstance(a, (list, tuple)):
+            return type(a)(on(x) for x in a)
+        return a.to(device) if isinstance(a, torch.Tensor) else a
+
     def sao_one(name, args):
-        """args: sao_frames's, with the frame axis, on the CPU"""
-        got = sao.sao_frames(*(a.to(device) if isinstance(a, torch.Tensor)
-                               else a for a in args))[0]
-        want = sao.sao_frames(*args)[0]
-        errs["sao"] = max(errs["sao"], same(name, [got], [want]))
+        """args: sao_frames's, with the frame axis, on the CPU; the plane
+        through the one-component launch and, for luma, the
+        three-component launcher's monochrome form"""
+        want = sao.sao_frames(*args)
+        got = [sao.sao_frames(*on(args))]
+        if args[3] == 1:
+            got.append(sao.sao_picture_frames(
+                [on(args[0])], args[1], args[2], args[2],
+                *(on(a[:, None]) for a in args[4:7]), *on(args[7:9]),
+                on(args[9][:, None]), *on(args[10:]))[0])
+        errs["sao"] = max(errs["sao"], same(name, got, [want] * len(got)))
+        names["sao"].append(name)
+
+    def sao_picture(name, plan, geom, planes):
+        """a picture through the three-component launch (one for every
+        component) and through one launch per component"""
+        n = 3 if plan.sps.chroma_array_type else 1
+        maps = sao._picture_maps(plan, geom, "cpu")
+        srcs = [torch.from_numpy(np.ascontiguousarray(p)) for p in planes[:n]]
+        want = sao.sao_picture_frames(*sao.sao_picture_args(plan, maps, srcs))
+        dmaps = {k: on(v) for k, v in maps.items()}
+        before = sao.launches
+        got = sao.sao_picture_frames(*sao.sao_picture_args(plan, dmaps,
+                                                           on(srcs)))
+        check(device.type != "cuda" or sao.launches - before == 1,
+              f"{name}: the picture took {sao.launches - before} launches")
+        got += [sao.sao_frames(*sao.sao_ctb_args(plan, dmaps, c, on(srcs[c])))
+                for c in range(n)]
+        errs["sao"] = max(errs["sao"], same(name, got, want * 2))
         names["sao"].append(name)
 
     h, w = 1080, 1920
@@ -313,17 +412,53 @@ def check_kernels(device, log=print):
         errs["deblock"] = max(errs["deblock"], same(
             f"deblock_frames picture {i} of 3", [g[i] for g in got], want))
     names["deblock"].append("deblock_frames, 3 pictures 200x136 10-bit")
-    for bd in (8, 10, 13, 14, 16):
-        for sub in (1, 2):
-            sao_one(f"sao synthetic {w // sub}x{h // sub} {bd}-bit",
-                    tensors(sao_synthetic(rng, h // sub, w // sub, bd,
-                                          64 // sub, sub), "cpu"))
+    # SAO: 1080p pictures at every CTB size, mixed luma and chroma depths,
+    # ragged sides (no multiple of 64, or of 8 in the chroma), pictures
+    # smaller than one window, monochrome, and more slices than the kernel
+    # stages (its per-slice flags then read from device memory)
+    for bd_y, bd_c, ctb, hh, ww, mono, n_sl in (
+            (8, 8, 64, h, w, False, 3), (10, 10, 32, h, w, False, 5),
+            (13, 13, 16, h, w, False, 9), (14, 14, 64, h, w, False, 3),
+            (16, 16, 32, h, w, False, 4), (8, 10, 16, h, w, False, 6),
+            (12, 8, 32, h, w, False, 3), (8, 8, 16, 1076, 1916, False, 7),
+            (10, 10, 64, 136, 200, False, 3), (8, 8, 16, 16, 24, False, 2),
+            (10, 10, 32, h, w, True, 4), (8, 8, 16, h, w, False, 300)):
+        sao_picture(f"sao synthetic {ww}x{hh} {bd_y}/{bd_c}-bit ctb {ctb}"
+                    f"{' monochrome' if mono else ''}, {n_sl} slices",
+                    *sao_picture_synthetic(rng, hh, ww, bd_y, bd_c, ctb,
+                                           not mono, n_sl))
+    # single planes: odd sides, and each chroma plane alone
+    for bd, (hh, ww), ctb, sub in ((8, (1079, 1913), 16, 1),
+                                   (16, (37, 53), 8, 1),
+                                   (10, (540, 960), 32, 2),
+                                   (14, (67, 101), 8, 2)):
+        sao_one(f"sao synthetic plane {ww}x{hh} {bd}-bit ctb {ctb} sub {sub}",
+                tensors(sao_synthetic(rng, hh, ww, bd, ctb, sub), "cpu"))
+    # three pictures in one launch, each with its own across-tiles flag
+    pics = [sao_picture_synthetic(rng, 136, 200, 10, 10, 32)
+            for _ in range(3)]
+    one = [sao.sao_picture_args(
+        p[0], sao._picture_maps(p[0], p[1], "cpu"),
+        [torch.from_numpy(x) for x in p[2]]) for p in pics]
+    flags = torch.tensor([True, False, True])
+    stacked = ([torch.cat([a[0][c] for a in one]) for c in range(3)],
+               *one[0][1:4], *(torch.cat([a[i] for a in one])
+                               for i in range(4, 11)),
+               flags, torch.cat([a[12] for a in one]))
+    got = sao.sao_picture_frames(*on(stacked))
+    for i, a in enumerate(one):
+        want = sao.sao_picture_frames(*a[:11], bool(flags[i]), a[12])
+        errs["sao"] = max(errs["sao"], same(
+            f"sao_picture_frames picture {i} of 3",
+            [g[i:i + 1] for g in got], want))
+    names["sao"].append("sao_picture_frames, 3 pictures 200x136 10-bit")
     log(f"kernel vs plain, deblock on {len(names['deblock'])} synthetic "
         f"cases (1080p, ragged windows, a batch of 3) and sao on "
-        f"{len(names['sao'])} synthetic planes: equal")
+        f"{len(names['sao'])} synthetic pictures and planes (pictures "
+        f"through the three-component and the one-component launches, a "
+        f"batch of 3): equal")
 
     from turingcodec_tpu_torch.ops.deblock import plan_tensors
-    from turingcodec_tpu_torch.ops.sao import _picture_maps, sao_ctb_args
     n_db = n_sao = 0
     for fn in sorted(f for f in os.listdir(STREAMS) if f.endswith(".hevc")):
         with open(os.path.join(STREAMS, fn), "rb") as fh:
@@ -339,11 +474,7 @@ def check_kernels(device, log=print):
             n_db += 1
             if p["sao"] is None:
                 continue
-            m = _picture_maps(plan, geom, "cpu")
-            for c in range(3):
-                sao_one(f"sao {fn} picture {i} component {c}",
-                        sao_ctb_args(plan, m, c,
-                                     torch.from_numpy(p["post"][c])))
+            sao_picture(f"sao {fn} picture {i}", plan, geom, p["post"])
             n_sao += 1
     log(f"kernel vs plain, deblock on {n_db} pictures and sao on {n_sao} "
         f"pictures of tests/streams: equal")
