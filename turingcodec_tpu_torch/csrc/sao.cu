@@ -73,7 +73,8 @@ constexpr int kRows1 = kT / 2 + 2, kPitch1 = kT / 2 + 2 * kPad;
 constexpr int kGroups0 = kT * (kT / 8);              // 8-sample groups
 constexpr int kGroups1 = (kT / 2) * (kT / 16);
 constexpr int kSkipPer = kSkip * kSkip / kThreads;   // skip bytes a thread
-constexpr int kFlagPer = (1 + kMaxComp) * kSlices / kThreads;
+static_assert(kSlices == kThreads, "a slice's flags a thread");
+static_assert(2 * kGroups1 == kThreads, "a chroma group a thread");
 
 struct Plane {
     const int16_t* src;
@@ -143,80 +144,216 @@ __device__ inline int clip(int v, int hi) { return min(max(v, 0), hi); }
 
 __device__ inline int sgn(int v) { return (v > 0) - (v < 0); }
 
-__global__ void __launch_bounds__(kThreads, 4)
-sao_kernel(const __grid_constant__ Params P) {
-    constexpr int eo_a[4][2] = {TC_SAO_EO_A};
-    constexpr int remap[5] = {TC_SAO_REMAP};
-    __shared__ __align__(16) Stage s;
-    const int tid = threadIdx.x, f = blockIdx.z;
-    const int bx = blockIdx.x, by = blockIdx.y;
-    const int l0 = P.pl[0].ctb_log2;
-    // the window's CTBs, the same grid cells for every component
-    const int cy0 = (by * kT) >> l0, cx0 = (bx * kT) >> l0;
-    const int ncy = ((by * kT + kT - 1) >> l0) - cy0 + 1;
-    const int ncx = ((bx * kT + kT - 1) >> l0) - cx0 + 1;
-    const int nctb = ncy * ncx;
-    // the window's skip bytes, the same for every component
-    const int S = kT >> P.pl[0].skip_log2;
-    const int sy0 = by * S, sx0 = bx * S;
-    const bool flags_staged = P.n_sl <= kSlices;
+// What every thread of a CTA knows of its window: the CTB grid cell of its
+// first CTB and the log2 of its CTBs a side (the window is aligned to CTBs
+// of up to 64 samples, so it holds 2^ncl x 2^ncl of them, or lies in one),
+// and the first skip byte.
+struct Window {
+    int f, bx, by, cy0, cx0, ncl, sy0, sx0;
+};
 
-    // 1. the windows in, by cp.async: the rows y0 - 1 .. y0 + T of each
-    // component, 8 samples a copy, then the left and right halo
-    for (int c = 0; c < P.n_comp; ++c) {
-        const Plane& q = P.pl[c];
-        const int T = c ? kT / 2 : kT, pitch = c ? kPitch1 : kPitch0;
-        int16_t* t = c ? &s.t1[c - 1][0][0] : &s.t0[0][0];
-        const int x0 = bx * T, y0 = by * T, per_row = T / 8 + 2;
-        if (x0 >= q.w || y0 >= q.h) continue;   // past this plane
-        const int16_t* src = q.src + (size_t)f * q.h * q.w;
-        for (int i = tid; i < (T + 2) * per_row; i += kThreads) {
-            const int r = i / per_row, j = i % per_row;
-            const int y = y0 - 1 + r;
-            if (y < 0 || y >= q.h) continue;
-            const int16_t* row = src + (size_t)y * q.w;
-            int16_t* srow = t + r * pitch;
-            int x, col, n;
-            if (j < T / 8) {            // 8 samples from x0 + 8 j
-                x = x0 + 8 * j;
-                col = kPad + 8 * j;
-                n = min(8, q.w - x);
-                if (n == 8 && aligned(row + x, 16)) {
-                    cp_async16(srow + col, row + x);
-                    continue;
-                }
-            } else if (j == T / 8) {    // x0 - 1, with x0 - 2 as a pair
-                x = x0 - 2;
-                col = kPad - 2;
-                n = 2;
-                if (x < 0) {
-                    x = x0 - 1;
-                    col = kPad - 1;
-                    n = 1;
-                }
-            } else {                    // x0 + T, with x0 + T + 1
-                x = x0 + T;
-                col = kPad + T;
-                n = min(2, q.w - x);
-            }
-            if (n <= 0 || x < 0) continue;
-            if (n == 2 && aligned(row + x, 4)) {
-                cp_async4(srow + col, row + x);
+// Component c's window (T samples a side) and its one-sample halo into the
+// staged tile t: rows y0 - 1 .. y0 + T, 8 samples a copy from x0, then the
+// pairs x0 - 2, x0 - 1 and x0 + T, x0 + T + 1; all by cp.async where the
+// address allows, else a sample at a time.
+template <int T>
+__device__ void stage_window(const Plane& q, int16_t* t, const Window& wn) {
+    constexpr int pitch = T + 2 * kPad, per_row = T / 8 + 2;
+    const int x0 = wn.bx * T, y0 = wn.by * T;
+    if (x0 >= q.w || y0 >= q.h) return;   // past this plane
+    const int16_t* src = q.src + (size_t)wn.f * q.h * q.w;
+    for (int i = threadIdx.x; i < (T + 2) * per_row; i += kThreads) {
+        const int r = i / per_row, j = i - r * per_row;
+        const int y = y0 - 1 + r;
+        if (y < 0 || y >= q.h) continue;
+        const int16_t* row = src + (size_t)y * q.w;
+        int16_t* srow = t + r * pitch;
+        int x, col, n;
+        if (j < T / 8) {            // 8 samples from x0 + 8 j
+            x = x0 + 8 * j;
+            col = kPad + 8 * j;
+            n = min(8, q.w - x);
+            if (n == 8 && aligned(row + x, 16)) {
+                cp_async16(srow + col, row + x);
                 continue;
             }
-            for (int k = 0; k < n; ++k) srow[col + k] = row[x + k];
+        } else if (j == T / 8) {    // x0 - 1, with x0 - 2 as a pair
+            x = x0 - 2;
+            col = kPad - 2;
+            n = 2;
+            if (x < 0) {
+                x = x0 - 1;
+                col = kPad - 1;
+                n = 1;
+            }
+        } else {                    // x0 + T, with x0 + T + 1
+            x = x0 + T;
+            col = kPad + T;
+            n = min(2, q.w - x);
         }
+        if (n <= 0 || x < 0) continue;
+        if (n == 2 && aligned(row + x, 4)) {
+            cp_async4(srow + col, row + x);
+            continue;
+        }
+        for (int k = 0; k < n; ++k) srow[col + k] = row[x + k];
+    }
+}
+
+// The 8 samples from (x, y) = (bx T + 8 g, by T + row) of component c,
+// filtered from the staged tile t into dst (the picture's plane).
+template <int T>
+__device__ void filter_group(const Plane& q, int16_t* dst, const int16_t* t,
+                             const Stage& s, int c, const Window& wn,
+                             int row, int g) {
+    constexpr int eo_a[4][2] = {TC_SAO_EO_A};
+    constexpr int remap[5] = {TC_SAO_REMAP};
+    constexpr int pitch = T + 2 * kPad;
+    const int y = wn.by * T + row, x = wn.bx * T + 8 * g;
+    if (y >= q.h || x >= q.w) return;
+    const int16_t* tr = t + (row + 1) * pitch + kPad + 8 * g;
+    Row8 cur;
+    cur.v = *reinterpret_cast<const int4*>(tr);
+    Row8 out = cur;
+    const int l = q.ctb_log2;
+    const int cy = y >> l;
+    const int k = ((cy - wn.cy0) << wn.ncl) | ((x >> l) - wn.cx0);
+    const int type = s.type[c][k];
+    if (type) {
+        const int max_val = (1 << q.bd) - 1;
+        const int cls = s.cls[c][k];
+        const int4 o4 = *reinterpret_cast<const int4*>(s.off[c][k]);
+        // the skipped samples, a bit each (a skip byte covers 2^sl of
+        // them; x is a multiple of 8)
+        const int sl = q.skip_log2, span = 1 << sl;
+        const uint8_t* sk = s.skip[(y >> sl) - wn.sy0] + ((x >> sl) - wn.sx0);
+        unsigned skipped = 0;
+        for (int i = 0; i < 8; i += span)
+            if (sk[i >> sl]) skipped |= ((1u << span) - 1) << i;
+        if (type == 1) {
+            const int shift = q.bd - 5;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const int p = cur.s[i];
+                const int idx = ((p >> shift) - cls) & 31;
+                const int o = idx == 0 ? o4.x : idx == 1 ? o4.y
+                              : idx == 2 ? o4.z : idx == 3 ? o4.w : 0;
+                const int v = clip(p + o, max_val);
+                if (!((skipped >> i) & 1)) out.s[i] = (int16_t)v;
+            }
+        } else {
+            int dy = 0, dx = 0;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                if (cls == e) {
+                    dy = eo_a[e][0];
+                    dx = eo_a[e][1];
+                }
+            // the rows of neighbours a (y + dy) and b (y - dy), x - 1 to
+            // x + 8
+            const int16_t* ta = tr + dy * pitch;
+            const int16_t* tb = tr - dy * pitch;
+            Row8 ra, rb;
+            ra.v = *reinterpret_cast<const int4*>(ta);
+            rb.v = *reinterpret_cast<const int4*>(tb);
+            const int a_l = ta[-1], a_r = ta[8], b_l = tb[-1], b_r = tb[8];
+            // which samples may read both neighbours, a bit each: the
+            // mask's bit of a neighbour's CTB; samples 1..6 read theirs in
+            // their own CTB column, sample 0's x - 1 and sample 7's x + 8
+            // lie a column over where x or x + 8 starts a CTB
+            const int ya = y + dy, yb = y - dy;
+            unsigned valid = 0;
+            if (ya >= 0 && ya < q.h && yb >= 0 && yb < q.h) {
+                const unsigned m = s.mask[k];
+                const int ba = ((ya >> l) - cy + 1) * 3 + 1;
+                const int bb = ((yb >> l) - cy + 1) * 3 + 1;
+                const int ctb_m = (1 << l) - 1;
+                const int dl = (x & ctb_m) == 0 ? -1 : 0;
+                const int dr = ((x + 8) & ctb_m) == 0 ? 1 : 0;
+                valid = ((m >> ba) & (m >> bb) & 1u) ? 0x7eu : 0u;
+                valid |= (m >> (ba + (dx < 0 ? dl : 0)))
+                         & (m >> (bb + (dx > 0 ? dl : 0))) & 1u;
+                valid |= ((m >> (ba + (dx > 0 ? dr : 0)))
+                          & (m >> (bb + (dx < 0 ? dr : 0))) & 1u) << 7;
+                if (dx != 0) {
+                    if (x == 0) valid &= ~1u;   // x - 1 outside
+                    const int n = q.w - 1 - x;  // samples whose x + 1 is in
+                    if (n < 8) valid &= (1u << max(n, 0)) - 1;
+                }
+            }
+            valid &= ~skipped;
+            // the offset by the sign sum: remap, then the class's offsets
+            auto off_of = [&](int e) {
+                return e == 1 ? o4.x : e == 2 ? o4.y : e == 3 ? o4.z
+                       : e == 4 ? o4.w : 0;
+            };
+            const int e0 = off_of(remap[0]), e1 = off_of(remap[1]);
+            const int e2 = off_of(remap[2]), e3 = off_of(remap[3]);
+            const int e4 = off_of(remap[4]);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const int p = cur.s[i];
+                const int am = i ? ra.s[i - 1] : a_l;
+                const int ap = i < 7 ? ra.s[i + 1] : a_r;
+                const int bm = i ? rb.s[i - 1] : b_l;
+                const int bp = i < 7 ? rb.s[i + 1] : b_r;
+                const int a = dx < 0 ? am : dx > 0 ? ap : ra.s[i];
+                const int b = dx < 0 ? bp : dx > 0 ? bm : rb.s[i];
+                const int sg = sgn(p - a) + sgn(p - b);
+                const int o = sg == -2 ? e0 : sg == -1 ? e1 : sg == 0 ? e2
+                              : sg == 1 ? e3 : e4;
+                const int v = clip(p + o, max_val);
+                if ((valid >> i) & 1) out.s[i] = (int16_t)v;
+            }
+        }
+    }
+    int16_t* d = dst + (size_t)y * q.w + x;
+    if (x + 8 <= q.w && aligned(d, 16)) {
+        *reinterpret_cast<int4*>(d) = out.v;
+    } else {
+        const int n = min(8, q.w - x);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+            if (i < n) d[i] = out.s[i];
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
+sao_kernel(const __grid_constant__ Params P) {
+    __shared__ __align__(16) Stage s;
+    const int tid = threadIdx.x;
+    Window wn;
+    wn.f = blockIdx.z;
+    wn.bx = blockIdx.x;
+    wn.by = blockIdx.y;
+    const int f = wn.f;
+    const int l0 = P.pl[0].ctb_log2;
+    wn.ncl = max(0, 6 - l0);
+    wn.cy0 = (wn.by * kT) >> l0;
+    wn.cx0 = (wn.bx * kT) >> l0;
+    const int ncx = 1 << wn.ncl, nctb = ncx * ncx;
+    // the window's skip bytes, the same for every component: S = 2^ss a
+    // side
+    const int ss = 6 - P.pl[0].skip_log2, S = 1 << ss;
+    wn.sy0 = wn.by * S;
+    wn.sx0 = wn.bx * S;
+    const bool flags_staged = P.n_sl <= kSlices;
+
+    // 1. the windows in, by cp.async
+    stage_window<kT>(P.pl[0], &s.t0[0][0], wn);
+    if (P.n_comp > 1) {
+        stage_window<kT / 2>(P.pl[1], &s.t1[0][0][0], wn);
+        stage_window<kT / 2>(P.pl[2], &s.t1[1][0][0], wn);
     }
 
     // the window's CTB parameters, a (component, CTB) a thread, kept in
     // registers until the per-slice flags are staged
-    const bool has_param = tid < P.n_comp * nctb;
-    const int pc = has_param ? tid / nctb : 0, pk = has_param ? tid % nctb : 0;
-    const int pcy = cy0 + pk / ncx, pcx = cx0 + pk % ncx;
-    const bool in_grid = has_param && pcy < P.hc && pcx < P.wc;
+    const int pc = tid >> (2 * wn.ncl), pk = tid & (nctb - 1);
+    const bool has_param = pc < P.n_comp;
+    const int pcy = wn.cy0 + (pk >> wn.ncl), pcx = wn.cx0 + (pk & (ncx - 1));
     int r_type = 0, r_cls = 0, r_slice = -1;
     int4 r_off = make_int4(0, 0, 0, 0);
-    if (in_grid) {
+    if (has_param && pcy < P.hc && pcx < P.wc) {
         const size_t ci = ((size_t)(f * P.n_comp + pc) * P.hc + pcy) * P.wc
                           + pcx;
         r_type = __ldg(P.type + ci);
@@ -229,37 +366,37 @@ sao_kernel(const __grid_constant__ Params P) {
             r_off = make_int4(__ldg(o), __ldg(o + 1), __ldg(o + 2),
                               __ldg(o + 3));
     }
-    // the slice and tile ids of the window's CTBs and their ring
-    const int rw = ncx + 2;
-    const bool has_ring = tid < (ncy + 2) * rw;
-    const int ry = tid / rw, rx = tid % rw;
-    const int rcy = cy0 - 1 + ry, rcx = cx0 - 1 + rx;
+    // the slice and tile ids of the window's CTBs and their ring, a 16 x
+    // 16 grid of threads over the (ncx + 2)^2 of them
+    const int ry = tid >> 4, rx = tid & 15;
+    const bool has_ring = ry < ncx + 2 && rx < ncx + 2;
+    const int rcy = wn.cy0 - 1 + ry, rcx = wn.cx0 - 1 + rx;
     int r_rs = 0, r_rt = 0;
     if (has_ring && rcy >= 0 && rcy < P.hc && rcx >= 0 && rcx < P.wc) {
         const size_t i = ((size_t)f * P.hc + rcy) * P.wc + rcx;
         r_rs = __ldg(P.slice + i);
         r_rt = __ldg(P.tile + i);
     }
-    // the skip bytes of the window's S x S 4x4 blocks
+    // the skip bytes of the window's S x S blocks
     uint8_t r_skip[kSkipPer];
 #pragma unroll
     for (int k = 0; k < kSkipPer; ++k) {
         const int i = tid + k * kThreads;
-        const int yy = sy0 + i / S, xx = sx0 + i % S;
+        const int yy = wn.sy0 + (i >> ss), xx = wn.sx0 + (i & (S - 1));
         r_skip[k] = i < S * S && yy < P.hs && xx < P.ws
                     ? __ldg(P.skip + ((size_t)f * P.hs + yy) * P.ws + xx) : 0;
     }
-    // the per-slice across flags, then each component's enables
-    uint8_t r_flag[kFlagPer];
+    // the per-slice across flag and each component's enable, a slice a
+    // thread
+    const bool has_flag = flags_staged && tid < P.n_sl;
+    uint8_t r_across = 0, r_en[kMaxComp] = {0, 0, 0};
+    if (has_flag) {
+        r_across = __ldg(P.across + (size_t)f * P.n_sl + tid);
 #pragma unroll
-    for (int k = 0; k < kFlagPer; ++k) {
-        const int i = tid + k * kThreads;
-        const int which = i / P.n_sl, sl = i % P.n_sl;
-        r_flag[k] = 0;
-        if (flags_staged && which <= P.n_comp)
-            r_flag[k] = which ? __ldg(P.enable + ((size_t)f * P.n_comp
-                                                  + which - 1) * P.n_sl + sl)
-                              : __ldg(P.across + (size_t)f * P.n_sl + sl);
+        for (int c = 0; c < kMaxComp; ++c)
+            if (c < P.n_comp)
+                r_en[c] = __ldg(P.enable + ((size_t)f * P.n_comp + c)
+                                               * P.n_sl + tid);
     }
     if (has_ring) {
         s.slice[ry][rx] = r_rs;
@@ -268,18 +405,12 @@ sao_kernel(const __grid_constant__ Params P) {
 #pragma unroll
     for (int k = 0; k < kSkipPer; ++k) {
         const int i = tid + k * kThreads;
-        if (i < S * S) s.skip[i / S][i % S] = r_skip[k];
+        if (i < S * S) s.skip[i >> ss][i & (S - 1)] = r_skip[k];
     }
+    if (has_flag) {
+        s.across[tid] = r_across;
 #pragma unroll
-    for (int k = 0; k < kFlagPer; ++k) {
-        const int i = tid + k * kThreads;
-        const int which = i / P.n_sl, sl = i % P.n_sl;
-        if (flags_staged && which <= P.n_comp) {
-            if (which)
-                s.enable[which - 1][sl] = r_flag[k];
-            else
-                s.across[sl] = r_flag[k];
-        }
+        for (int c = 0; c < kMaxComp; ++c) s.enable[c][tid] = r_en[c];
     }
     __syncthreads();
 
@@ -300,7 +431,7 @@ sao_kernel(const __grid_constant__ Params P) {
         *reinterpret_cast<int4*>(s.off[pc][pk]) = r_off;
     }
     if (tid < nctb) {
-        const int ky = tid / ncx, kx = tid % ncx;
+        const int ky = tid >> wn.ncl, kx = tid & (ncx - 1);
         const int cur = s.slice[ky + 1][kx + 1], tl = s.tile[ky + 1][kx + 1];
         const int sl = min(max(cur, 0), n_sl1);
         const bool allowed =
@@ -314,7 +445,7 @@ sao_kernel(const __grid_constant__ Params P) {
         for (int dy = -1; dy <= 1; ++dy) {
 #pragma unroll
             for (int dx = -1; dx <= 1; ++dx) {
-                const int ny = cy0 + ky + dy, nx = cx0 + kx + dx;
+                const int ny = wn.cy0 + ky + dy, nx = wn.cx0 + kx + dx;
                 const int ns = s.slice[ky + 1 + dy][kx + 1 + dx];
                 const int nt = s.tile[ky + 1 + dy][kx + 1 + dx];
                 const bool ok = ny >= 0 && ny < P.hc && nx >= 0 && nx < P.wc
@@ -329,111 +460,27 @@ sao_kernel(const __grid_constant__ Params P) {
     __syncthreads();
 
     // 3. a thread per 8 samples of a row: filtered from shared memory, out
-    // with one 16-byte store
-    const int total = kGroups0 + (P.n_comp - 1) * kGroups1;
-    for (int j = tid; j < total; j += kThreads) {
-        const int c = j < kGroups0 ? 0 : 1 + (j - kGroups0) / kGroups1;
-        const int jj = c ? (j - kGroups0) % kGroups1 : j;
-        const Plane& q = P.pl[c];
-        const int T = c ? kT / 2 : kT, pitch = c ? kPitch1 : kPitch0;
-        const int16_t* t = c ? &s.t1[c - 1][0][0] : &s.t0[0][0];
-        const int row = jj / (T / 8), g = jj % (T / 8);
-        const int y = by * T + row, x = bx * T + 8 * g;
-        if (y >= q.h || x >= q.w) continue;
-        const int r = row + 1, col = kPad + 8 * g;
-        Row8 cur;
-        cur.v = *reinterpret_cast<const int4*>(t + r * pitch + col);
-        Row8 out = cur;
-        const int l = q.ctb_log2;
-        const int cy = y >> l, cx = x >> l;
-        const int k = (cy - cy0) * ncx + (cx - cx0);
-        const int type = s.type[c][k];
-        if (type) {
-            const int bd = q.bd, max_val = (1 << bd) - 1;
-            const int cls = s.cls[c][k];
-            const int4 o4 = *reinterpret_cast<const int4*>(s.off[c][k]);
-            const int off[4] = {o4.x, o4.y, o4.z, o4.w};
-            const int sl = q.skip_log2;
-            const uint8_t* sk = s.skip[(y >> sl) - sy0];
-            if (type == 1) {
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    if (sk[((x + i) >> sl) - sx0]) continue;
-                    const int p = cur.s[i];
-                    const int idx = ((p >> (bd - 5)) - cls) & 31;
-                    int o = 0;
-#pragma unroll
-                    for (int e = 0; e < 4; ++e)
-                        if (idx == e) o = off[e];
-                    out.s[i] = (int16_t)clip(p + o, max_val);
-                }
-            } else {
-                int dy = 0, dx = 0;
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    if (cls == e) {
-                        dy = eo_a[e][0];
-                        dx = eo_a[e][1];
-                    }
-                // the rows of neighbours a (y + dy) and b (y - dy), each
-                // from x - 1 to x + 8
-                int va[10], vb[10];
-                const int16_t* ta = t + (r + dy) * pitch + col;
-                const int16_t* tb = t + (r - dy) * pitch + col;
-                Row8 ra, rb;
-                ra.v = *reinterpret_cast<const int4*>(ta);
-                rb.v = *reinterpret_cast<const int4*>(tb);
-                va[0] = ta[-1];
-                va[9] = ta[8];
-                vb[0] = tb[-1];
-                vb[9] = tb[8];
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    va[i + 1] = ra.s[i];
-                    vb[i + 1] = rb.s[i];
-                }
-                const int ya = y + dy, yb = y - dy;
-                const bool in_y = ya >= 0 && ya < q.h && yb >= 0 && yb < q.h;
-                const int ma = ((ya >> l) - cy + 1) * 3 + 1 - cx;
-                const int mb = ((yb >> l) - cy + 1) * 3 + 1 - cx;
-                const unsigned mask = s.mask[k];
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    const int xa = x + i + dx, xb = x + i - dx;
-                    if (!in_y || xa < 0 || xa >= q.w || xb < 0 || xb >= q.w
-                        || !((mask >> (ma + (xa >> l))) & 1)
-                        || !((mask >> (mb + (xb >> l))) & 1)
-                        || sk[((x + i) >> sl) - sx0])
-                        continue;
-                    const int p = cur.s[i];
-                    const int a = dx < 0 ? va[i] : dx > 0 ? va[i + 2]
-                                                          : va[i + 1];
-                    const int b = dx < 0 ? vb[i + 2] : dx > 0 ? vb[i]
-                                                              : vb[i + 1];
-                    const int ri = 2 + sgn(p - a) + sgn(p - b);
-                    int o = 0;
-#pragma unroll
-                    for (int e = 0; e < 5; ++e)
-                        if (ri == e && remap[e]) o = off[remap[e] - 1];
-                    out.s[i] = (int16_t)clip(p + o, max_val);
-                }
-            }
-        }
-        int16_t* dst = q.dst + (size_t)f * q.h * q.w + (size_t)y * q.w + x;
-        if (x + 8 <= q.w && aligned(dst, 16)) {
-            *reinterpret_cast<int4*>(dst) = out.v;
-        } else {
-            const int n = min(8, q.w - x);
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-                if (i < n) dst[i] = out.s[i];
-        }
+    // with one 16-byte store; component 0's 64 rows of 8 groups, then the
+    // others' 32 rows of 4
+    {
+        const Plane& q = P.pl[0];
+        int16_t* dst = q.dst + (size_t)f * q.h * q.w;
+        for (int j = tid; j < kGroups0; j += kThreads)
+            filter_group<kT>(q, dst, &s.t0[0][0], s, 0, wn, j >> 3, j & 7);
+    }
+    if (P.n_comp > 1) {
+        const int c = 1 + tid / kGroups1, j = tid % kGroups1;
+        const Plane& q = P.pl[1];   // Cb and Cr share every size
+        int16_t* dst = (c == 1 ? q.dst : P.pl[2].dst)
+                       + (size_t)f * q.h * q.w;
+        filter_group<kT / 2>(q, dst, &s.t1[c - 1][0][0], s, c, wn, j >> 2,
+                             j & 3);
     }
 }
 
 }  // namespace
 
-// n_comp (1..3) components of F pictures: src[c] and dst[c] (F, h, w)
+// n_comp (1 or 3) components of F pictures: src[c] and dst[c] (F, h, w)
 // int16, contiguous on the device, distinct; dims[5 c ..] is component
 // c's (h, w, ctb_log2, skip_log2, bd). Every CTB is 8 samples a side or
 // more, component 0's 128 at most, the others' half as large as its, on
@@ -457,7 +504,7 @@ extern "C" int sao_launch(int n_comp, const void* const* src,
                           const void* across, int n_sl,
                           const void* across_tiles, int across_all,
                           const void* skip, int hs, int ws, void* stream) {
-    if (n_comp < 1 || n_comp > kMaxComp || frames < 1 || frames > 65535
+    if ((n_comp != 1 && n_comp != kMaxComp) || frames < 1 || frames > 65535
         || n_sl < 1 || n_off < 4 || hc < 1 || wc < 1 || hs < 1 || ws < 1)
         return (int)cudaErrorInvalidValue;
     Params P{};
@@ -475,6 +522,8 @@ extern "C" int sao_launch(int n_comp, const void* const* src,
             || ((w - 1) >> sl) + 1 != ws || src[c] == nullptr
             || dst[c] == nullptr)
             return (int)cudaErrorInvalidValue;
+        if (c == 2 && (h != dims[5] || w != dims[6] || bd != dims[9]))
+            return (int)cudaErrorInvalidValue;   // Cr sized as Cb
         P.pl[c] = Plane{(const int16_t*)src[c], (int16_t*)dst[c], h, w, l,
                         sl, bd};
         gx = max(gx, (w + T - 1) / T);
