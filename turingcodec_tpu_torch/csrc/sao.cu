@@ -67,14 +67,12 @@ constexpr int kCtbsSq = kCtbs * kCtbs;
 constexpr int kRing = kCtbs + 2;       // with their neighbours
 constexpr int kSkip = 32;              // skip bytes a window side, at most
 constexpr int kSlices = 256;           // per-slice flags staged up to this
+constexpr int kBands = 4;              // commit groups of a window's rows
 constexpr int kPad = 8;                // staged column of a window's x0
 constexpr int kRows0 = kT + 2, kPitch0 = kT + 2 * kPad;
 constexpr int kRows1 = kT / 2 + 2, kPitch1 = kT / 2 + 2 * kPad;
-constexpr int kGroups0 = kT * (kT / 8);              // 8-sample groups
-constexpr int kGroups1 = (kT / 2) * (kT / 16);
 constexpr int kSkipPer = kSkip * kSkip / kThreads;   // skip bytes a thread
 static_assert(kSlices == kThreads, "a slice's flags a thread");
-static_assert(2 * kGroups1 == kThreads, "a chroma group a thread");
 
 struct Plane {
     const int16_t* src;
@@ -106,7 +104,9 @@ struct Stage {
     // the windows: row r, column c is (y0 - 1 + r, x0 - kPad + c)
     int16_t t0[kRows0][kPitch0];
     int16_t t1[2][kRows1][kPitch1];
+    // the band offsets, and the edge offsets by sign sum + 2 (5 used)
     int32_t off[kMaxComp][kCtbsSq][4];
+    int32_t eo[kMaxComp][kCtbsSq][8];
     // the CTBs (cy0 - 1 + r, cx0 - 1 + c)
     int32_t slice[kRing][kRing];
     int32_t tile[kRing][kRing];
@@ -144,6 +144,11 @@ __device__ inline int clip(int v, int hi) { return min(max(v, 0), hi); }
 
 __device__ inline int sgn(int v) { return (v > 0) - (v < 0); }
 
+template <int V>
+struct Const {
+    static constexpr int value = V;
+};
+
 // What every thread of a CTA knows of its window: the CTB grid cell of its
 // first CTB and the log2 of its CTBs a side (the window is aligned to CTBs
 // of up to 64 samples, so it holds 2^ncl x 2^ncl of them, or lies in one),
@@ -152,18 +157,20 @@ struct Window {
     int f, bx, by, cy0, cx0, ncl, sy0, sx0;
 };
 
-// Component c's window (T samples a side) and its one-sample halo into the
-// staged tile t: rows y0 - 1 .. y0 + T, 8 samples a copy from x0, then the
+// Rows r0 .. r1 - 1 of component c's staged tile t (row r: y0 - 1 + r) of
+// its window (T samples a side) with a one-sample halo: 8 samples a copy
+// from x0, then the
 // pairs x0 - 2, x0 - 1 and x0 + T, x0 + T + 1; all by cp.async where the
 // address allows, else a sample at a time.
 template <int T>
-__device__ void stage_window(const Plane& q, int16_t* t, const Window& wn) {
+__device__ void stage_window(const Plane& q, int16_t* t, const Window& wn,
+                             int r0, int r1) {
     constexpr int pitch = T + 2 * kPad, per_row = T / 8 + 2;
     const int x0 = wn.bx * T, y0 = wn.by * T;
     if (x0 >= q.w || y0 >= q.h) return;   // past this plane
     const int16_t* src = q.src + (size_t)wn.f * q.h * q.w;
-    for (int i = threadIdx.x; i < (T + 2) * per_row; i += kThreads) {
-        const int r = i / per_row, j = i - r * per_row;
+    for (int i = threadIdx.x; i < (r1 - r0) * per_row; i += kThreads) {
+        const int r = r0 + i / per_row, j = i % per_row;
         const int y = y0 - 1 + r;
         if (y < 0 || y >= q.h) continue;
         const int16_t* row = src + (size_t)y * q.w;
@@ -207,7 +214,6 @@ __device__ void filter_group(const Plane& q, int16_t* dst, const int16_t* t,
                              const Stage& s, int c, const Window& wn,
                              int row, int g) {
     constexpr int eo_a[4][2] = {TC_SAO_EO_A};
-    constexpr int remap[5] = {TC_SAO_REMAP};
     constexpr int pitch = T + 2 * kPad;
     const int y = wn.by * T + row, x = wn.bx * T + 8 * g;
     if (y >= q.h || x >= q.w) return;
@@ -282,29 +288,36 @@ __device__ void filter_group(const Plane& q, int16_t* dst, const int16_t* t,
                 }
             }
             valid &= ~skipped;
-            // the offset by the sign sum: remap, then the class's offsets
-            auto off_of = [&](int e) {
-                return e == 1 ? o4.x : e == 2 ? o4.y : e == 3 ? o4.z
-                       : e == 4 ? o4.w : 0;
-            };
-            const int e0 = off_of(remap[0]), e1 = off_of(remap[1]);
-            const int e2 = off_of(remap[2]), e3 = off_of(remap[3]);
-            const int e4 = off_of(remap[4]);
+            // per sample the sign sum's offset, a's and b's samples
+            // along the class's horizontal direction
+            const int32_t* eo = s.eo[c][k] + 2;
+            auto run = [&](auto dxc) {
+                constexpr int DX = decltype(dxc)::value;
+                int av[10], bv[10];
+                av[0] = a_l;
+                av[9] = a_r;
+                bv[0] = b_l;
+                bv[9] = b_r;
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                const int p = cur.s[i];
-                const int am = i ? ra.s[i - 1] : a_l;
-                const int ap = i < 7 ? ra.s[i + 1] : a_r;
-                const int bm = i ? rb.s[i - 1] : b_l;
-                const int bp = i < 7 ? rb.s[i + 1] : b_r;
-                const int a = dx < 0 ? am : dx > 0 ? ap : ra.s[i];
-                const int b = dx < 0 ? bp : dx > 0 ? bm : rb.s[i];
-                const int sg = sgn(p - a) + sgn(p - b);
-                const int o = sg == -2 ? e0 : sg == -1 ? e1 : sg == 0 ? e2
-                              : sg == 1 ? e3 : e4;
-                const int v = clip(p + o, max_val);
-                if ((valid >> i) & 1) out.s[i] = (int16_t)v;
-            }
+                for (int i = 0; i < 8; ++i) {
+                    av[i + 1] = ra.s[i];
+                    bv[i + 1] = rb.s[i];
+                }
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int p = cur.s[i];
+                    const int sg = sgn(p - av[1 + i + DX])
+                                   + sgn(p - bv[1 + i - DX]);
+                    const int v = clip(p + eo[sg], max_val);
+                    if ((valid >> i) & 1) out.s[i] = (int16_t)v;
+                }
+            };
+            if (dx < 0)
+                run(Const<-1>());
+            else if (dx > 0)
+                run(Const<1>());
+            else
+                run(Const<0>());
         }
     }
     int16_t* d = dst + (size_t)y * q.w + x;
@@ -315,6 +328,44 @@ __device__ void filter_group(const Plane& q, int16_t* dst, const int16_t* t,
 #pragma unroll
         for (int i = 0; i < 8; ++i)
             if (i < n) d[i] = out.s[i];
+    }
+}
+
+// The first tile row of band b (b = kBands: the tile's end): bands of T / 4
+// rows, the last with the two halo rows below.
+template <int T>
+__device__ constexpr int band_row(int b) {
+    return b >= kBands ? T + 2 : b * (T / kBands);
+}
+
+// Once at most `Pending` commit groups are in flight: the output rows whose
+// tile rows are staged (those of band b, the last takes the rest), a
+// group a thread, component 0's rows first.
+template <int Pending>
+__device__ void filter_band(const Params& P, const Stage& s,
+                            const Window& wn, int b) {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(Pending) : "memory");
+    __syncthreads();
+    const int l0 = b ? band_row<kT>(b) - 2 : 0;
+    const int l1 = b == kBands - 1 ? kT : band_row<kT>(b + 1) - 2;
+    const int c0 = b ? band_row<kT / 2>(b) - 2 : 0;
+    const int c1 = b == kBands - 1 ? kT / 2 : band_row<kT / 2>(b + 1) - 2;
+    const int n0 = (l1 - l0) * (kT / 8);
+    const int n1 = P.n_comp > 1 ? (c1 - c0) * (kT / 16) : 0;
+    const int f = wn.f;
+    for (int j = threadIdx.x; j < n0 + 2 * n1; j += kThreads) {
+        if (j < n0) {
+            const Plane& q = P.pl[0];
+            filter_group<kT>(q, q.dst + (size_t)f * q.h * q.w, &s.t0[0][0],
+                             s, 0, wn, l0 + (j >> 3), j & 7);
+        } else {
+            const int c = 1 + (j - n0 >= n1), jj = j - n0 - (c - 1) * n1;
+            const Plane& q = P.pl[1];   // Cb and Cr share every size
+            int16_t* dst = (c == 1 ? q.dst : P.pl[2].dst)
+                           + (size_t)f * q.h * q.w;
+            filter_group<kT / 2>(q, dst, &s.t1[c - 1][0][0], s, c, wn,
+                                 c0 + (jj >> 2), jj & 3);
+        }
     }
 }
 
@@ -339,13 +390,8 @@ sao_kernel(const __grid_constant__ Params P) {
     wn.sx0 = wn.bx * S;
     const bool flags_staged = P.n_sl <= kSlices;
 
-    // 1. the windows in, by cp.async
-    stage_window<kT>(P.pl[0], &s.t0[0][0], wn);
-    if (P.n_comp > 1) {
-        stage_window<kT / 2>(P.pl[1], &s.t1[0][0][0], wn);
-        stage_window<kT / 2>(P.pl[2], &s.t1[1][0][0], wn);
-    }
-
+    // 1. every load in flight: the maps into registers, then the windows
+    // by cp.async in kBands bands of tile rows, a commit group each
     // the window's CTB parameters, a (component, CTB) a thread, kept in
     // registers until the per-slice flags are staged
     const int pc = tid >> (2 * wn.ncl), pk = tid & (nctb - 1);
@@ -398,6 +444,18 @@ sao_kernel(const __grid_constant__ Params P) {
                 r_en[c] = __ldg(P.enable + ((size_t)f * P.n_comp + c)
                                                * P.n_sl + tid);
     }
+#pragma unroll
+    for (int b = 0; b < kBands; ++b) {
+        stage_window<kT>(P.pl[0], &s.t0[0][0], wn, band_row<kT>(b),
+                         band_row<kT>(b + 1));
+        if (P.n_comp > 1) {
+            stage_window<kT / 2>(P.pl[1], &s.t1[0][0][0], wn,
+                                 band_row<kT / 2>(b), band_row<kT / 2>(b + 1));
+            stage_window<kT / 2>(P.pl[2], &s.t1[1][0][0], wn,
+                                 band_row<kT / 2>(b), band_row<kT / 2>(b + 1));
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
     if (has_ring) {
         s.slice[ry][rx] = r_rs;
         s.tile[ry][rx] = r_rt;
@@ -429,6 +487,13 @@ sao_kernel(const __grid_constant__ Params P) {
         s.type[pc][pk] = (int8_t)t;
         s.cls[pc][pk] = (int8_t)(t == 1 ? r_cls & 31 : r_cls & 3);
         *reinterpret_cast<int4*>(s.off[pc][pk]) = r_off;
+        constexpr int remap[5] = {TC_SAO_REMAP};
+        auto off_of = [&](int e) {
+            return e == 1 ? r_off.x : e == 2 ? r_off.y : e == 3 ? r_off.z
+                   : e == 4 ? r_off.w : 0;
+        };
+#pragma unroll
+        for (int j = 0; j < 5; ++j) s.eo[pc][pk][j] = off_of(remap[j]);
     }
     if (tid < nctb) {
         const int ky = tid >> wn.ncl, kx = tid & (ncx - 1);
@@ -456,26 +521,15 @@ sao_kernel(const __grid_constant__ Params P) {
         }
         s.mask[tid] = (uint16_t)m;
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
 
-    // 3. a thread per 8 samples of a row: filtered from shared memory, out
-    // with one 16-byte store; component 0's 64 rows of 8 groups, then the
-    // others' 32 rows of 4
-    {
-        const Plane& q = P.pl[0];
-        int16_t* dst = q.dst + (size_t)f * q.h * q.w;
-        for (int j = tid; j < kGroups0; j += kThreads)
-            filter_group<kT>(q, dst, &s.t0[0][0], s, 0, wn, j >> 3, j & 7);
-    }
-    if (P.n_comp > 1) {
-        const int c = 1 + tid / kGroups1, j = tid % kGroups1;
-        const Plane& q = P.pl[1];   // Cb and Cr share every size
-        int16_t* dst = (c == 1 ? q.dst : P.pl[2].dst)
-                       + (size_t)f * q.h * q.w;
-        filter_group<kT / 2>(q, dst, &s.t1[c - 1][0][0], s, c, wn, j >> 2,
-                             j & 3);
-    }
+    // 3. band by band as its rows arrive (the first barrier also publishes
+    // step 2): a thread per 8 samples of a row, filtered from shared memory
+    // and stored with one 16-byte store; output row r reads tile rows r to
+    // r + 2
+    filter_band<kBands - 1>(P, s, wn, 0);
+    filter_band<kBands - 2>(P, s, wn, 1);
+    filter_band<kBands - 3>(P, s, wn, 2);
+    filter_band<kBands - 4>(P, s, wn, 3);
 }
 
 }  // namespace

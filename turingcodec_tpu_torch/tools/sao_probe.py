@@ -26,8 +26,8 @@ csrc/sao.cu made by text substitution (never held against the plain
 version: their outputs differ by design): `copy` filters nothing (every
 group takes the type-0 path), `nostore` stores nothing (a store only
 at bit depth 99, which no call passes), `skeleton` both (the
-loads, the per-CTB derivations and the barriers alone), and
-`maxregs` without the launch bounds' 4 CTAs an SM.
+loads, the per-CTB derivations and the barriers alone), and `maxregs`
+without the launch bounds' 4 CTAs an SM.
 """
 from __future__ import annotations
 
