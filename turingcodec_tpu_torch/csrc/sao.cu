@@ -338,13 +338,18 @@ __device__ constexpr int band_row(int b) {
     return b >= kBands ? T + 2 : b * (T / kBands);
 }
 
-// Once at most `Pending` commit groups are in flight: the output rows whose
-// tile rows are staged (those of band b, the last takes the rest), a
-// group a thread, component 0's rows first.
-template <int Pending>
+// Once band b's commit group is in: the output rows whose tile rows are
+// staged (those of band b, the last takes the rest), a group a thread,
+// component 0's rows first.
 __device__ void filter_band(const Params& P, const Stage& s,
                             const Window& wn, int b) {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(Pending) : "memory");
+    static_assert(kBands == 4, "a wait_group per band");
+    switch (b) {
+        case 0: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+        case 1: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+        case 2: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+        default: asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
     __syncthreads();
     const int l0 = b ? band_row<kT>(b) - 2 : 0;
     const int l1 = b == kBands - 1 ? kT : band_row<kT>(b + 1) - 2;
@@ -444,7 +449,7 @@ sao_kernel(const __grid_constant__ Params P) {
                 r_en[c] = __ldg(P.enable + ((size_t)f * P.n_comp + c)
                                                * P.n_sl + tid);
     }
-#pragma unroll
+#pragma unroll 1
     for (int b = 0; b < kBands; ++b) {
         stage_window<kT>(P.pl[0], &s.t0[0][0], wn, band_row<kT>(b),
                          band_row<kT>(b + 1));
@@ -526,10 +531,8 @@ sao_kernel(const __grid_constant__ Params P) {
     // step 2): a thread per 8 samples of a row, filtered from shared memory
     // and stored with one 16-byte store; output row r reads tile rows r to
     // r + 2
-    filter_band<kBands - 1>(P, s, wn, 0);
-    filter_band<kBands - 2>(P, s, wn, 1);
-    filter_band<kBands - 3>(P, s, wn, 2);
-    filter_band<kBands - 4>(P, s, wn, 3);
+#pragma unroll 1
+    for (int b = 0; b < kBands; ++b) filter_band(P, s, wn, b);
 }
 
 }  // namespace
