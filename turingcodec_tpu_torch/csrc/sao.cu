@@ -67,12 +67,14 @@ constexpr int kCtbsSq = kCtbs * kCtbs;
 constexpr int kRing = kCtbs + 2;       // with their neighbours
 constexpr int kSkip = 32;              // skip bytes a window side, at most
 constexpr int kSlices = 256;           // per-slice flags staged up to this
-constexpr int kBands = 4;              // commit groups of a window's rows
 constexpr int kPad = 8;                // staged column of a window's x0
 constexpr int kRows0 = kT + 2, kPitch0 = kT + 2 * kPad;
 constexpr int kRows1 = kT / 2 + 2, kPitch1 = kT / 2 + 2 * kPad;
+constexpr int kGroups0 = kT * (kT / 8);              // 8-sample groups
+constexpr int kGroups1 = (kT / 2) * (kT / 16);
 constexpr int kSkipPer = kSkip * kSkip / kThreads;   // skip bytes a thread
 static_assert(kSlices == kThreads, "a slice's flags a thread");
+static_assert(2 * kGroups1 == kThreads, "a chroma group a thread");
 
 struct Plane {
     const int16_t* src;
@@ -157,20 +159,18 @@ struct Window {
     int f, bx, by, cy0, cx0, ncl, sy0, sx0;
 };
 
-// Rows r0 .. r1 - 1 of component c's staged tile t (row r: y0 - 1 + r) of
-// its window (T samples a side) with a one-sample halo: 8 samples a copy
-// from x0, then the
+// Component c's window (T samples a side) and its one-sample halo into the
+// staged tile t: rows y0 - 1 .. y0 + T, 8 samples a copy from x0, then the
 // pairs x0 - 2, x0 - 1 and x0 + T, x0 + T + 1; all by cp.async where the
 // address allows, else a sample at a time.
 template <int T>
-__device__ void stage_window(const Plane& q, int16_t* t, const Window& wn,
-                             int r0, int r1) {
+__device__ void stage_window(const Plane& q, int16_t* t, const Window& wn) {
     constexpr int pitch = T + 2 * kPad, per_row = T / 8 + 2;
     const int x0 = wn.bx * T, y0 = wn.by * T;
     if (x0 >= q.w || y0 >= q.h) return;   // past this plane
     const int16_t* src = q.src + (size_t)wn.f * q.h * q.w;
-    for (int i = threadIdx.x; i < (r1 - r0) * per_row; i += kThreads) {
-        const int r = r0 + i / per_row, j = i % per_row;
+    for (int i = threadIdx.x; i < (T + 2) * per_row; i += kThreads) {
+        const int r = i / per_row, j = i - r * per_row;
         const int y = y0 - 1 + r;
         if (y < 0 || y >= q.h) continue;
         const int16_t* row = src + (size_t)y * q.w;
@@ -331,49 +331,6 @@ __device__ void filter_group(const Plane& q, int16_t* dst, const int16_t* t,
     }
 }
 
-// The first tile row of band b (b = kBands: the tile's end): bands of T / 4
-// rows, the last with the two halo rows below.
-template <int T>
-__device__ constexpr int band_row(int b) {
-    return b >= kBands ? T + 2 : b * (T / kBands);
-}
-
-// Once band b's commit group is in: the output rows whose tile rows are
-// staged (those of band b, the last takes the rest), a group a thread,
-// component 0's rows first.
-__device__ void filter_band(const Params& P, const Stage& s,
-                            const Window& wn, int b) {
-    static_assert(kBands == 4, "a wait_group per band");
-    switch (b) {
-        case 0: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-        case 1: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-        case 2: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-        default: asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    }
-    __syncthreads();
-    const int l0 = b ? band_row<kT>(b) - 2 : 0;
-    const int l1 = b == kBands - 1 ? kT : band_row<kT>(b + 1) - 2;
-    const int c0 = b ? band_row<kT / 2>(b) - 2 : 0;
-    const int c1 = b == kBands - 1 ? kT / 2 : band_row<kT / 2>(b + 1) - 2;
-    const int n0 = (l1 - l0) * (kT / 8);
-    const int n1 = P.n_comp > 1 ? (c1 - c0) * (kT / 16) : 0;
-    const int f = wn.f;
-    for (int j = threadIdx.x; j < n0 + 2 * n1; j += kThreads) {
-        if (j < n0) {
-            const Plane& q = P.pl[0];
-            filter_group<kT>(q, q.dst + (size_t)f * q.h * q.w, &s.t0[0][0],
-                             s, 0, wn, l0 + (j >> 3), j & 7);
-        } else {
-            const int c = 1 + (j - n0 >= n1), jj = j - n0 - (c - 1) * n1;
-            const Plane& q = P.pl[1];   // Cb and Cr share every size
-            int16_t* dst = (c == 1 ? q.dst : P.pl[2].dst)
-                           + (size_t)f * q.h * q.w;
-            filter_group<kT / 2>(q, dst, &s.t1[c - 1][0][0], s, c, wn,
-                                 c0 + (jj >> 2), jj & 3);
-        }
-    }
-}
-
 __global__ void __launch_bounds__(kThreads, 4)
 sao_kernel(const __grid_constant__ Params P) {
     __shared__ __align__(16) Stage s;
@@ -395,8 +352,13 @@ sao_kernel(const __grid_constant__ Params P) {
     wn.sx0 = wn.bx * S;
     const bool flags_staged = P.n_sl <= kSlices;
 
-    // 1. every load in flight: the maps into registers, then the windows
-    // by cp.async in kBands bands of tile rows, a commit group each
+    // 1. the windows in, by cp.async
+    stage_window<kT>(P.pl[0], &s.t0[0][0], wn);
+    if (P.n_comp > 1) {
+        stage_window<kT / 2>(P.pl[1], &s.t1[0][0][0], wn);
+        stage_window<kT / 2>(P.pl[2], &s.t1[1][0][0], wn);
+    }
+
     // the window's CTB parameters, a (component, CTB) a thread, kept in
     // registers until the per-slice flags are staged
     const int pc = tid >> (2 * wn.ncl), pk = tid & (nctb - 1);
@@ -448,18 +410,6 @@ sao_kernel(const __grid_constant__ Params P) {
             if (c < P.n_comp)
                 r_en[c] = __ldg(P.enable + ((size_t)f * P.n_comp + c)
                                                * P.n_sl + tid);
-    }
-#pragma unroll 1
-    for (int b = 0; b < kBands; ++b) {
-        stage_window<kT>(P.pl[0], &s.t0[0][0], wn, band_row<kT>(b),
-                         band_row<kT>(b + 1));
-        if (P.n_comp > 1) {
-            stage_window<kT / 2>(P.pl[1], &s.t1[0][0][0], wn,
-                                 band_row<kT / 2>(b), band_row<kT / 2>(b + 1));
-            stage_window<kT / 2>(P.pl[2], &s.t1[1][0][0], wn,
-                                 band_row<kT / 2>(b), band_row<kT / 2>(b + 1));
-        }
-        asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
     if (has_ring) {
         s.slice[ry][rx] = r_rs;
@@ -526,13 +476,26 @@ sao_kernel(const __grid_constant__ Params P) {
         }
         s.mask[tid] = (uint16_t)m;
     }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
 
-    // 3. band by band as its rows arrive (the first barrier also publishes
-    // step 2): a thread per 8 samples of a row, filtered from shared memory
-    // and stored with one 16-byte store; output row r reads tile rows r to
-    // r + 2
-#pragma unroll 1
-    for (int b = 0; b < kBands; ++b) filter_band(P, s, wn, b);
+    // 3. a thread per 8 samples of a row: filtered from shared memory, out
+    // with one 16-byte store; component 0's 64 rows of 8 groups, then the
+    // others' 32 rows of 4
+    {
+        const Plane& q = P.pl[0];
+        int16_t* dst = q.dst + (size_t)f * q.h * q.w;
+        for (int j = tid; j < kGroups0; j += kThreads)
+            filter_group<kT>(q, dst, &s.t0[0][0], s, 0, wn, j >> 3, j & 7);
+    }
+    if (P.n_comp > 1) {
+        const int c = 1 + tid / kGroups1, j = tid % kGroups1;
+        const Plane& q = P.pl[1];   // Cb and Cr share every size
+        int16_t* dst = (c == 1 ? q.dst : P.pl[2].dst)
+                       + (size_t)f * q.h * q.w;
+        filter_group<kT / 2>(q, dst, &s.t1[c - 1][0][0], s, c, wn, j >> 2,
+                             j & 3);
+    }
 }
 
 }  // namespace
