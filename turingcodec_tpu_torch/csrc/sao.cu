@@ -72,9 +72,9 @@ constexpr int kRows0 = kT + 2, kPitch0 = kT + 2 * kPad;
 constexpr int kRows1 = kT / 2 + 2, kPitch1 = kT / 2 + 2 * kPad;
 constexpr int kGroups0 = kT * (kT / 8);              // 8-sample groups
 constexpr int kGroups1 = (kT / 2) * (kT / 16);
-// skip bytes a thread, at most
-constexpr int kSkipPer = (kSkip * kSkip + kThreads - 1) / kThreads;
-static_assert(kSlices <= kThreads, "a slice's flags a thread");
+constexpr int kSkipPer = kSkip * kSkip / kThreads;   // skip bytes a thread
+static_assert(kSlices == kThreads, "a slice's flags a thread");
+static_assert(2 * kGroups1 == kThreads, "a chroma group a thread");
 
 struct Plane {
     const int16_t* src;
@@ -331,7 +331,7 @@ __device__ void filter_group(const Plane& q, int16_t* dst, const int16_t* t,
     }
 }
 
-__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 sao_kernel(const __grid_constant__ Params P) {
     __shared__ __align__(16) Stage s;
     const int tid = threadIdx.x;
@@ -482,21 +482,19 @@ sao_kernel(const __grid_constant__ Params P) {
     // 3. a thread per 8 samples of a row: filtered from shared memory, out
     // with one 16-byte store; component 0's 64 rows of 8 groups, then the
     // others' 32 rows of 4
-    const int n_groups = kGroups0 + (P.n_comp > 1 ? 2 * kGroups1 : 0);
-    for (int j = tid; j < n_groups; j += kThreads) {
-        if (j < kGroups0) {
-            const Plane& q = P.pl[0];
-            filter_group<kT>(q, q.dst + (size_t)f * q.h * q.w, &s.t0[0][0],
-                             s, 0, wn, j >> 3, j & 7);
-        } else {
-            const int c = 1 + (j - kGroups0) / kGroups1;
-            const int jj = (j - kGroups0) % kGroups1;
-            const Plane& q = P.pl[1];   // Cb and Cr share every size
-            int16_t* dst = (c == 1 ? q.dst : P.pl[2].dst)
-                           + (size_t)f * q.h * q.w;
-            filter_group<kT / 2>(q, dst, &s.t1[c - 1][0][0], s, c, wn,
-                                 jj >> 2, jj & 3);
-        }
+    {
+        const Plane& q = P.pl[0];
+        int16_t* dst = q.dst + (size_t)f * q.h * q.w;
+        for (int j = tid; j < kGroups0; j += kThreads)
+            filter_group<kT>(q, dst, &s.t0[0][0], s, 0, wn, j >> 3, j & 7);
+    }
+    if (P.n_comp > 1) {
+        const int c = 1 + tid / kGroups1, j = tid % kGroups1;
+        const Plane& q = P.pl[1];   // Cb and Cr share every size
+        int16_t* dst = (c == 1 ? q.dst : P.pl[2].dst)
+                       + (size_t)f * q.h * q.w;
+        filter_group<kT / 2>(q, dst, &s.t1[c - 1][0][0], s, c, wn, j >> 2,
+                             j & 3);
     }
 }
 

@@ -26,9 +26,8 @@ csrc/sao.cu made by text substitution (never held against the plain
 version: their outputs differ by design): `copy` filters nothing (every
 group takes the type-0 path), `nostore` stores nothing (a store only
 at bit depth 99, which no call passes), `skeleton` both (the
-loads, the per-CTB derivations and the barriers alone), `maxregs`
-without the launch bounds' 4 CTAs an SM, and `t512` and `t768` with CTAs
-of 512 and 768 threads (2 and 1 an SM, 1.5 and 1 groups a thread).
+loads, the per-CTB derivations and the barriers alone), and `maxregs`
+without the launch bounds' 4 CTAs an SM.
 """
 from __future__ import annotations
 
@@ -75,12 +74,8 @@ VARIANTS = {
     "nostore": [("    if (x + 8 <= q.w && aligned(d, 16)) {",
                  "    if (q.bd != 99) {\n    } else if "
                  "(x + 8 <= q.w && aligned(d, 16)) {")],
-    "maxregs": [("__launch_bounds__(kThreads, 1024 / kThreads)",
-                 "__launch_bounds__(kThreads)")],
-    "t512": [("constexpr int kThreads = 256;",
-              "constexpr int kThreads = 512;")],
-    "t768": [("constexpr int kThreads = 256;",
-              "constexpr int kThreads = 768;")]}
+    "maxregs": [("__launch_bounds__(kThreads, 4)",
+                 "__launch_bounds__(kThreads)")]}
 VARIANTS["skeleton"] = VARIANTS["copy"] + VARIANTS["nostore"]
 
 
