@@ -30,18 +30,24 @@ tables of every size and mode with TUs on every edge, extreme levels,
 every QP at 8, 10, 12, 13, 14 and 16 bits, and every inter picture's own
 call; the deblocking kernel on synthetic 1920x1080 pictures at 8, 10,
 12, 13, 14 and 16 bits and on every picture of tests/streams, the SAO
-kernel on synthetic planes at 8, 10, 13, 14 and 16 bits and on every SAO
-picture of tests/streams, by tools/loop_filter_check.py; at 16 bits the
+kernel on synthetic pictures at 8 to 16 bits and CTB 16, 32 and 64
+(mixed depths, ragged sides, monochrome, 300 slices) and on every SAO
+picture of tests/streams, each through the three-component and the
+one-component launches, by tools/loop_filter_check.py; at 16 bits the
 int16 samples above 32767 wrap, as the JAX pipeline holds them),
 vfy_sweep and static_test (all full-pel) md5-exact through
-Decoder(device="cuda") with one deblocking launch per picture and SAO
-launches on vfy_sweep, and the 1080p encode decoded on the card equal to
-the host decode, every picture through the pipeline, at most 3 MC
-launches per inter picture, one residual launch per picture with coded
-inter TUs, one deblocking launch per picture and no SAO. After the decode
-rates, one more decode with TURING_TPU_PIPELINE_TRACE gives each stage's
-ms per picture, and one more times the residual stage (host clock,
-synchronised around it). Then a 13-bit stream (tools/deep_bits.py)
+Decoder(device="cuda") with one deblocking launch per picture and one
+SAO launch per SAO-coded picture, and the 1080p encode decoded on the
+card equal to the host decode, every picture through the pipeline, at
+most 3 MC launches per inter picture, one residual launch per picture
+with coded inter TUs, one deblocking launch per picture and no SAO.
+After the decode rates, one more decode with TURING_TPU_PIPELINE_TRACE
+gives each stage's ms per picture, and one more times the residual stage
+(host clock, synchronised around it). Then the main path's first 3
+frames encoded with SAO on (the encoder's default) on the card and the
+host (identical bytes), decoded on the card equal to the host with one
+SAO launch per picture, its SAO stage traced; the SAO kernel's row is
+timed on that stream's picture 1. Then a 13-bit stream (tools/deep_bits.py)
 decoded on the card to the JAX pipeline's md5 through the MC, residual
 and deblocking kernels, and its 14- and 16-bit twins raising the
 reference's error. Then the DSP op library at one 1080p
@@ -970,7 +976,8 @@ def sao_row(device, pic, err, reps):
     SAO-coded encode (the row's shape: its ms, plain version and bound),
     beside the same picture by one launch per component (sao_frames, as
     gop_sao calls it), a vfy_sweep 640x360 picture both ways, and a
-    synthetic 1080p luma plane (the shape PR 9's design was timed on)."""
+    synthetic 1080p luma plane (the shape the one-component design was
+    timed on)."""
     import numpy as np
     import torch
 
@@ -1359,8 +1366,7 @@ def decode_main_path(device, frames, bitstream):
               f"{name}: {dp.pictures} pictures through the pipeline, "
               f"{dp.envelope_host} on the host")
         # one deblocking launch per picture; one SAO launch (all three
-        # components) per picture that codes SAO: vfy_sweep's 9 (27, one
-        # per component, before PR 13)
+        # components) per picture that codes SAO: vfy_sweep's 9
         sl = stream_launches[name]
         check(sl["deblock"] == dp.pictures and sl["sao"] == n_sao
               and (n_sao == 9 or name != "vfy_sweep.hevc"),

@@ -43,12 +43,20 @@
 //   3. filters, a thread per 8 consecutive samples of a row, from shared
 //      memory, and writes them with one 16-byte store (single samples at a
 //      ragged edge or an unaligned row); type 0, a disabled slice and the
-//      skipped blocks copy the staged samples through.
+//      skipped blocks copy the staged samples through. An edge offset's
+//      validity is a bitmask for the 8 samples, from the mask and the
+//      picture's sides; its offset comes from a per-CTB table by the sum
+//      of the two signs, the loop specialised on the class's horizontal
+//      direction.
 // Out of place: the neighbours must be read before SAO. The copy is the
 // kernel's own read and write, so each sample is read from and written to
-// device memory once. At 1080p the 510 CTAs (256 threads) fit one wave at
-// 4 an SM, so the time is about one round trip for the windows and maps,
-// the filter, and the stores draining.
+// device memory once. At 1080p the 510 CTAs (256 threads, 4 an SM) run in
+// one wave, so nothing overlaps a CTA's loads with another's arithmetic:
+// on an H100 the loads, derivations and barriers alone take about half
+// the time, the filter's instructions most of the rest, and bytes do not
+// bind it yet (PERF.md section 6). Staging a window in row bands, each
+// filtered as its cp.async group arrived, ran slower; so did CTAs of 512
+// or 768 threads at 1080p (fewer an SM: more than one wave).
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>

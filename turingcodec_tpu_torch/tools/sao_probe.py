@@ -2,10 +2,9 @@
 one card.
 
     python -m turingcodec_tpu_torch.tools.sao_probe --old SRC [--n 50]
-        [--alt SRC2] [--variants]
 
-SRC is a csrc/sao.cu of PR 9's design (one component a launch, its
-sao_launch taking one plane), e.g. the parent's:
+SRC is a csrc/sao.cu of the one-component design (a launch for each
+component, its sao_launch taking one plane), e.g. at commit 110cc0b:
 `git show 110cc0b:turingcodec_tpu_torch/csrc/sao.cu > build/sao_old.cu`.
 Builds SRC with ops/kernel_build.py's flags and tables into build/kernels,
 checks its output equal to this tree's kernel on every shape below, then
@@ -17,17 +16,6 @@ upscaled 3x, encoded on the host path with SAO, as chip_smoke.py's phase
 8 encodes them on the card), all three components (the old source: a
 launch each; this tree: one launch), and a synthetic 1920x1080 luma plane
 (one launch each). Prints the card's name and power limit first.
-
---alt times SRC2, a csrc/sao.cu with this tree's sao_launch (an earlier
-version of this design), in turns with this tree's kernel, its outputs
-held equal; --variants also times, in turns with this tree's kernel,
-copies of
-csrc/sao.cu made by text substitution (never held against the plain
-version: their outputs differ by design): `copy` filters nothing (every
-group takes the type-0 path), `nostore` stores nothing (a store only
-at bit depth 99, which no call passes), `skeleton` both (the
-loads, the per-CTB derivations and the barriers alone), and `maxregs`
-without the launch bounds' 4 CTAs an SM.
 """
 from __future__ import annotations
 
@@ -45,66 +33,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def build(src: str, name: str):
-    """SRC compiled as kernel_build compiles csrc/sao.cu; its
-    sao_launch, and ptxas's report."""
+def build_old(src: str):
+    """SRC compiled as kernel_build compiles csrc/sao.cu; its sao_launch
+    with the one-plane ABI."""
     from turingcodec_tpu_torch.ops import kernel_build as kb
     os.makedirs(kb.BUILD_DIR, exist_ok=True)
-    so = os.path.join(kb.BUILD_DIR, f"libsao_{name}.so")
+    so = os.path.join(kb.BUILD_DIR, "libsao_old.so")
     cmd = [kb._nvcc()] + kb.NVCC_FLAGS + kb._tables("sao") + ["-o", so, src]
     r = subprocess.run(cmd, capture_output=True, text=True)
     check(r.returncode == 0, f"nvcc failed for {src}:\n{r.stderr}")
     fn = ctypes.CDLL(so).sao_launch
     fn.restype = ctypes.c_int
-    return fn, [ln.strip() for ln in r.stderr.splitlines() if "Used" in ln]
-
-
-def build_old(src: str):
-    """The old source's sao_launch, with the one-plane ABI."""
-    fn, _ = build(src, "old")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([p, p] + [i] * 3 + [p] * 3 + [i] + [p] * 2 + [i]
                    + [p] * 2 + [i] + [p] + [i] + [p] + [i] * 2 + [p])
     return fn
-
-
-VARIANTS = {
-    "copy": [("    if (type) {\n        const int max_val",
-              "    if (false) {\n        const int max_val")],
-    "nostore": [("    if (x + 8 <= q.w && aligned(d, 16)) {",
-                 "    if (q.bd != 99) {\n    } else if "
-                 "(x + 8 <= q.w && aligned(d, 16)) {")],
-    "maxregs": [("__launch_bounds__(kThreads, 4)",
-                 "__launch_bounds__(kThreads)")]}
-VARIANTS["skeleton"] = VARIANTS["copy"] + VARIANTS["nostore"]
-
-
-def build_variants(variants, alt):
-    """{name: this tree's sao_launch ABI}: SRC2 as `alt`, and with
-    variants each text-substituted copy of csrc/sao.cu"""
-    from turingcodec_tpu_torch.ops import kernel_build as kb
-    from turingcodec_tpu_torch.ops import sao
-    text = open(os.path.join(kb.CSRC, "sao.cu")).read()
-    out = {}
-    if alt:
-        fn, ptxas = build(alt, "alt")
-        fn.argtypes = sao._launcher().argtypes
-        print(f"alt {alt}: {'; '.join(ptxas)}", flush=True)
-        out["alt"] = fn
-    for name, subs in VARIANTS.items() if variants else ():
-        t = text
-        for a, b in subs:
-            check(a in t, f"variant {name}: {a!r} not in csrc/sao.cu")
-            t = t.replace(a, b)
-        path = os.path.join(kb.BUILD_DIR, f"sao_{name}.cu")
-        os.makedirs(kb.BUILD_DIR, exist_ok=True)
-        with open(path, "w") as f:
-            f.write(t)
-        fn, ptxas = build(path, name)
-        fn.argtypes = sao._launcher().argtypes
-        print(f"variant {name}: {'; '.join(ptxas)}", flush=True)
-        out[name] = fn
-    return out
 
 
 def old_frames(fn, src, ctb, bd, sub, st, sc, so, sl, tl, en, ac, at, sk):
@@ -151,8 +94,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", required=True, help="the older csrc/sao.cu")
     ap.add_argument("--n", type=int, default=50)
-    ap.add_argument("--alt", help="a csrc/sao.cu with this tree's ABI")
-    ap.add_argument("--variants", action="store_true")
     args = ap.parse_args(argv)
     import torch
 
@@ -220,25 +161,6 @@ def main(argv=None) -> int:
               f"({t[0][1]:.0f} launches), new {t[1][0]:.2f} / {t[2][0]:.2f} "
               f"us ({t[1][1]:.0f} launch) per call, in turns old, new, new, "
               f"old; outputs equal", flush=True)
-    tree = sao._launcher()
-    for vname, vfn in build_variants(args.variants, args.alt).items():
-        def variant(fn_, vfn=vfn):
-            sao._LAUNCH = vfn
-            try:
-                return fn_()
-            finally:
-                sao._LAUNCH = tree
-        for name, _fo, fn in jobs:
-            if vname == "alt":
-                a, b = variant(fn), fn()
-                torch.cuda.synchronize()
-                check(all(torch.equal(x, y) for x, y in zip(a, b)),
-                      f"{name}: --alt differs from this tree's kernel")
-            t = [device_us(w, args.n) for w in (
-                fn, lambda fn=fn: variant(fn), lambda fn=fn: variant(fn), fn)]
-            print(f"{name}: variant {vname} {t[1][0]:.2f} / {t[2][0]:.2f} "
-                  f"us, this tree {t[0][0]:.2f} / {t[3][0]:.2f} us, in turns",
-                  flush=True)
     return 0
 
 
