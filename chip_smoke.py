@@ -60,7 +60,17 @@ tools/kernels.py at its defaults (the path that launches the two
 kernels, and the residual kernel) and tools/testdecode.py on
 tests/streams, on the card. Then the encoder's configuration matrix
 (tools/signature.py, 15 rows, the 10-bit one included) on the card
-against the goldens pinned from the JAX package; the GOP-batched stages
+against the goldens pinned from the JAX package; the encoder's tool
+configurations (tools/tool_matrix.py: AQ per CTB and per CU, CBR at CTU
+and picture level with HRD signalling, shot change, a 2x2 tile grid, 4
+independent and 4 dependent slices, transform skip; on the 1080p frames,
+a 640x360 scene with a cut and a 128x256 crop) encoded on the card and
+the host, identical and equal to the JAX package's pinned goldens, each
+reaching its tool, decoded on the card equal to the host decode with
+every picture through the pipeline, one deblocking launch per picture
+and one SAO launch per SAO-coded picture; 36 bit flips of vfy_sweep
+(tools/bitflip.py) decoded on the card, each ending as the host decode
+does, with no CUDA error; the GOP-batched stages
 at 1080p on the 8-frame encode (analysis_step over 8 x 2040 blocks, MC
 of the 7 inter pictures in one launch, the residuals of every coded luma
 TU, deblocking of the 8 pictures in one launch, SAO of vfy_sweep's
@@ -1614,6 +1624,118 @@ def signature_phase(device):
     return path
 
 
+def tool_matrix_phase(device, frames):
+    """The encoder's tool configurations (tools/tool_matrix.py: AQ,
+    rate control, shot change, tiles, slices, transform skip) on the card.
+    Each row is encoded with the analysis stage on the card (kernel counts
+    read around it) and on the host: identical bytes, the JAX package's
+    pinned golden, the row's tool reached, dense_me and subpel_planes
+    launched, rank_satd launched except under tiles or slices (the
+    encoder's gate). Then decoded on the card (kernel counts read around
+    it) equal to the host decode and the golden, hash-clean, every picture
+    through the pipeline, one deblocking launch per picture and one SAO
+    launch per SAO-coded picture; the 1080p rows' decode stage split.
+    Returns the path's launches."""
+    import numpy as np
+    import torch
+
+    from turingcodec_tpu_torch.decode import device_pipeline as dp
+    from turingcodec_tpu_torch.parallel.gop_decode import capture_pictures
+    from turingcodec_tpu_torch.tools import tool_matrix as tm
+    dev = str(device)
+    t_all = time.perf_counter()
+    path = {}
+    for row in tm.ROWS:
+        name, t0 = row.name, time.perf_counter()
+        inp = tm.row_input(name, frames if row.source == "main" else None)
+        n = len(inp)
+        h, w = inp[0][0].shape
+        enc = {}
+        bs, plans, dt = driven(enc, lambda: tm.encode_row(name, inp, dev))
+        bs_host, _, dt_host = tm.encode_row(name, inp, None)
+        check(bs == bs_host, f"{name}: card and host bitstreams differ")
+        what = tm.reach(name, bs, plans)
+        tiled = row.overrides.get("slices", 1) > 1 \
+            or row.overrides.get("tile_cols", 1) > 1
+        check(enc["dense_me"] and enc["subpel_planes"]
+              and (enc["rank_satd"] == 0) == tiled,
+              f"{name}: encode launches {enc}")
+        n_sao = sum(p["sao"] is not None for p in capture_pictures(bs))
+        dp.pictures = dp.envelope_host = 0
+        dec = {}
+        got, d = driven(dec, lambda: tm.decode(bs, dev))
+        torch.cuda.synchronize()
+        pictures, envelope = dp.pictures, dp.envelope_host
+        want, d_host = tm.decode(bs, None)
+        check(len(got) == len(want) == n and d.hash_failures == 0
+              and d_host.hash_failures == 0 and not d.violations,
+              f"{name}: {len(got)} frames decoded on the card, "
+              f"{d.hash_failures} hash failures")
+        check(all(np.array_equal(a, b) for fa, fb in zip(got, want)
+                  for a, b in zip(fa, fb)),
+              f"{name}: the card decode differs from the host decode")
+        check(tm.hashes(bs, got) == tm.hashes(bs, want) == row.golden,
+              f"{name}: {tm.hashes(bs, got)} against the golden "
+              f"{row.golden}")
+        check(pictures == n and envelope == 0,
+              f"{name}: {pictures} pictures through the pipeline, "
+              f"{envelope} on the host")
+        check(dec["deblock"] == n and dec["sao"] == n_sao
+              and dec["mc_block_grid"],
+              f"{name}: decode launches {dec} for {n} pictures, {n_sao} "
+              f"SAO-coded")
+        log(f"tool row {name}, {n} frames {w}x{h}: {len(bs)} bytes "
+            f"identical on the card ({n / dt:.4f} fps) and the host "
+            f"({n / dt_host:.4f} fps), golden {row.golden} OK; {what}; "
+            f"encode launches dense_me {enc['dense_me']}, subpel_planes "
+            f"{enc['subpel_planes']}, rank_satd {enc['rank_satd']}; "
+            f"decoded on the card equal to the host, 0 hash failures, "
+            f"{pictures} pictures through the pipeline, {n_sao} SAO-coded; "
+            f"decode launches {dec} ({time.perf_counter() - t0:.1f} s)")
+        if (w, h) == (1920, 1080):
+            stage_split(dev, bs, n)
+        for k in set(enc) | set(dec):
+            path[k] = path.get(k, 0) + enc.get(k, 0) + dec.get(k, 0)
+    log(f"tool matrix, {len(tm.ROWS)} rows on the card: "
+        f"{time.perf_counter() - t_all:.1f} s; launches {path}")
+    return path
+
+
+def bitflip_phase(device):
+    """Bit flips of vfy_sweep (tools/bitflip.py's positions) decoded
+    through the card pipeline (kernel counts read around each decode): no
+    CUDA error after any of them, and each ends as the host decode does,
+    with the same Violation clause or the same planes, hash failures and
+    recorded violations. Returns the path's launches."""
+    import torch
+
+    from turingcodec_tpu_torch.tools import bitflip
+    dev = str(device)
+    t0 = time.perf_counter()
+    data = open(STREAM, "rb").read()
+    cases = [(p, 0x01) for p in bitflip.POSITIONS["header"]] + [
+        (p, bit) for p in bitflip.POSITIONS["slice"] for bit in bitflip.BITS]
+    path, kinds = {}, {}
+    for pos, bit in cases:
+        mut = bitflip.flipped(data, pos, bit)
+        got = driven(path, lambda: bitflip.outcome(mut, dev))
+        torch.cuda.synchronize()   # raises on a sticky CUDA error
+        want = bitflip.outcome(mut, None)
+        check(bitflip.same(got, want),
+              f"flip of bit {bit:#x} at byte {pos}: the card decode ends "
+              f"{got[0]} {got[1] if got[0] == 'violation' else ''}, the "
+              f"host decode {want[0]} "
+              f"{want[1] if want[0] == 'violation' else ''}")
+        check(got[0] == "decoded" or bitflip.tagged(got[1]),
+              f"flip at byte {pos}: untagged violation {got[2]}")
+        kinds[got[0]] = kinds.get(got[0], 0) + 1
+    check(path["deblock"], f"bit flips launched no deblock: {path}")
+    log(f"bit flips of vfy_sweep on the card: {len(cases)} cases, no CUDA "
+        f"error, each ending as the host decode ({kinds}; "
+        f"{time.perf_counter() - t0:.1f} s); launches {path}")
+    return path
+
+
 def gop_blocks(plane):
     """A 1920x1080 plane as its 2040 32x32 blocks (the bottom row of
     blocks edge-replicated to 1088)."""
@@ -1989,6 +2111,11 @@ def main() -> int:
 
     # 10. the configuration matrix on the card (tools/signature.py)
     sig_launches = signature_phase(device)
+    # 10b. the encoder's tool configurations on the card against the JAX
+    # package's goldens (tools/tool_matrix.py); bit flips of vfy_sweep
+    # through the card pipeline against the host decode
+    tm_launches = tool_matrix_phase(device, frames)
+    flip_launches = bitflip_phase(device)
 
     # 11. the GOP-batched stages at 1080p against per-frame calls and their
     # plain versions; then the tools over them and the entry points
@@ -2065,6 +2192,8 @@ def main() -> int:
             "decode_13_bit": deep_launches[r["kname"]],
             "dsp_tools": dsp_launches[r["kname"]],
             "signature": sig_launches[r["kname"]],
+            "tool_matrix": tm_launches[r["kname"]],
+            "bitflip_decodes": flip_launches[r["kname"]],
             "gop_stages": gop_launches[r["kname"]],
             "scaling_bdrate_entry": tool_launches[r["kname"]]}}
         for r in rows]}))

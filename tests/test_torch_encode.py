@@ -166,6 +166,9 @@ from turingcodec_tpu_torch.encode.device_analysis import (
     analysis_frames_batched)
 from turingcodec_tpu_torch.parallel import gop_decode, mesh
 from turingcodec_tpu_torch.tools import bdrate, scaling, signature
+from turingcodec_tpu_torch.tools import bitflip, tool_matrix
+assert tool_matrix.stream_facts(b"".join(out))["idr"] == 1
+assert bitflip.outcome(b"".join(out), None)[0] == "decoded"
 assert analysis_frames_batched(np.stack([base[:64, :64]] * 2),
                                np.stack([base[4:68, 2:66]] * 2), "cpu",
                                8)[1].shape == (2, 4, 4, 2)
