@@ -22,7 +22,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from turingcodec_tpu_torch.tools import tool_matrix as tm
 from turingcodec_tpu_torch.tools.device_enc_check import decode_inputs
@@ -45,14 +44,19 @@ def _env(**kw):
                 os.environ[k] = v
 
 
+def jax_encode(frames, device_enc=False, **cfg):
+    """The JAX encoder's bitstream of `frames` (its analysis stage on
+    where `device_enc`, as the port's device="cpu" runs)."""
+    import turingcodec_tpu.encode.encoder as jenc
+    with _env(**({"TURING_TPU_DEVICE_ENC": "1"} if device_enc else {})):
+        return tm.encode(jenc.Encoder(jenc.EncoderConfig(**cfg)), frames)[0]
+
+
 def jax_row(name, frames):
     """The JAX package's encode of the row (analysis stage on) and its
     decode: (bitstream, planes of each frame)."""
-    import turingcodec_tpu.encode.encoder as jenc
     from turingcodec_tpu.decode.decoder import Decoder
-    with _env(TURING_TPU_DEVICE_ENC="1"):
-        bs = tm.encode(jenc.Encoder(jenc.EncoderConfig(
-            **tm.config(name, frames))), frames)[0]
+    bs = jax_encode(frames, True, **tm.config(name, frames))
     dec = Decoder()
     planes = [[np.asarray(p) for p in f.planes]
               for f in dec.decode_stream(bs)]
@@ -120,19 +124,6 @@ def test_reach_refuses_a_row_that_misses_its_tool(clip):
         tm.reach("scd-gop4", bs, plans)
 
 
-def test_tool_matrix_cli(capsys):
-    assert tm.main(["--device", "none", "--small", "--rows",
-                    "scd-gop4,cbr-picture"]) == 0
-    out = capsys.readouterr().out
-    assert out.count("  OK  ") == 2 and "2 IDR NAL units" in out
-
-
-def test_tool_matrix_defaults_to_the_card(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError):
-        tm.main(["--rows", "scd-gop4"])
-
-
 @pytest.mark.slow
 @pytest.mark.parametrize("name", [r.name for r in tm.ROWS])
 def test_goldens_are_the_jax_packages_on_the_card_inputs(name):
@@ -155,7 +146,6 @@ def _synthetic_frame(w, h, seed):
 def test_hrd_signalling():
     """CBR rate control writes VUI hrd_parameters (nal_hrd, cbr, 1 s CPB);
     the port's decoder parses them back; the bytes are the JAX encoder's."""
-    import turingcodec_tpu.encode.encoder as jenc
     from turingcodec_tpu_torch.decode.decoder import Decoder
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
     cfg = dict(width=64, height=64, qp=35, rd_candidates=1, gop_m=1,
@@ -164,8 +154,7 @@ def test_hrd_signalling():
     frames = [[np.roll(p, i, axis=0) for p in f] for i in range(3)]
     stream = tm.encode(Encoder(EncoderConfig(**cfg, device=None)),
                        frames)[0]
-    assert stream == tm.encode(jenc.Encoder(jenc.EncoderConfig(**cfg)),
-                               frames)[0]
+    assert stream == jax_encode(frames, **cfg)
     dec = Decoder(device=None)
     assert len(list(dec.decode_stream(stream))) == 3 and not dec.violations
     hrd = list(dec.ps.sps.values())[0].vui.hrd
@@ -182,7 +171,6 @@ def test_frame_parallel_bit_identical():
     """Frame-parallel encoding (1, 2 and 3 pictures in flight, per-picture
     native contexts) reproduces the sequential walk byte for byte, and the
     JAX package's default run."""
-    import turingcodec_tpu.encode.encoder as jenc
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
     rng = np.random.default_rng(3)
     h, w = 96, 160
@@ -197,8 +185,7 @@ def test_frame_parallel_bit_identical():
             return hashlib.md5(tm.encode(Encoder(EncoderConfig(
                 **cfg, device=None)), frames)[0]).hexdigest()
 
-    want = hashlib.md5(tm.encode(jenc.Encoder(jenc.EncoderConfig(**cfg)),
-                                 frames)[0]).hexdigest()
+    want = hashlib.md5(jax_encode(frames, **cfg)).hexdigest()
     assert run("1") == run("2") == run("3") == want
 
 
@@ -206,7 +193,9 @@ def test_noise_adaptive_rdoq_persistence(monkeypatch):
     """The dense-ME SAD median flips RDOQ to dead-zone quantization only
     after 2+ consecutive unpredictable inter pictures (white noise); a
     single unpredictable picture (a scene cut) keeps RDOQ. The analysis
-    stage runs on "cpu"."""
+    stage runs on "cpu"; the decisions and the bytes are the JAX
+    encoder's with its analysis stage on."""
+    import turingcodec_tpu.encode.inter_search as JIS
     import turingcodec_tpu_torch.encode.inter_search as IS
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
     rng = np.random.RandomState(7)
@@ -218,31 +207,37 @@ def test_noise_adaptive_rdoq_persistence(monkeypatch):
         return np.clip(grad + rng.randint(-24, 25, (h, w)), 0,
                        255).astype(np.int16)
 
-    decisions = []
-    orig_na = IS.InterPictureEncoder._noise_adapt
+    decisions = {IS: [], JIS: []}
 
-    def probe(self, orig):
-        r = orig_na(self, orig)
-        decisions.append(self.use_rdoq)
-        return r
+    def probe(mod):
+        orig_na = mod.InterPictureEncoder._noise_adapt
 
-    monkeypatch.setattr(IS.InterPictureEncoder, "_noise_adapt", probe)
-    enc = Encoder(EncoderConfig(width=w, height=h, qp=32, gop_m=1,
-                                search_range=32, rd_candidates=1, rdoq=True,
-                                sdh=True, device="cpu"))
+        def noise_adapt(self, orig):
+            r = orig_na(self, orig)
+            decisions[mod].append(self.use_rdoq)
+            return r
+        monkeypatch.setattr(mod.InterPictureEncoder, "_noise_adapt",
+                            noise_adapt)
+
+    probe(IS)
+    probe(JIS)
+    cfg = dict(width=w, height=h, qp=32, gop_m=1, search_range=32,
+               rd_candidates=1, rdoq=True, sdh=True)
     # IDR(flat), P flat (predictable), P cut to noise (one unpredictable),
     # then independent noise Ps (persistent)
     frames = [[y, np.full((h // 2, w // 2), 100, np.int16),
                np.full((h // 2, w // 2), 120, np.int16)]
               for y in [flat, flat.copy()] + [noise() for _ in range(4)]]
-    tm.encode(enc, frames)
-    assert decisions[:4] == [True, True, False, False]
+    stream = tm.encode(Encoder(EncoderConfig(**cfg, device="cpu")),
+                       frames)[0]
+    assert decisions[IS][:4] == [True, True, False, False]
+    assert stream == jax_encode(frames, True, **cfg)
+    assert decisions[JIS] == decisions[IS]
 
 
 def test_aq_roundtrip():
     """AQ with real dQPs (a dark band): the port's decode equals the
     encoder's recon, hash-clean, and the bytes are the JAX encoder's."""
-    import turingcodec_tpu.encode.encoder as jenc
     from turingcodec_tpu_torch.decode.decoder import Decoder
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
     cfg = dict(width=128, height=64, qp=32, rd_candidates=1,
@@ -258,8 +253,7 @@ def test_aq_roundtrip():
         _, nal, recon = enc.push_frame([p.copy() for p in f])[0]
         stream += nal
         recons.append(recon)
-    assert stream == tm.encode(jenc.Encoder(jenc.EncoderConfig(**cfg)),
-                               frames)[0]
+    assert stream == jax_encode(frames, **cfg)
     out = list(Decoder(device=None).decode_stream(stream))
     assert len(out) == 3
     for f, r in zip(out, recons):
@@ -269,19 +263,24 @@ def test_aq_roundtrip():
 
 
 def test_rate_control_converges():
+    """The rate lands within a factor 2 of its target; the bytes are the
+    JAX encoder's."""
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
     w, h, n, target = 128, 64, 12, 200_000.0
     rng = np.random.default_rng(0)
     base = _synthetic_frame(w, h, 5)
     frames = [[np.clip(p + rng.integers(-3, 4, p.shape), 0, 255)
                .astype(np.int16) for p in base] for _ in range(n)]
-    enc = Encoder(EncoderConfig(width=w, height=h, qp=32, rd_candidates=1,
-                                gop_m=1, bitrate=target, frame_rate=24.0,
-                                hash_type=None, search_range=8,
-                                device=None))
-    enc.headers()
-    bits = sum(8 * len(r[1]) for f in frames for r in enc.push_frame(f))
+    cfg = dict(width=w, height=h, qp=32, rd_candidates=1, gop_m=1,
+               bitrate=target, frame_rate=24.0, hash_type=None,
+               search_range=8)
+    enc = Encoder(EncoderConfig(**cfg, device=None))
+    hdr = enc.headers()
+    stream = hdr + b"".join(r[1] for f in frames
+                       for r in enc.push_frame([p.copy() for p in f]))
+    bits = 8 * (len(stream) - len(hdr))
     assert 0.5 * target < bits * 24.0 / n < 2.0 * target
+    assert stream == jax_encode(frames, **cfg)
 
 
 def test_shot_change_places_idr():
@@ -293,10 +292,11 @@ def test_shot_change_places_idr():
     b = _synthetic_frame(64, 64, 99)
     b[0][:] = 255 - b[0]
     frames = [a if i < 11 else b for i in range(24)]
-    stream = tm.encode(Encoder(EncoderConfig(
-        width=64, height=64, qp=35, rd_candidates=1, gop_m=1,
-        shot_change=True, search_range=8, hash_type=None, device=None)),
-        frames)[0]
+    cfg = dict(width=64, height=64, qp=35, rd_candidates=1, gop_m=1,
+               shot_change=True, search_range=8, hash_type=None)
+    stream = tm.encode(Encoder(EncoderConfig(**cfg, device=None)),
+                       frames)[0]
+    assert stream == jax_encode(frames, **cfg)
     assert tm.stream_facts(stream)["idr"] == 2
     assert len(list(Decoder(device=None).decode_stream(stream))) == 24
 
@@ -304,26 +304,28 @@ def test_shot_change_places_idr():
 def test_field_coding_roundtrip():
     """Field coding: each frame becomes two half-height field pictures
     with pic_timing pic_struct 1/2, VUI field_seq_flag and interlaced PTL
-    flags; the port's decode equals the encoder's recon."""
+    flags; the port's decode equals the encoder's recon, and the bytes
+    are the JAX encoder's."""
     from turingcodec_tpu_torch.decode.decoder import Decoder
     from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
     from turingcodec_tpu_torch.hevc import sei as S
     w, h = 64, 64
-    enc = Encoder(EncoderConfig(width=w, height=h, qp=35, rd_candidates=1,
-                                gop_m=1, search_range=8, field_coding=True,
-                                device=None))
+    cfg = dict(width=w, height=h, qp=35, rd_candidates=1, gop_m=1,
+               search_range=8, field_coding=True)
+    enc = Encoder(EncoderConfig(**cfg, device=None))
     stream = enc.headers()
     base = _synthetic_frame(w, h, 3)
+    inputs = [[np.roll(p, i, axis=1) for p in base] for i in range(2)]
     recons = {}
-    for i in range(2):
-        for idx, nal, rec in enc.push_frame([np.roll(p, i, axis=1)
-                                             for p in base]):
+    for f in inputs:
+        for idx, nal, rec in enc.push_frame([p.copy() for p in f]):
             stream += nal
             recons[idx] = rec
     for idx, nal, rec in enc.flush():
         stream += nal
         recons[idx] = rec
     assert len(recons) == 4  # two fields per frame
+    assert stream == jax_encode(inputs, **cfg)
     dec = Decoder(device=None)
     frames = list(dec.decode_stream(stream))
     assert len(frames) == 4 and not dec.violations

@@ -3,7 +3,8 @@ absent oracle (the caminandes clip, the reference binary), on synthetic
 sequences:
 
 - tests/test_rate_invariant.py: the search's committed per-CTU rate
-  equals a writer re-walk of the final plan, integer-exactly;
+  equals a writer re-walk of the final plan, integer-exactly, and the
+  bytes are the JAX encoder's;
 - tests/test_gop_scd.py: GOP sizes 3/5/6/7 round trip (bytes equal to
   the JAX encoder's, decoded hash-clean by the port), the lookahead
   shot-change detector places an IDR on a cut and none on smooth content;
@@ -12,13 +13,13 @@ sequences:
   and depth 0 gives another stream;
 - tests/test_ctu_rc.py: a 120-frame CBR encode within 2% of its target
   with no CPB underflow or overflow, and a CTU-RC stream whose decode
-  equals the encoder's recon."""
+  equals the encoder's recon; both streams are the JAX encoder's."""
 import numpy as np
 import pytest
 
 from tests.test_gop_scd import _frames as gop_frames
 from tests.test_rate_invariant import _frames as rate_frames
-from tests.test_torch_encoder_tools import _env
+from tests.test_torch_encoder_tools import _env, jax_encode
 from turingcodec_tpu_torch.decode.decoder import Decoder
 from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
 from turingcodec_tpu_torch.encode.rate_check import writer_walk_frac
@@ -27,11 +28,6 @@ from turingcodec_tpu_torch.tools import tool_matrix as tm
 
 def _port(**kw):
     return Encoder(EncoderConfig(device=None, **kw))
-
-
-def _jax_bytes(frames, **kw):
-    import turingcodec_tpu.encode.encoder as jenc
-    return tm.encode(jenc.Encoder(jenc.EncoderConfig(**kw)), frames)[0]
 
 
 # -- tests/test_rate_invariant.py --------------------------------------
@@ -53,7 +49,7 @@ def _check_rate(cfg, frames):
         walk = writer_walk_frac(plan, enc.geom, sh)
         assert len(frac) == len(walk) != 0, (pi, len(frac), len(walk))
         assert list(frac) == list(walk), f"picture {pi}"
-    return b"".join(out)
+    assert b"".join(out) == jax_encode(frames, **cfg)
 
 
 @pytest.mark.parametrize("rdoq", [False, True])
@@ -135,7 +131,7 @@ def _gop_encode(frames, w, h, **kw):
         out.append(nal)
         idxs.append(i)
     bs = b"".join(out)
-    assert bs == _jax_bytes(frames, **cfg)
+    assert bs == jax_encode(frames, **cfg)
     return bs, idxs, enc
 
 
@@ -209,17 +205,20 @@ def test_percu_aq_roundtrip_and_twin_parity():
     assert dec.hash_failures == 0
     assert _aq(frames, 2, TURING_TPU_NO_NATIVE="1")[0] == bs
     assert _aq(frames, 0)[0] != bs
-    assert bs == _jax_bytes(frames, width=128, height=64, qp=32,
+    assert bs == jax_encode(frames, width=128, height=64, qp=32,
                             rd_candidates=1, search_range=32, gop_m=1,
                             sao=False, aq_strength=1.0, aq_depth=2)
 
 
 def test_cbr_120_frames_within_2pct_and_cpb_conformant():
     target, fr, n = 200_000.0, 24.0, 120
-    enc = _port(width=160, height=96, qp=32, rd_candidates=1, gop_m=1,
-                bitrate=target, frame_rate=fr, hash_type=None,
-                search_range=16, intra_period=48)
-    stream, plans, _ = tm.encode(enc, _textured(n, 160, 96))
+    cfg = dict(width=160, height=96, qp=32, rd_candidates=1, gop_m=1,
+               bitrate=target, frame_rate=fr, hash_type=None,
+               search_range=16, intra_period=48)
+    enc = _port(**cfg)
+    frames = _textured(n, 160, 96)
+    stream, plans, _ = tm.encode(enc, frames)
+    assert stream == jax_encode(frames, **cfg)
     achieved = 8 * len(stream) * fr / n
     assert abs(achieved - target) / target < 0.02, achieved
     assert enc._cpb.underflows == 0 and enc._cpb.overflows == 0
@@ -231,14 +230,17 @@ def test_cbr_120_frames_within_2pct_and_cpb_conformant():
 
 
 def test_ctu_rc_roundtrip_recon_exact():
-    enc = _port(width=160, height=96, qp=34, rd_candidates=1, gop_m=1,
-                bitrate=250_000.0, frame_rate=24.0, search_range=16)
+    cfg = dict(width=160, height=96, qp=34, rd_candidates=1, gop_m=1,
+               bitrate=250_000.0, frame_rate=24.0, search_range=16)
+    enc = _port(**cfg)
+    frames = _textured(6, 160, 96)
     stream = enc.headers()
     recons = []
-    for f in _textured(6, 160, 96):
+    for f in frames:
         for r in enc.push_frame([p.copy() for p in f]):
             stream += r[1]
             recons.append(r[2])
+    assert stream == jax_encode(frames, **cfg)
     dec = Decoder(device=None)
     out = list(dec.decode_stream(stream))
     assert len(out) == 6 and dec.hash_failures == 0

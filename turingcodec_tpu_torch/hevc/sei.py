@@ -110,14 +110,12 @@ def picture_crc(planes, bit_depth: int = 8) -> List[int]:
     shifts 16 trailing zero bits; per byte that is
     crc' = tab[crc >> 8] ^ ((crc & 0xFF) << 8) ^ byte.
     """
-    tab = _crc_table()
+    tab = _crc_table().tolist()
     out = []
     for p in planes:
-        data = np.frombuffer(_plane_bytes(p, bit_depth) + b"\x00\x00",
-                             np.uint8)
         crc = 0xFFFF
-        for byte in data.tolist():
-            crc = (int(tab[crc >> 8]) ^ ((crc & 0xFF) << 8) ^ byte) & 0xFFFF
+        for byte in _plane_bytes(p, bit_depth) + b"\x00\x00":
+            crc = tab[crc >> 8] ^ ((crc & 0xFF) << 8) ^ byte
         out.append(crc)
     return out
 

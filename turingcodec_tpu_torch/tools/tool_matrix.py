@@ -1,44 +1,35 @@
-"""CLI: the encoder's tool configurations (AQ per CTB and per CU, CBR rate
+"""The encoder's tool configurations (AQ per CTB and per CU, CBR rate
 control at CTU and picture level with HRD signalling, shot-change IDR
-placement, tiles, independent and dependent slices, transform skip) run
-end to end at the main path's operating point, against goldens pinned
-from the JAX package.
+placement, tiles, independent and dependent slices, transform skip) at the
+main path's operating point, with goldens pinned from the JAX package: one
+table of rows shared by chip_smoke.py's card phase and the CPU tests
+(tests/test_torch_encoder_tools*.py).
 
-Each row of ROWS encodes its input with its EncoderConfig overrides on
-top of OPERATING_POINT (chip_smoke.py's main path: QP 30, one RD
-candidate, search range 32, low delay, RDOQ + SDH, SAO on), checks that
-the stream reaches the row's tool (reach()), decodes it, and compares 4-byte
-md5 prefixes of the bitstream and of the decoded planes with the row's
-goldens. The goldens are the JAX package's encoder (its analysis stage on,
-TURING_TPU_DEVICE_ENC=1) and decoder on the same card input
+Each row of ROWS gives its EncoderConfig overrides on top of
+OPERATING_POINT (chip_smoke.py's main path: QP 30, one RD candidate,
+search range 32, low delay, RDOQ + SDH, SAO on), its input, and the
+4-byte md5 prefixes of the bitstream and of the decoded planes of its card
+input (hashes()). The goldens are the JAX package's encoder (its analysis
+stage on, TURING_TPU_DEVICE_ENC=1) and decoder on the same card input
 (tests/test_torch_encoder_tools.py re-derives them in a slow test).
+reach() checks that a row's stream reaches its tool.
 
 Inputs: the main path's frames (tests/streams/vfy_sweep.hevc decoded,
 upscaled 3x by nearest neighbour to 1920x1080) for the AQ and rate-control
 rows; a 128x256 crop of them for the tile, slice and transform-skip rows,
 whose encodes run the pure-Python CTU searcher; a static 640x360 gradient
 scene with a cut at frame 13 for the shot-change row. Each row also has a
-small size for the CPU tests (`small=True`).
-
-Usage: python -m turingcodec_tpu_torch.tools.tool_matrix
-           [--device {cuda,none,cpu}] [--rows NAME,...] [--small]
-
---device cuda (the default) runs the encoder's analysis stage and the
-decode on the GPU and raises without one; none is the host path; cpu runs
-the device code through the kernels' plain versions. --small encodes the
-rows' small inputs, which have no goldens. Exits 1 on any failure.
+small input for the CPU tests (`small=True`).
 """
 from __future__ import annotations
 
-import argparse
 import hashlib
-import sys
 import time
 from typing import NamedTuple
 
 import numpy as np
 
-from turingcodec_tpu_torch.tools.device_enc_check import check, decode_inputs
+from turingcodec_tpu_torch.tools.device_enc_check import check
 
 # chip_smoke.py's main path (tools/device_enc_check.py::encode) with SAO
 # on, the encoder's default
@@ -244,67 +235,3 @@ def hashes(bitstream: bytes, frames) -> tuple:
             md5.update(np.asarray(p).astype(np.uint8).tobytes())
     return hashlib.md5(bitstream).hexdigest()[:8], md5.hexdigest()[:8]
 
-
-def run_row(name: str, frames, device=None):
-    """Encode and decode one row on `device`; checks its reach, that the
-    decode has every frame, no hash failure or violation. Returns
-    (bits4, recon4, what it reached, bitstream, seconds)."""
-    bs, plans, dt = encode_row(name, frames, device)
-    what = reach(name, bs, plans)
-    got, dec = decode(bs, device)
-    check(len(got) == len(frames) and dec.hash_failures == 0
-          and not dec.violations,
-          f"{name}: {len(got)} of {len(frames)} frames, "
-          f"{dec.hash_failures} hash failures, {dec.violations[:2]}")
-    return (*hashes(bs, got), what, bs, dt)
-
-
-def run(device="cuda", rows=None, small: bool = False, log=print) -> int:
-    """Every row (or the named `rows`) on `device`; returns the number of
-    failures."""
-    names = rows or [row.name for row in ROWS]
-    need = max(BY_NAME[n].small[4] if small else BY_NAME[n].card[4]
-               for n in names if BY_NAME[n].source == "main")
-    clip = decode_inputs(need, 1 if small else 3, log) if any(
-        BY_NAME[n].source == "main" for n in names) else None
-    failures = 0
-    for name in names:
-        try:
-            bits4, rec4, what, bs, dt = run_row(
-                name, row_input(name, clip, small), device)
-        except RuntimeError as e:
-            failures += 1
-            log(f"{name:>14}: {e}")
-            continue
-        want = BY_NAME[name].golden
-        ok = small or (bits4, rec4) == want
-        failures += not ok
-        log(f"{name:>14}: bits {bits4}  recon {rec4}  "
-            f"{'OK' if ok else f'GOLDEN MISMATCH (want {want})'}  "
-            f"{len(bs)} bytes, {dt:.1f} s; {what}")
-    return failures
-
-
-def main(argv=None):
-    ap = argparse.ArgumentParser(prog="turingcodec_tpu_torch tool_matrix")
-    ap.add_argument("--device", choices=["cuda", "none", "cpu"],
-                    default="cuda")
-    ap.add_argument("--rows", default=None,
-                    help="comma-separated row names (default: all)")
-    ap.add_argument("--small", action="store_true",
-                    help="the rows' small inputs (no goldens)")
-    args = ap.parse_args(argv)
-    device = None if args.device == "none" else args.device
-    if device is not None:
-        from turingcodec_tpu_torch.encode.device_analysis import (
-            resolve_device)
-        resolve_device(device)   # raises without a usable card
-    rows = args.rows.split(",") if args.rows else None
-    unknown = set(rows or ()) - set(BY_NAME)
-    if unknown:
-        ap.error(f"unknown rows {sorted(unknown)}")
-    return 1 if run(device, rows, args.small) else 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())
