@@ -5,7 +5,10 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain torch version on the card (the dense-ME
 sweep also through its fused entry point, on odd-sized frames with seeds
-at +-36, at 8, 10 and 12 bits, with and without its SAD surface), holds
+at +-36, at 8, 10 and 12 bits, with and without its SAD surface; the
+seed field on the 1080p pair, odd-sized 8- and 10-bit frames, flat
+planes, 12-bit extremes, 16-bit planes over the int16 range and near
+zero, and the encode's 7 pairs in one launch against 7 single calls), holds
 every encoder analysis stage on the card against its host twin at 1080p
 (tools/device_enc_check.py; the surface against the native prepass's),
 and the stage's rank-SATD and subpel kernels against their plain versions
@@ -18,7 +21,7 @@ tests/streams/GOLDEN.json), upscale it 3x to 1920x1080, encode 8 frames
 at the fast low-delay operating point with the analysis stage on the card
 and on the host (byte-identical bitstreams, one SAD surface installed per
 inter picture, the rank kernel at four sizes on every picture and the
-subpel kernel on every inter picture), once more on the card with
+subpel and seed kernels on every inter picture), once more on the card with
 TC_NO_ME_SURF (the same bytes, no surface), and decode the result
 hash-clean. Then the decoder's
 device pipeline: every staged decode stage on the card against
@@ -75,11 +78,12 @@ at 1080p on the 8-frame encode (analysis_step over 8 x 2040 blocks, MC
 of the 7 inter pictures in one launch, the residuals of every coded luma
 TU, deblocking of the 8 pictures in one launch, SAO of vfy_sweep's
 pictures in one launch per component, the batched seed and dense
-analysis of 7 pairs) against per-frame calls on the card and their plain
-versions or host twins; tools/scaling.py, bdrate's run_ours on vfy_sweep
-at its four QPs (identical bytes on the card and the host) and
-entry.dryrun on the card. The dense-ME sweep is also held at 14 bits
-(its 64-bit key) on 1080p planes whose costs straddle 2^23. Last, each
+analysis of 7 pairs, one seed launch for all) against per-frame calls
+on the card and their plain versions or host twins; tools/scaling.py,
+bdrate's run_ours on vfy_sweep at its four QPs (identical bytes on the
+card and the host) and entry.dryrun on the card. The dense-ME sweep is
+also held at 14 bits (its 64-bit key) on 1080p planes whose costs
+straddle 2^23. Last, each
 kernel's device time per launch at its path's shapes, the kernels and
 device time of each batched stage against its per-frame calls, and the
 residual stage's device time per inter picture (torch.profiler). Every
@@ -103,7 +107,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("dense_me", "mc_block_grid", "dequant_idct", "fwd_transform",
-           "interp_all_phases", "rank_satd", "subpel_planes", "deblock", "sao")
+           "interp_all_phases", "rank_satd", "subpel_planes", "deblock", "sao",
+           "seed_field")
 STREAM = os.path.join(ROOT, "tests", "streams", "vfy_sweep.hevc")
 GOLDEN = os.path.join(ROOT, "tests", "streams", "GOLDEN.json")
 N_FRAMES = 8
@@ -317,6 +322,105 @@ def check_kernel(device, orig, ref, reps):
                       f"dense_me_sweep 14-bit (64-bit key) at B={b}":
                       (wide["fn"], bound_ms)},
             "kname": "dense_me"}
+
+
+def seed_bound(n: int, h: int, w: int):
+    """Bound of one seed_field call over n (h, w) pairs: the two int16
+    planes of each pair in, the (hb, wb, 2) int32 seeds out; per block
+    289 x 16 quarter-res and 25 x 64 half-res absolute differences at three
+    INT32 operations each (difference, absolute value, sum)."""
+    from turingcodec_tpu_torch.encode import device_analysis as da
+    wb, hb = da.block_dims(w, h)
+    b = n * hb * wb
+    return bound(4 * n * h * w + 8 * b, 3 * b * (289 * 16 + 25 * 64))
+
+
+def check_seed_kernel(device, frames, reps):
+    """seed_field against its plain version on the card: the 1080p pair,
+    odd-sized frames at 8 and 10 bits (their decimation clamps inside the
+    block grid), flat 1080p planes (every SAD ties), 12-bit extremes,
+    16-bit planes wrapped over the int16 range and near zero (the rounded
+    mean of negative sums floors), and the encode's 7 pairs in one launch
+    against 7 single calls. Times it at the 1080p pair and the 7 pairs.
+    Returns its kernels-line row."""
+    import numpy as np
+    import torch
+
+    from turingcodec_tpu_torch.encode import device_analysis as da
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(a, np.int64).astype(np.uint16).view(np.int16))).to(
+                device)
+
+    def compare(name, o, r):
+        h, w = o.shape[-2:]
+        wb, hb = da.block_dims(w, h)
+        got = da.seed_field(o, r, wb, hb)
+        want = (torch.stack([da.seed_field_ref(a, b, wb, hb)
+                             for a, b in zip(o, r)]) if o.dim() == 3
+                else da.seed_field_ref(o, r, wb, hb))
+        return equal_on_card(f"seed_field, {name}", got, want), got
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    orig, ref = frames[1][0], frames[0][0]
+    h, w = orig.shape
+    o, r = up(orig), up(ref)
+    errs = [compare(f"the {w}x{h} pair", o, r)[0]]
+    for bd, (hh, ww) in ((8, (270, 477)), (10, (135, 250))):
+        a = rng.integers(0, 1 << bd, (hh, ww))
+        errs.append(compare(f"{ww}x{hh} {bd}-bit", up(a),
+                            up(np.roll(a, (5, -3), (0, 1))))[0])
+    flat = torch.full((h, w), 77, dtype=torch.int16, device=device)
+    e, got = compare(f"flat {w}x{h} planes", flat, flat)
+    check(not got.any(), "flat planes: a seed other than (0, 0)")
+    errs.append(e)
+    a = rng.integers(0, 2, (h, w)) * 4095
+    errs.append(compare("12-bit extremes", up(a),
+                        up(4095 - np.roll(a, (9, -13), (0, 1))))[0])
+    a = rng.integers(0, 1 << 16, (h, w))
+    errs.append(compare("16-bit, over the int16 range", up(a),
+                        up(np.roll(a, (5, -9), (0, 1))))[0])
+    a = rng.integers(-6, 6, (h, w))
+    errs.append(compare("16-bit, near zero", up(a), up(
+        np.roll(a, (6, -7), (0, 1)) + rng.integers(-2, 3, (h, w))))[0])
+    origs = torch.stack([up(f[0]) for f in frames[1:]])
+    refs = torch.stack([up(f[0]) for f in frames[:-1]])
+    n = origs.shape[0]
+    wb, hb = da.block_dims(w, h)
+    da.seed_launches = 0
+    batched = da.seed_field(origs, refs, wb, hb)
+    check(da.seed_launches == 1, f"{da.seed_launches} launches for {n} "
+          f"pairs in one call")
+    singles = torch.stack([da.seed_field(origs[i], refs[i], wb, hb)
+                           for i in range(n)])
+    errs.append(equal_on_card(f"seed_field, {n} pairs in one launch against "
+                              f"{n} single calls", batched, singles))
+    errs.append(compare(f"{n} pairs in one launch", origs, refs)[0])
+    log(f"kernel vs plain, seed_field on the {w}x{h} pair, 477x270 8-bit and "
+        f"250x135 10-bit frames, flat planes, 12-bit extremes, 16-bit planes "
+        f"over the int16 range and near zero, and {n} pairs in one launch "
+        f"(equal to {n} single calls): equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+    bound_ms, bound_by = seed_bound(1, h, w)
+    bound_n = seed_bound(n, h, w)[0]
+    ms = timed_ms(lambda: da.seed_field(o, r, wb, hb), device, reps)
+    plain_ms = timed_ms(lambda: da.seed_field_ref(o, r, wb, hb), device,
+                        max(1, reps // 4))
+    ms_n = timed_ms(lambda: da.seed_field(origs, refs, wb, hb), device,
+                    reps)
+    log(f"seed_field at {w}x{h}: kernel {ms:.4f} ms, plain torch "
+        f"{plain_ms:.4f} ms (median, CUDA events around the wrapper); bound "
+        f"{bound_ms * 1e3:.2f} us ({bound_by}); {n} pairs in one launch "
+        f"{ms_n:.4f} ms, bound {bound_n * 1e3:.2f} us")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "kname": "seed_field",
+            "timed": {f"seed_field at {w}x{h}": (
+                          lambda: da.seed_field(o, r, wb, hb), bound_ms),
+                      f"seed_field, {n} {w}x{h} pairs in one launch": (
+                          lambda: da.seed_field(origs, refs, wb, hb),
+                          bound_n)}}
 
 
 def wide_key(device, w, h, compare_sweep):
@@ -569,8 +673,10 @@ def main_path(frames, device):
     enc_launches = dict(counts)
     launches = counts.pop("dense_me")
     # the rank tables of every picture (one launch per size), the subpel
-    # planes of every inter picture (both lists hold one reference)
+    # planes and the seed field of every inter picture (both lists hold one
+    # reference)
     rank, subpel = counts.pop("rank_satd"), counts.pop("subpel_planes")
+    seed = counts.pop("seed_field")
     bs_host, fps_host = encode(frames, None, QP)
     os.environ["TC_NO_ME_SURF"] = "1"
     try:
@@ -585,9 +691,10 @@ def main_path(frames, device):
     check(bs_off == bitstream, "the bitstream differs with TC_NO_ME_SURF")
     check(launches >= n_p and not any(counts.values()),
           f"{launches} dense_me launches for {n_p} P pictures; {counts}")
-    check(rank == 4 * len(frames) and subpel == n_p,
+    check(rank == 4 * len(frames) and subpel == n_p and seed == n_p,
           f"{rank} rank_satd launches for {len(frames)} pictures at 4 "
-          f"sizes, {subpel} subpel_planes launches for {n_p} P pictures")
+          f"sizes, {subpel} subpel_planes and {seed} seed_field launches "
+          f"for {n_p} P pictures")
     dec = Decoder(device=None)
     n = sum(1 for _ in dec.decode_stream(bitstream))
     check(n == len(frames) and dec.hash_failures == 0,
@@ -598,8 +705,8 @@ def main_path(frames, device):
         f"{surfaces} SAD surfaces installed, the same bytes on the card "
         f"with TC_NO_ME_SURF; dense_me launches {launches} (>= {n_p} P "
         f"pictures), rank_satd {rank} (4 sizes x {len(frames)} pictures), "
-        f"subpel_planes {subpel} ({n_p} P pictures); decoded {n} frames, "
-        f"0 hash failures")
+        f"subpel_planes {subpel} and seed_field {seed} ({n_p} P pictures); "
+        f"decoded {n} frames, 0 hash failures")
     return enc_launches, bitstream
 
 
@@ -1325,7 +1432,7 @@ def reset_launches():
     from turingcodec_tpu_torch.ops import transform
     dense_me.launches = inter.launches = transform.launches = 0
     inter.interp_launches = transform.fwd_launches = 0
-    da.rank_launches = da.subpel_launches = 0
+    da.rank_launches = da.subpel_launches = da.seed_launches = 0
     deblock.launches = sao.launches = 0
 
 
@@ -1339,7 +1446,8 @@ def read_launches():
             "interp_all_phases": inter.interp_launches,
             "rank_satd": da.rank_launches,
             "subpel_planes": da.subpel_launches,
-            "deblock": deblock.launches, "sao": sao.launches}
+            "deblock": deblock.launches, "sao": sao.launches,
+            "seed_field": da.seed_launches}
 
 
 def decode_main_path(device, frames, bitstream):
@@ -1421,7 +1529,8 @@ def decode_main_path(device, frames, bitstream):
           and launches["deblock"] == n
           and launches["dense_me"] == launches["fwd_transform"]
           == launches["interp_all_phases"] == launches["rank_satd"]
-          == launches["subpel_planes"] == launches["sao"] == 0,
+          == launches["subpel_planes"] == launches["sao"]
+          == launches["seed_field"] == 0,
           f"launches {launches}, {coded} pictures with coded inter TUs")
     t_dev2 = decode_planes(bitstream, dev)[2]
     t_host2 = decode_planes(bitstream, None)[2]
@@ -1657,8 +1766,8 @@ def tool_matrix_phase(device, frames):
         what = tm.reach(name, bs, plans)
         tiled = row.overrides.get("slices", 1) > 1 \
             or row.overrides.get("tile_cols", 1) > 1
-        check(enc["dense_me"] and enc["subpel_planes"]
-              and (enc["rank_satd"] == 0) == tiled,
+        check(enc["dense_me"] == enc["seed_field"] and enc["subpel_planes"]
+              and enc["dense_me"] and (enc["rank_satd"] == 0) == tiled,
               f"{name}: encode launches {enc}")
         n_sao = sum(p["sao"] is not None for p in capture_pictures(bs))
         dp.pictures = dp.envelope_host = 0
@@ -1687,8 +1796,9 @@ def tool_matrix_phase(device, frames):
         log(f"tool row {name}, {n} frames {w}x{h}: {len(bs)} bytes "
             f"identical on the card ({n / dt:.4f} fps) and the host "
             f"({n / dt_host:.4f} fps), golden {row.golden} OK; {what}; "
-            f"encode launches dense_me {enc['dense_me']}, subpel_planes "
-            f"{enc['subpel_planes']}, rank_satd {enc['rank_satd']}; "
+            f"encode launches dense_me {enc['dense_me']}, seed_field "
+            f"{enc['seed_field']}, subpel_planes {enc['subpel_planes']}, "
+            f"rank_satd {enc['rank_satd']}; "
             f"decoded on the card equal to the host, 0 hash failures, "
             f"{pictures} pictures through the pipeline, {n_sao} SAO-coded; "
             f"decode launches {dec} ({time.perf_counter() - t0:.1f} s)")
@@ -1941,11 +2051,13 @@ def gop_stages(device, frames, bitstream, reps):
     t0 = time.perf_counter()
     origs = np.stack([fr[0] for fr in frames[1:]])
     refs_a = np.stack([fr[0] for fr in frames[:-1]])
-    before = path.get("dense_me", 0)
+    before = path.get("dense_me", 0), path.get("seed_field", 0)
     got = driven(path, lambda: da.analysis_frames_batched(origs, refs_a,
                                                           device, 8))
-    check(path["dense_me"] - before == len(origs),
-          "analysis_frames_batched: not one sweep per pair")
+    check(path["dense_me"] - before[0] == len(origs)
+          and path["seed_field"] - before[1] == 1,
+          "analysis_frames_batched: not one sweep per pair and one seed "
+          "launch for all")
     for i in range(len(origs)):
         one = da.analysis_device(origs[i], refs_a[i], device, bit_depth=8)
         nat = native.dense_analysis(origs[i], refs_a[i], 8)
@@ -1954,8 +2066,9 @@ def gop_stages(device, frames, bitstream, reps):
               "analysis_frames_batched differs from the per-pair call or "
               "the native host twin")
     log(f"analysis_frames_batched over {len(origs)} {w}x{h} pairs "
-        f"({len(origs)} dense_me launches): equal to the per-pair calls and "
-        f"the native host twin ({time.perf_counter() - t0:.1f} s)")
+        f"({len(origs)} dense_me launches, 1 seed_field launch): equal to "
+        f"the per-pair calls and the native host twin "
+        f"({time.perf_counter() - t0:.1f} s)")
     timing(f"analysis_frames_batched, {len(origs)} pairs",
            lambda: da.analysis_frames_batched(origs, refs_a, device, 8),
            lambda: [da.analysis_device(origs[i], refs_a[i], device,
@@ -2068,8 +2181,10 @@ def main() -> int:
     h, w = orig.shape
     check((w, h) == (1920, 1080), f"upscaled input is {w}x{h}")
 
-    # 3. dense-ME kernel against its plain versions on the card
+    # 3. dense-ME and seed-field kernels against their plain versions on
+    # the card
     kern = check_kernel(device, orig, ref, reps=20)
+    seed_kern = check_seed_kernel(device, frames, reps=20)
 
     # 4. stages against their host twins (the surface against the native
     # prepass's), by tools/device_enc_check.py
@@ -2157,7 +2272,10 @@ def main() -> int:
                  launches=dec_launches["deblock"], **dec_kern["deblock"]),
             dict(name="sao", source="sao.cu",
                  replaces="turingcodec_tpu/ops/sao.py:33",
-                 launches=vfy_launches["sao"], **dec_kern["sao"])]
+                 launches=vfy_launches["sao"], **dec_kern["sao"]),
+            dict(name="seed_field", source="seed_field.cu",
+                 replaces="turingcodec_tpu/encode/device_analysis.py:66",
+                 launches=enc_launches["seed_field"], **seed_kern)]
     device_times(rows)
     profile_counts(gop_jobs)
     kern_us, copy_us, per = residual_device_us(res_pics)
@@ -2166,14 +2284,16 @@ def main() -> int:
         f"launches, {copy_us:.2f} us of copies (profiler)")
 
     log(card)
-    # no single PyTorch call computes any of the nine functions (a
+    # no single PyTorch call computes any of the ten functions (a
     # penalised argmin over 289 SADs, a per-block filter phase, an integer
     # dequantisation before two products, two integer products with a
     # rounding shift between them, 16 filter phases with their shifts and
     # exact-phase cases, 35 intra predictions with substituted and filtered
     # references and a Hadamard SATD each, 15 clamped filter phases, edge
     # decisions and filters driven by per-block maps, per-CTB band and
-    # edge offsets with neighbour rules), so library_ms is null
+    # edge offsets with neighbour rules, two clamped decimations each
+    # followed by a penalised argmin, the second around the first's
+    # winner), so library_ms is null
     log(json.dumps({"kernels": [{
         "name": r["name"], "route": "cuda",
         "source": "turingcodec_tpu_torch/csrc/" + r["source"],

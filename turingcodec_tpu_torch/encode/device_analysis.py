@@ -20,10 +20,13 @@ the host path (integer arithmetic, same tie-breaks):
 - the source-referenced 35-mode rank-SATD tables (intra_search
   _mode_satds twin), through the hand-written kernel csrc/rank_satd.cu.
 
-The two kernels' wrappers, subpel_planes and rank_satd_tables, take the
-plain torch versions (_subpel_planes, _rank_table) for CPU tensors only;
-a CUDA tensor launches the kernel or raises. Their results come down into
-pinned host memory (_to_host).
+The seed field runs through the hand-written kernel csrc/seed_field.cu,
+one launch for any number of pairs. The three kernels' wrappers,
+seed_field, subpel_planes and rank_satd_tables, take the plain torch
+versions (seed_field_ref, _subpel_planes, _rank_table) for CPU tensors
+only; a CUDA tensor launches the kernel or raises. The subpel planes and
+rank tables come down into pinned host memory (_to_host); the seeds stay
+on the card for the dense sweep.
 
 Every scan with a strict-improvement tie-break becomes a min over the
 packed key (cost << 9) | k, k the scan position, so the result does not
@@ -56,13 +59,16 @@ _ZSCAN = {}
 # picture, which both lists share when they hold the same picture
 surfaces = 0
 # kernel launches since import (or since a caller reset them to 0): the
-# rank-SATD kernel's, one per table size, and the subpel planes kernel's
+# rank-SATD kernel's, one per table size, the subpel planes kernel's and
+# the seed field kernel's, one per call whatever its number of pairs
 rank_launches = 0
 subpel_launches = 0
+seed_launches = 0
 RANK_SIZES = (4, 8, 16, 32)
 
 _RANK_LAUNCH = None
 _SUBPEL_LAUNCH = None
+_SEED_LAUNCH = None
 
 
 def resolve_device(device) -> Optional[torch.device]:
@@ -120,8 +126,9 @@ def block_dims(w: int, h: int):
     return -(-lw // 4), -(-lh // 4)
 
 
-def seed_field(orig: torch.Tensor, ref: torch.Tensor, wb: int, hb: int):
-    """(orig, ref) int16 or int32 planes -> (hb, wb, 2) int32 seed MVs."""
+def seed_field_ref(orig: torch.Tensor, ref: torch.Tensor, wb: int, hb: int):
+    """Plain torch version of seed_field: (orig, ref) int16 or int32 planes
+    -> (hb, wb, 2) int32 seed MVs."""
     dev = orig.device
     cur4 = _lowres_plane(orig, 4, 4, wb, hb, 0)
     ref4 = _lowres_plane(ref, 4, 4, wb, hb, 8)
@@ -159,6 +166,53 @@ def seed_field(orig: torch.Tensor, ref: torch.Tensor, wb: int, hb: int):
     return torch.stack([bsx, bsy], -1).to(torch.int32)
 
 
+def seed_field(orig: torch.Tensor, ref: torch.Tensor, wb: int, hb: int):
+    """(orig, ref) int16 planes, one (h, w) pair or N as (N, h, w), ->
+    (hb, wb, 2) or (N, hb, wb, 2) int32 seed MVs, (wb, hb) =
+    block_dims(w, h). A CPU tensor takes the plain version seed_field_ref
+    (under torch.func.vmap for N pairs); a CUDA tensor launches
+    csrc/seed_field.cu once for all N pairs, and a failed build or launch
+    raises."""
+    global seed_launches, _SEED_LAUNCH
+    if (orig.dtype != torch.int16 or ref.dtype != torch.int16
+            or orig.shape != ref.shape or orig.dim() not in (2, 3)
+            or 0 in orig.shape[-2:]):
+        raise ValueError(f"two non-empty (h, w) or (N, h, w) int16 planes of "
+                         f"one shape required, got {orig.dtype} "
+                         f"{tuple(orig.shape)} and {ref.dtype} "
+                         f"{tuple(ref.shape)}")
+    if orig.device != ref.device:
+        raise ValueError(f"planes on {orig.device} and {ref.device}")
+    h, w = orig.shape[-2:]
+    if (wb, hb) != block_dims(w, h):
+        raise ValueError(f"a {w}x{h} plane has {block_dims(w, h)} blocks, "
+                         f"not {(wb, hb)}")
+    if orig.device.type == "cpu":
+        if orig.dim() == 2:
+            return seed_field_ref(orig, ref, wb, hb)
+        return torch.func.vmap(lambda a, b: seed_field_ref(a, b, wb, hb))(
+            orig, ref)
+    if orig.device.type != "cuda":
+        raise ValueError(f"unsupported device {orig.device}")
+    if not (orig.is_contiguous() and ref.is_contiguous()):
+        raise ValueError("contiguous planes required")
+    n = orig.shape[0] if orig.dim() == 3 else 1
+    if n > 65535:
+        raise ValueError(f"{n} pairs: at most 65535 in one launch")
+    out = torch.empty((n, hb, wb, 2), dtype=torch.int32, device=orig.device)
+    if n:
+        if _SEED_LAUNCH is None:
+            _SEED_LAUNCH = _launcher("seed_field", "ppiiipp")
+        stream = torch.cuda.current_stream(orig.device).cuda_stream
+        with torch.cuda.device(orig.device):
+            rc = _SEED_LAUNCH(orig.data_ptr(), ref.data_ptr(), n, w, h,
+                              out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"seed_field launch failed: CUDA error {rc}")
+        seed_launches += 1
+    return out if orig.dim() == 3 else out[0]
+
+
 def _dense_stage(orig, ref, seeds, w, h, wb, hb, want_surf=False,
                  bit_depth=16):
     """Twin of enc_core dense_search_rows: per 16x16 block, the exhaustive
@@ -189,6 +243,7 @@ def analysis_device(orig_y: np.ndarray, ref_y: np.ndarray, device,
     int16 as in the JAX package)."""
     h, w = orig_y.shape
     wb, hb = block_dims(w, h)
+    device = resolve_device(device)
     orig = upload(orig_y, device, torch.int16)
     ref = upload(ref_y, device, torch.int16)
     seeds = seed_field(orig, ref, wb, hb)
@@ -207,35 +262,30 @@ def _upload_pairs(origs, refs, device):
             upload(refs, device, torch.int16))
 
 
-def _seed_fields(o, r, wb, hb):
-    """seed_field over (N, h, w) planes, each of its ops once for all N
-    pairs (torch.func.vmap)."""
-    return torch.func.vmap(lambda a, b: seed_field(a, b, wb, hb))(o, r)
-
-
 def seed_fields_frames_batched(origs: np.ndarray, refs: np.ndarray,
                                device="cuda"):
     """The lowres seed fields of N (orig, ref) luma pairs, (N, h, w) each,
-    in one batched pass on `device`: ((N, hb, wb, 2) int32 numpy, wb, hb),
-    each pair's field the exact value of seed_field_device (the host
-    lowres_prepass)."""
+    in one batched pass on `device` (one kernel launch on a card): ((N, hb,
+    wb, 2) int32 numpy, wb, hb), each pair's field the exact value of
+    seed_field_device (the host lowres_prepass)."""
     o, r = _upload_pairs(origs, refs, resolve_device(device))
     wb, hb = block_dims(o.shape[2], o.shape[1])
-    return _np32(_seed_fields(o, r, wb, hb)), wb, hb
+    return _np32(seed_field(o, r, wb, hb)), wb, hb
 
 
 def analysis_frames_batched(origs: np.ndarray, refs: np.ndarray,
                             device="cuda", bit_depth: int = 16):
     """The encoder analysis of N (orig, ref) luma pairs, (N, h, w) each:
-    the seed fields in one batched pass, then the dense full-pel fields and
-    their winner SADs, one dense_me_sweep launch per pair (the kernel
-    clamps its reads to one plane pair). Returns ((N, hb, wb, 2) seeds,
-    (N, hb, wb, 2) dense MVs, (N, hb, wb) SADs) int32 numpy and wb, hb,
-    each pair's the exact value of analysis_device."""
+    the seed fields in one batched pass (one seed_field launch on a card),
+    then the dense full-pel fields and their winner SADs, one
+    dense_me_sweep launch per pair (the kernel clamps its reads to one
+    plane pair). Returns ((N, hb, wb, 2) seeds, (N, hb, wb, 2) dense MVs,
+    (N, hb, wb) SADs) int32 numpy and wb, hb, each pair's the exact value
+    of analysis_device."""
     o, r = _upload_pairs(origs, refs, resolve_device(device))
     n, h, w = o.shape
     wb, hb = block_dims(w, h)
-    seeds = _seed_fields(o, r, wb, hb).contiguous()
+    seeds = seed_field(o, r, wb, hb)
     dense = [_dense_stage(o[i], r[i], seeds[i], w, h, wb, hb,
                           bit_depth=bit_depth) for i in range(n)]
     dm = torch.stack([d[0] for d in dense]) if n else seeds
@@ -261,6 +311,7 @@ def seed_field_device(orig_y: np.ndarray, ref_y: np.ndarray, device):
     enc_core lowres_prepass."""
     h, w = orig_y.shape
     wb, hb = block_dims(w, h)
+    device = resolve_device(device)
     seeds = seed_field(upload(orig_y, device, torch.int16),
                        upload(ref_y, device, torch.int16), wb, hb)
     return _np32(seeds), wb, hb

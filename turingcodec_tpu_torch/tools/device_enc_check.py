@@ -15,10 +15,11 @@ exact integers:
   device, byte-identical to the host path's (device=None), with one SAD
   surface installed per inter picture.
 Each stage's time per picture (host clock, transfers included) is
-printed beside it, and the subpel planes' and rank tables' downloads into
-pinned memory alone. --turns encodes in four turns instead, with SAD
-surfaces and with TC_NO_ME_SURF (on, off, off, on), on the device and on
-the host each turn, and prints the frame rates.
+printed beside it, and the two planes' uploads from pageable memory and
+the subpel planes' and rank tables' downloads into pinned memory alone.
+--turns encodes in four turns instead, with SAD surfaces and with
+TC_NO_ME_SURF (on, off, off, on), on the device and on the host each
+turn, and prints the frame rates.
 
 Usage: python -m turingcodec_tpu_torch.tools.device_enc_check
            [--device {cuda,cpu}] [--upscale N] [--frames N] [--turns]
@@ -119,6 +120,9 @@ def analysis_checks(orig, ref, zscan, device, reps: int = 3, log=print):
           "seed field differs from the native host twin")
     timed("seed_field_device", lambda: da.seed_field_device(orig, ref,
                                                             device))
+    timed("the two planes' uploads", lambda: (
+        da.upload(orig, device, torch.int16),
+        da.upload(ref, device, torch.int16)))
     got = da.analysis_device(orig, ref, device, want_surf=True, bit_depth=8)
     check(all(np.array_equal(g, n) for g, n in zip(
         got[:3] + got[5:], (sm_n, dm_n, ds_n, surf_n))),
