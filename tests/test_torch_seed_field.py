@@ -183,28 +183,25 @@ def test_the_plain_version_takes_cpu_tensors_and_counts_no_launch(
     orig, ref = _pair("wrap_16bit")
     o, r = torch.from_numpy(orig), torch.from_numpy(ref)
     wb, hb = tda.block_dims(orig.shape[1], orig.shape[0])
-    one = tda.seed_field(o, r, wb, hb)
+    one = tda.seed_field(o, r)
     assert torch.equal(one, tda.seed_field_ref(o, r, wb, hb))
-    both = tda.seed_field(torch.stack([o, r]), torch.stack([r, o]), wb, hb)
+    both = tda.seed_field(torch.stack([o, r]), torch.stack([r, o]))
     assert torch.equal(both[0], one)
     assert torch.equal(both[1], tda.seed_field_ref(r, o, wb, hb))
     none = torch.empty((0,) + o.shape, dtype=torch.int16)
-    assert tda.seed_field(none, none, wb, hb).shape == (0, hb, wb, 2)
+    assert tda.seed_field(none, none).shape == (0, hb, wb, 2)
     assert tda.seed_launches == 0
 
 
 def test_the_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
     orig, ref = (torch.from_numpy(a) for a in _pair("wrap_16bit"))
-    wb, hb = tda.block_dims(orig.shape[1], orig.shape[0])
     meta = torch.empty(orig.shape, dtype=torch.int16, device="meta")
-    for bad in (lambda: tda.seed_field(orig.to(torch.int32), ref, wb, hb),
-                lambda: tda.seed_field(orig, ref[:-1], wb, hb),
-                lambda: tda.seed_field(orig, ref, wb + 1, hb),
-                lambda: tda.seed_field(orig[None, None], ref[None, None],
-                                       wb, hb),
-                lambda: tda.seed_field(orig[:0], ref[:0], 0, 0),
-                lambda: tda.seed_field(meta, meta, wb, hb),
-                lambda: tda.seed_field(orig, meta, wb, hb)):
+    for bad in (lambda: tda.seed_field(orig.to(torch.int32), ref),
+                lambda: tda.seed_field(orig, ref[:-1]),
+                lambda: tda.seed_field(orig[None, None], ref[None, None]),
+                lambda: tda.seed_field(orig[:0], ref[:0]),
+                lambda: tda.seed_field(meta, meta),
+                lambda: tda.seed_field(orig, meta)):
         with pytest.raises(ValueError):
             bad()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -232,7 +229,7 @@ def test_kernel_matches_plain_on_card(name):
     wb, hb = tda.block_dims(w, h)
     o, r = (torch.from_numpy(a).to(dev) for a in (orig, ref))
     tda.seed_launches = 0
-    got = tda.seed_field(o, r, wb, hb)
+    got = tda.seed_field(o, r)
     torch.cuda.synchronize()
     assert tda.seed_launches == 1
     assert torch.equal(got, tda.seed_field_ref(o, r, wb, hb))
@@ -245,7 +242,7 @@ def test_batched_kernel_is_one_launch_equal_to_single_calls(name):
     origs, refs = (torch.from_numpy(a).to(dev) for a in _batch(name))
     wb, hb = tda.block_dims(origs.shape[2], origs.shape[1])
     tda.seed_launches = 0
-    got = tda.seed_field(origs, refs, wb, hb)
+    got = tda.seed_field(origs, refs)
     assert tda.seed_launches == 1
     for i in range(origs.shape[0]):
         assert torch.equal(got[i], tda.seed_field_ref(origs[i], refs[i],

@@ -23,10 +23,15 @@
 // 16 bits the int16 samples may be negative, where C's `/` would truncate.
 //
 // What bounds it. At 1080p a pair has 8160 blocks, each 289 x 16 + 25 x 64
-// = 6224 absolute differences, 50.8 M in all; at three INT32 operations each
-// (difference, absolute value, sum) 152 M operations, 9.1 us at 16.7 T op/s
-// (132 SMs x 64 lanes x 1.98 GHz). The two int16 planes are 8.3 MB, 2.5 us
-// at 3.35 TB/s, so the operations bound it. The torch chain it replaces
+// = 6224 absolute differences, 50.8 M in all. The least a difference costs
+// is two FP32 adds, |w - c| folded into the second as an operand modifier,
+// on the FP32 pipe at twice the INT32 rate (exact: int16 SADs stay below
+// 64 x 65535 < 2^24), so one INT32-rate operation each, as csrc/dense_me.cu
+// counts; with the decimation's 7.0 M adds (half as much again each) that
+// is 54.3 M, 3.25 us at 16.7 T op/s (132 SMs x 64 lanes x 1.98 GHz). The
+// two int16 planes are 8.3 MB, 2.5 us at 3.35 TB/s, so the operations bound
+// it. This first design spends three INT32 operations on each difference
+// (difference, absolute value, sum). The torch chain it replaces
 // built all 289 quarter-res windows at once, a (17, 17, 272, 480) int32
 // tensor of 151 MB written and read several times, and gathered the
 // half-res windows through a (5, 5, 68, 120, 8, 8) int64 index tensor.

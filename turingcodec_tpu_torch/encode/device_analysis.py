@@ -166,13 +166,13 @@ def seed_field_ref(orig: torch.Tensor, ref: torch.Tensor, wb: int, hb: int):
     return torch.stack([bsx, bsy], -1).to(torch.int32)
 
 
-def seed_field(orig: torch.Tensor, ref: torch.Tensor, wb: int, hb: int):
+def seed_field(orig: torch.Tensor, ref: torch.Tensor):
     """(orig, ref) int16 planes, one (h, w) pair or N as (N, h, w), ->
     (hb, wb, 2) or (N, hb, wb, 2) int32 seed MVs, (wb, hb) =
     block_dims(w, h). A CPU tensor takes the plain version seed_field_ref
     (under torch.func.vmap for N pairs); a CUDA tensor launches
     csrc/seed_field.cu once for all N pairs, and a failed build or launch
-    raises."""
+    (n beyond the kernel's grid among its refusals) raises."""
     global seed_launches, _SEED_LAUNCH
     if (orig.dtype != torch.int16 or ref.dtype != torch.int16
             or orig.shape != ref.shape or orig.dim() not in (2, 3)
@@ -184,9 +184,7 @@ def seed_field(orig: torch.Tensor, ref: torch.Tensor, wb: int, hb: int):
     if orig.device != ref.device:
         raise ValueError(f"planes on {orig.device} and {ref.device}")
     h, w = orig.shape[-2:]
-    if (wb, hb) != block_dims(w, h):
-        raise ValueError(f"a {w}x{h} plane has {block_dims(w, h)} blocks, "
-                         f"not {(wb, hb)}")
+    wb, hb = block_dims(w, h)
     if orig.device.type == "cpu":
         if orig.dim() == 2:
             return seed_field_ref(orig, ref, wb, hb)
@@ -197,8 +195,6 @@ def seed_field(orig: torch.Tensor, ref: torch.Tensor, wb: int, hb: int):
     if not (orig.is_contiguous() and ref.is_contiguous()):
         raise ValueError("contiguous planes required")
     n = orig.shape[0] if orig.dim() == 3 else 1
-    if n > 65535:
-        raise ValueError(f"{n} pairs: at most 65535 in one launch")
     out = torch.empty((n, hb, wb, 2), dtype=torch.int32, device=orig.device)
     if n:
         if _SEED_LAUNCH is None:
@@ -246,7 +242,7 @@ def analysis_device(orig_y: np.ndarray, ref_y: np.ndarray, device,
     device = resolve_device(device)
     orig = upload(orig_y, device, torch.int16)
     ref = upload(ref_y, device, torch.int16)
-    seeds = seed_field(orig, ref, wb, hb)
+    seeds = seed_field(orig, ref)
     dense = _dense_stage(orig, ref, seeds, w, h, wb, hb, want_surf,
                          bit_depth)
     out = (_np32(seeds), _np32(dense[0]), _np32(dense[1]), wb, hb)
@@ -270,7 +266,7 @@ def seed_fields_frames_batched(origs: np.ndarray, refs: np.ndarray,
     seed_field_device (the host lowres_prepass)."""
     o, r = _upload_pairs(origs, refs, resolve_device(device))
     wb, hb = block_dims(o.shape[2], o.shape[1])
-    return _np32(seed_field(o, r, wb, hb)), wb, hb
+    return _np32(seed_field(o, r)), wb, hb
 
 
 def analysis_frames_batched(origs: np.ndarray, refs: np.ndarray,
@@ -285,7 +281,7 @@ def analysis_frames_batched(origs: np.ndarray, refs: np.ndarray,
     o, r = _upload_pairs(origs, refs, resolve_device(device))
     n, h, w = o.shape
     wb, hb = block_dims(w, h)
-    seeds = seed_field(o, r, wb, hb)
+    seeds = seed_field(o, r)
     dense = [_dense_stage(o[i], r[i], seeds[i], w, h, wb, hb,
                           bit_depth=bit_depth) for i in range(n)]
     dm = torch.stack([d[0] for d in dense]) if n else seeds
@@ -313,7 +309,7 @@ def seed_field_device(orig_y: np.ndarray, ref_y: np.ndarray, device):
     wb, hb = block_dims(w, h)
     device = resolve_device(device)
     seeds = seed_field(upload(orig_y, device, torch.int16),
-                       upload(ref_y, device, torch.int16), wb, hb)
+                       upload(ref_y, device, torch.int16))
     return _np32(seeds), wb, hb
 
 

@@ -140,7 +140,7 @@ def analysis_checks(orig, ref, zscan, device, reps: int = 3, log=print):
 
     o = da.upload(orig, device, torch.int16)
     r = da.upload(ref, device, torch.int16)
-    args = (o, r, da.seed_field(o, r, wb, hb), w, h, wb, hb)
+    args = (o, r, da.seed_field(o, r), w, h, wb, hb)
     res, surf = dense_me_sweep(*args, True, bit_depth=8)
     want, want_surf = dense_me_argmin_ref(*dense_inputs(*args), True)
     check(torch.equal(res, want) and torch.equal(surf, want_surf)
