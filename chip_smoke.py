@@ -6,9 +6,11 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain torch version on the card (the dense-ME
 sweep also through its fused entry point, on odd-sized frames with seeds
 at +-36, at 8, 10 and 12 bits, with and without its SAD surface; the
-seed field on the 1080p pair, odd-sized 8- and 10-bit frames, flat
-planes, 12-bit extremes, 16-bit planes over the int16 range and near
-zero, and the encode's 7 pairs in one launch against 7 single calls), holds
+seed field on the 1080p pair, the picture against itself shifted by
++-36, odd-sized 8- and 10-bit frames, planes at its tiling's edges
+(1x1, 2x6, one tile wide, sides = 2 mod 4), flat planes, 12-bit
+extremes, 16-bit planes over the int16 range and near zero, and the
+encode's 7 pairs in one launch against 7 single calls), holds
 every encoder analysis stage on the card against its host twin at 1080p
 (tools/device_enc_check.py; the surface against the native prepass's),
 and the stage's rank-SATD and subpel kernels against their plain versions
@@ -345,16 +347,21 @@ def seed_bound(n: int, h: int, w: int):
 
 def check_seed_kernel(device, frames, reps):
     """seed_field against its plain version on the card: the 1080p pair,
-    odd-sized frames at 8 and 10 bits (their decimation clamps inside the
-    block grid), flat 1080p planes (every SAD ties), 12-bit extremes,
-    16-bit planes wrapped over the int16 range and near zero (the rounded
-    mean of negative sums floors), and the encode's 7 pairs in one launch
-    against 7 single calls. Times it at the 1080p pair and the 7 pairs.
-    Returns its kernels-line row."""
+    the 1080p picture against itself shifted by (+36, -36) and (-36, +36)
+    samples (the refinement's reach: its window's corner clamps), odd-sized
+    frames at 8 and 10 bits (their decimation clamps inside the block
+    grid), the kernel tiling's edges (1x1 and 2x6 planes, a plane one
+    tile wide and ten tall, sides = 2 mod 4 ending in partial tiles at 10
+    bits), flat 1080p planes (every SAD ties), 12-bit extremes, 16-bit
+    planes wrapped over the int16 range and near zero (the rounded mean of
+    negative sums floors), and the encode's 7 pairs in one launch against
+    7 single calls. Logs ptxas's registers and shared memory, times it at
+    the 1080p pair and the 7 pairs. Returns its kernels-line row."""
     import numpy as np
     import torch
 
     from turingcodec_tpu_torch.encode import device_analysis as da
+    from turingcodec_tpu_torch.ops import kernel_build
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(
@@ -376,7 +383,17 @@ def check_seed_kernel(device, frames, reps):
     h, w = orig.shape
     o, r = up(orig), up(ref)
     errs = [compare(f"the {w}x{h} pair", o, r)[0]]
-    for bd, (hh, ww) in ((8, (270, 477)), (10, (135, 250))):
+    for sy, sx in ((36, -36), (-36, 36)):
+        e, got = compare(f"the {w}x{h} picture shifted by ({sx:+d}, "
+                         f"{sy:+d})", o, up(np.roll(orig, (sy, sx), (0, 1))))
+        errs.append(e)
+        hit = float((got == torch.tensor([sx, sy], device=device)).all(
+            -1).float().mean())
+        edge = float((got.abs() == 36).any(-1).float().mean())
+        log(f"seed_field, shift ({sx:+d}, {sy:+d}): {hit:.1%} of the blocks "
+            f"find it, {edge:.1%} reach +-36 in a component")
+    for bd, (hh, ww) in ((8, (270, 477)), (10, (135, 250)), (8, (1, 1)),
+                         (8, (2, 6)), (8, (600, 120)), (10, (150, 282))):
         a = rng.integers(0, 1 << bd, (hh, ww))
         errs.append(compare(f"{ww}x{hh} {bd}-bit", up(a),
                             up(np.roll(a, (5, -3), (0, 1))))[0])
@@ -406,11 +423,14 @@ def check_seed_kernel(device, frames, reps):
     errs.append(equal_on_card(f"seed_field, {n} pairs in one launch against "
                               f"{n} single calls", batched, singles))
     errs.append(compare(f"{n} pairs in one launch", origs, refs)[0])
-    log(f"kernel vs plain, seed_field on the {w}x{h} pair, 477x270 8-bit and "
-        f"250x135 10-bit frames, flat planes, 12-bit extremes, 16-bit planes "
-        f"over the int16 range and near zero, and {n} pairs in one launch "
-        f"(equal to {n} single calls): equal "
+    log(f"kernel vs plain, seed_field on the {w}x{h} pair, the picture "
+        f"shifted by +-36, 477x270 8-bit and 250x135 10-bit frames, 1x1, "
+        f"2x6 and 120x600 8-bit and 282x150 10-bit planes, flat planes, "
+        f"12-bit extremes, 16-bit planes over the int16 range and near zero, "
+        f"and {n} pairs in one launch (equal to {n} single calls): equal "
         f"({time.perf_counter() - t0:.1f} s)")
+    for line in kernel_build.PTXAS.get("seed_field", []):
+        log(f"seed_field ptxas: {line}")
     # timed on copies that overflow the L2 cache, as the encode's planes,
     # just uploaded among others, come from device memory; the same pair
     # again (warm L2) beside it
@@ -751,16 +771,16 @@ def build_all():
 
 
 def occupancy():
-    """The subpel, deblocking and SAO kernels' resources as the card's
-    runtime reports them (their <name>_occupancy entry points): registers and
-    spilled bytes a thread, shared bytes and threads a CTA, CTAs an SM,
-    and CTAs launched at 1080p."""
+    """The subpel, deblocking, SAO and seed-field kernels' resources as the
+    card's runtime reports them (their <name>_occupancy entry points):
+    registers and spilled bytes a thread, shared bytes and threads a CTA,
+    CTAs an SM, and CTAs launched at 1080p (one pair for the seed field)."""
     import ctypes
 
     from turingcodec_tpu_torch.ops import kernel_build
     what = ("registers", "local bytes", "shared bytes", "CTAs per SM",
             "threads", "CTAs at 1080p")
-    for k in ("subpel_planes", "deblock", "sao"):
+    for k in ("subpel_planes", "deblock", "sao", "seed_field"):
         out = (ctypes.c_int * len(what))()
         rc = getattr(kernel_build.load(k), f"{k}_occupancy")(out)
         check(rc == 0, f"{k}_occupancy: CUDA error {rc}")

@@ -18,6 +18,11 @@ from turingcodec_tpu_torch.tools import bitflip
 REPO = bitflip.STREAM.rsplit("/tests/", 1)[0]
 
 
+# a child's sweep takes 5-40 s under six test workers; a child that waits
+# past this fails its test instead of holding the whole run
+CHILD_TIMEOUT = 240
+
+
 def _sweep(device, positions):
     """Run the sweep in child processes, resuming after a case that
     killed one; returns (raw or untagged cases, native crashes)."""
@@ -28,7 +33,7 @@ def _sweep(device, positions):
             [sys.executable, "-m", "turingcodec_tpu_torch.tools.bitflip",
              "--device", device, "--positions", positions, "--start",
              str(start)], cwd=REPO, capture_output=True, text=True,
-            timeout=900)
+            timeout=CHILD_TIMEOUT)
         last_at = None
         for line in r.stdout.splitlines():
             if line.startswith("AT "):

@@ -9,6 +9,10 @@ The sizes reach the edge padding: neither side is a multiple of 4 or 16,
 so the decimation clamps to the last full-resolution row and column, and
 the decimated planes to their last sample out to the block grid (at
 1080 rows, ceil(1080 / 4) = 270 quarter-res rows against a grid of 272).
+They also reach the kernel's tiling (8 x 4 blocks a CTA): planes smaller
+than one block (1x1, 2x6), a plane one tile wide and ten tall, and sides
+= 2 (mod 4) with partial tiles on both, where the quarter-res mean adds
+2x2 sums one row and column past the half-res grid.
 The inputs, made from a seed with numpy: shifts planted at the quarter-res
 window's edge (+-8) and past the half-res one (+-36 full-res samples),
 flat planes (every SAD ties; the penalties pick (0, 0)), an inverted
@@ -70,6 +74,14 @@ CASES = {
     "extremes_12bit": (1080, 64, 12, "extremes"),
     "wrap_16bit": (67, 131, 16, "wrap"),
     "near_zero_16bit": (67, 131, 16, "near_zero"),
+    # planes smaller than one block
+    "tiny_1x1_8bit": (1, 1, 8, "extremes"),
+    "tiny_2x6_8bit": (2, 6, 8, "shift8"),
+    # one kernel tile (8 x 4 blocks) wide and ten tall, the last partial
+    "one_tile_wide_8bit": (600, 120, 8, "shift8"),
+    # h and w = 2 (mod 4): the 4x4 means read a row and a column of 2x2
+    # sums one past the half-res grid; partial tiles on both sides
+    "partial_2mod4_10bit": (150, 282, 10, "shift36"),
 }
 
 
@@ -139,7 +151,8 @@ def test_seed_field_reaches_the_planted_winner(name, want):
 
 
 @pytest.mark.parametrize("name", ["shift_8_8bit", "shift_36_10bit",
-                                  "checker_8bit"])
+                                  "checker_8bit", "tiny_2x6_8bit",
+                                  "partial_2mod4_10bit"])
 def test_seed_field_matches_the_native_twin(name):
     from turingcodec_tpu_torch import native
     orig, ref = _pair(name)
@@ -207,6 +220,24 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         tda.seed_field_device(orig.numpy(), ref.numpy(), "cuda")
+
+
+def test_the_probe_splits_this_trees_kernel():
+    """tools/seed_probe.py's --split finds this tree's decimation and
+    searches: one variant keeps the loads and drops the searches, the
+    other the reverse."""
+    import os
+
+    from turingcodec_tpu_torch.ops import kernel_build
+    from turingcodec_tpu_torch.tools import seed_probe
+    src = os.path.join(kernel_build.CSRC, "seed_field.cu")
+    variants = seed_probe.split_variants(src)
+    body = {k: v.split("seed_field_kernel(")[1].split("}  // namespace")[0]
+            for k, v in variants.items()}
+    assert "sums2x2<" in body["decimation alone"]
+    assert "2. quarter-res" not in body["decimation alone"]
+    assert "sums2x2<" not in body["searches alone"]
+    assert "2. quarter-res" in body["searches alone"]
 
 
 def _card():
