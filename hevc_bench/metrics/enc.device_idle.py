@@ -1,0 +1,9 @@
+"""Share of the profiled part of a traced encode in which no kernel, copy
+or fill ran on the card, in %."""
+from hevc_bench.harness import idle_share
+
+
+def read(run):
+    if "enc.picture" not in run.spans:
+        return None
+    return idle_share(run)
