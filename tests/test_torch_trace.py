@@ -1,0 +1,291 @@
+"""The port's trace (turingcodec_tpu_torch/utils/profiler.py) on the CPU:
+span nesting and pictures, the off path's cost, the spans as
+torch.profiler annotations, the CTU walk's thread timers, the transfer
+byte counters, and the benchmark's metrics that read the trace."""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from hevc_bench import harness
+from turingcodec_tpu_torch import native
+from turingcodec_tpu_torch.decode import device_pipeline as dp
+from turingcodec_tpu_torch.decode.decoder import Decoder
+from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
+from turingcodec_tpu_torch.ops import kernel_build
+from turingcodec_tpu_torch.utils import profiler
+from turingcodec_tpu_torch.utils.profiler import TRACE
+
+STREAMS = os.path.join(os.path.dirname(__file__), "streams")
+SEED = 2**33 + 19
+NEW_METRICS = {
+    "enc-ldp1080-motion": ("enc.ctu_walk_ms", "enc.wpp_occupancy",
+                           "enc.inter_search_ms", "enc.serial_ms",
+                           "enc.upload_mb"),
+    "dec-ra1080-motion": ("dec.parse_ms", "dec.stage_host_ms",
+                          "dec.transfer_ms", "dec.hash_ms", "dec.upload_mb"),
+}
+
+
+@pytest.fixture(autouse=True)
+def trace_off():
+    """Each test starts with recording off and no records, and ends with
+    recording off."""
+    TRACE.forced = False
+    TRACE.root("off").end()
+    TRACE.clear()
+    yield
+    TRACE.forced = False
+    TRACE.root("off").end()
+
+
+def _frames(w, h, n, seed=1):
+    """n 4:2:0 frames of a textured picture moving by a sample a frame."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h + n, w + n)).astype(np.int16)
+    c = np.full((h // 2, w // 2), 128, np.int16)
+    return [[np.ascontiguousarray(base[i:i + h, i:i + w]), c.copy(),
+             c.copy()] for i in range(n)]
+
+
+def _encode(w, h, n):
+    enc = Encoder(EncoderConfig(width=w, height=h, qp=32, rd_candidates=1,
+                                search_range=32, gop_m=1, sao=False,
+                                device="cpu"))
+    out = []
+    for f in _frames(w, h, n):
+        out += enc.push_frame(f)
+    return enc.headers() + b"".join(nal for _i, nal, _r in out)
+
+
+def _decode(n=3):
+    data = open(os.path.join(STREAMS, "vfy_sweep.hevc"), "rb").read()
+    return [f.planes for f in Decoder(device="cpu").decode_stream(
+        data, max_frames=n)]
+
+
+def _children_cover(tr, root_name):
+    """Per root span of the name: the share of it its children cover."""
+    spans = {s[3]: s for s in tr.spans}
+    kids = {}
+    for s in tr.spans:
+        kids.setdefault(s[4], []).append(s)
+    shares = []
+    for sid, s in spans.items():
+        if s[0] != root_name or s[3] != s[5]:
+            continue
+        ivs = sorted((max(k[1], s[1]), min(k[2], s[2]))
+                     for k in kids.get(sid, ()))
+        covered = harness.union_seconds([iv for iv in ivs if iv[1] > iv[0]])
+        shares.append(covered / (s[2] - s[1]))
+    return shares
+
+
+def test_nesting_parents_and_pictures():
+    TRACE.forced = True
+    root = TRACE.root("enc.docket", (4, 4))
+    with TRACE.within(root), TRACE.span("enc.prepare"):
+        with TRACE.span("enc.fields"):
+            TRACE.count("enc.upload.pageable_bytes", 10)
+        TRACE.count("enc.upload.pageable_bytes", 5)
+    root.end()
+    with TRACE.root("dec.finish"):
+        TRACE.set_picture(7)
+        with TRACE.span("dec.parse"):
+            pass
+    TRACE.count("outside", 1)
+    by = {s[0]: s for s in TRACE.spans}
+    assert by["enc.fields"][4] == by["enc.prepare"][3]
+    assert by["enc.prepare"][4] == by["enc.docket"][3]
+    assert by["enc.docket"][4] is None
+    assert by["enc.fields"][5] == by["enc.prepare"][5] \
+        == by["enc.docket"][3]
+    assert by["dec.parse"][4] == by["dec.parse"][5] == by["dec.finish"][3]
+    assert TRACE.pictures == {by["enc.docket"][3]: (4, 4),
+                              by["dec.finish"][3]: 7}
+    assert TRACE.counters[by["enc.docket"][3]] == {
+        "enc.upload.pageable_bytes": 15}
+    assert TRACE.counters[None] == {"outside": 1}
+    for s in TRACE.spans:
+        assert s[1] <= s[2]
+    outer, inner = by["enc.prepare"], by["enc.fields"]
+    assert outer[1] <= inner[1] <= inner[2] <= outer[2]
+    summ = TRACE.summary()
+    assert summ["pictures"] == 2
+    e = summ["spans"]["enc.prepare"]
+    assert e["count"] == 1 and e["self_ns"] == \
+        (outer[2] - outer[1]) - (inner[2] - inner[1])
+    assert summ["counters"]["enc.upload.pageable_bytes"] == {
+        "total": 15, "per_picture": 7.5}
+    text = TRACE.report()
+    assert "enc.docket" in text and "dec.parse" in text
+
+
+def test_recording_restarts_afresh():
+    TRACE.forced = True
+    with TRACE.root("dec.finish"):
+        pass
+    assert len(TRACE.spans) == 1
+    TRACE.forced = False
+    with TRACE.root("dec.finish"):
+        with TRACE.span("dec.parse"):
+            pass
+    assert len(TRACE.spans) == 1 and not TRACE.on
+    TRACE.forced = True
+    with TRACE.root("dec.finish"):
+        pass
+    assert len(TRACE.spans) == 1
+
+
+def test_off_reads_no_clock_and_calls_no_profiler(monkeypatch):
+    calls = {"clock": 0, "note": 0}
+    real = profiler.time
+
+    class Clock:
+        @staticmethod
+        def perf_counter_ns():
+            calls["clock"] += 1
+            return real.perf_counter_ns()
+
+    def note(name):
+        calls["note"] += 1
+        raise AssertionError(f"record_function({name!r}) with recording off")
+
+    def span(*a, **k):
+        raise AssertionError("a span made with recording off")
+
+    monkeypatch.setattr(profiler, "time", Clock)
+    monkeypatch.setattr(torch.profiler, "record_function", note)
+    monkeypatch.setattr(profiler, "_Span", span)
+    assert _encode(128, 64, 2)
+    assert len(_decode(2)) == 2
+    assert calls == {"clock": 0, "note": 0}
+    assert TRACE.spans == [] and TRACE.counters == {}
+
+
+def test_spans_are_profiler_annotations_and_cover_their_roots(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _encode(128, 64, 3)
+    enc_spans = {s[0] for s in TRACE.spans}
+    enc_cover = _children_cover(TRACE, "enc.docket")
+    TRACE.root("off").end()
+    with profile(activities=[ProfilerActivity.CPU]) as prof2:
+        _decode(3)
+    dec_spans = {s[0] for s in TRACE.spans}
+    dec_cover = _children_cover(TRACE, "dec.finish")
+    assert {"enc.docket", "enc.prepare", "enc.fields", "enc.rank_tables",
+            "enc.search", "enc.ctu_walk", "enc.filter", "enc.write",
+            "enc.hash", "enc.finalize", "enc.upload",
+            "enc.download"} <= enc_spans
+    assert {"dec.finish", "dec.parse", "dec.recon", "dec.mc",
+            "dec.residual", "dec.intra_host", "dec.deblock", "dec.sao",
+            "dec.pull", "dec.upload", "dec.hash", "dec.dpb"} <= dec_spans
+    assert len(enc_cover) == 3 and min(enc_cover) >= 0.95
+    assert len(dec_cover) >= 3 and min(dec_cover) >= 0.95
+    for p, want in ((prof, enc_spans), (prof2, dec_spans)):
+        path = str(tmp_path / "trace.json")
+        p.export_chrome_trace(path)
+        with open(path) as f:
+            notes = {e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "user_annotation"}
+        assert want <= notes
+        assert all(n.startswith(("enc.", "dec.")) for n in want)
+        assert not want & {"bench.window", "enc.picture", "enc.analysis",
+                           "dec.picture", "dec.pipeline", "dec.intra"}
+
+
+def test_wpp_thread_timers_within_the_walk():
+    TRACE.forced = True
+    native.set_thread_enc_threads(2)
+    try:
+        _encode(256, 128, 3)
+    finally:
+        native.set_thread_enc_threads(None)
+    walk = TRACE.durations("enc.ctu_walk")
+    threads = TRACE.counter("enc.wpp.threads")
+    busy = TRACE.counter("enc.wpp.ctu_ns")
+    wait = TRACE.counter("enc.wpp.wait_ns")
+    assert len(walk) == 3 and set(walk) == set(threads) == set(busy)
+    assert set(threads.values()) == {2}
+    for r in walk:
+        assert 0 < busy[r] + wait.get(r, 0) <= threads[r] * walk[r]
+    occupancy = harness.metric_reader("enc.wpp_occupancy")(None)
+    assert 0 < occupancy <= 100
+    phases = TRACE.summary()["counters"]
+    assert phases["enc.native.inter_cu_ns"]["total"] > 0
+    assert phases["enc.native.intra_cu_ns"]["total"] > 0
+
+
+def test_byte_counters_equal_the_planes_sizes():
+    TRACE.forced = True
+    _encode(256, 128, 3)
+    plane = 256 * 128 * 2
+    ups = TRACE.counter("enc.upload.pageable_bytes")
+    pics = sorted(ups, key=lambda r: TRACE.pictures[r][1])
+    # the I picture's rank tables take its source plane; an inter picture
+    # sends its source and its reference twice each (fields, rank tables,
+    # subpel planes)
+    assert [ups[r] for r in pics] == [plane, 4 * plane, 4 * plane]
+    with TRACE.root("dec.finish"):
+        y = np.arange(64 * 32, dtype=np.int16).reshape(32, 64)
+        c = np.zeros((16, 32), np.int16)
+        dev = [dp._upload(p, "cpu") for p in (y, c, c)]
+        dp._pull(dev)
+        kernel_build.upload_packed([np.zeros(5, np.int32),
+                                    np.zeros(3, np.uint8)], "cpu",
+                                   span="dec.upload")
+        # without a span name the copy is not the caller's to count
+        kernel_build.upload_packed([np.zeros(7, np.int32)], "cpu")
+    got = TRACE.counters[TRACE.spans[-1][5]]
+    size = y.nbytes + 2 * c.nbytes
+    # the packed upload sends each array at a 16-byte offset: 32 + 16
+    assert got == {"dec.upload.pageable_bytes": size + 48,
+                   "dec.pull.pageable_bytes": size}
+
+
+# one traced run of each cell at 128x64 on the CPU, in a child process:
+# the harness refuses to run where the JAX package is loaded, as it is in
+# this test process
+CELLS = """
+import json, sys
+from hevc_bench import harness
+from hevc_bench.drivers import dec
+dec.CACHE = sys.argv[1]
+spec = harness.load_spec()
+for workload in sys.argv[2:]:
+    cfg = dict(harness.cell_inputs(spec, workload)[1], width=128, height=64)
+    if "stream_pictures" in cfg:
+        cfg["stream_pictures"] = 9
+    result, _info, _lines = harness.execute(
+        workload, %d, 1.0, True, "cpu", config=cfg, stage_seconds=1.0)
+    print(json.dumps([workload, result]))
+""" % SEED
+
+
+def test_traced_cells_read_every_new_metric(tmp_path):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    p = subprocess.run([sys.executable, "-c", CELLS, str(tmp_path)]
+                       + list(NEW_METRICS), cwd=root, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    results = dict(json.loads(line) for line in p.stdout.splitlines()
+                   if line.startswith("["))
+    assert set(results) == set(NEW_METRICS)
+    for workload, names in NEW_METRICS.items():
+        result = results[workload]
+        for n in names:
+            v = result["metrics"][n]["value"]
+            assert isinstance(v, float) and v >= 0, (n, v)
+        labels = {g[0] for g in result["breakdown"]["idle_gaps"]}
+        prefix = workload.split("-")[0] + "."
+        assert any(g.startswith(prefix) and g not in (
+            "enc.picture", "enc.analysis", "dec.picture", "dec.pipeline",
+            "dec.intra") for g in labels), labels

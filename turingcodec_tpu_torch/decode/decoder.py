@@ -29,6 +29,7 @@ from turingcodec_tpu_torch.decode.mvp import InterDeriver
 from turingcodec_tpu_torch.decode.picture_recon import PictureReconstructor
 from turingcodec_tpu_torch.decode.plan import PicturePlan
 from turingcodec_tpu_torch.decode.slice_data import parse_slice_segment_data
+from turingcodec_tpu_torch.utils.profiler import TRACE
 
 
 @dataclass
@@ -169,89 +170,103 @@ class Decoder:
 
     # ------------------------------------------------------------------
     def _finish_picture(self, slices) -> List[DecodedFrame]:
-        sh0 = slices[0][0]
-        nut = sh0.nal_unit_type
-        sps, pps = self.ps.activate(sh0.slice_pic_parameter_set_id)
+        """One picture's parse, reconstruction, hash check and DPB
+        update (the trace's dec.finish span, named by the POC)."""
+        with TRACE.root("dec.finish"):
+            sh0 = slices[0][0]
+            nut = sh0.nal_unit_type
+            sps, pps = self.ps.activate(sh0.slice_pic_parameter_set_id)
 
-        if self.dpb is None or self.dpb.sps is not sps:
-            self.dpb = Dpb(sps)
-        key = (id(sps), id(pps))
-        if self._geom_key != key:
-            self.geom = PictureGeometry(sps, pps)
-            self._geom_key = key
+            if self.dpb is None or self.dpb.sps is not sps:
+                self.dpb = Dpb(sps)
+            key = (id(sps), id(pps))
+            if self._geom_key != key:
+                self.geom = PictureGeometry(sps, pps)
+                self._geom_key = key
 
-        # RASL pictures after a CRA that starts the sequence are skipped
-        if T.is_irap(nut):
-            no_rasl_output = self.first_picture or T.is_idr(nut) or T.is_bla(nut)
-            self.skip_rasl = no_rasl_output and not T.is_idr(nut)
-            if T.is_idr(nut) or T.is_bla(nut):
-                self.skip_rasl = True
-        if T.is_rasl(nut) and self.skip_rasl:
-            return []
-        if T.is_irap(nut):
-            pass
-        elif not T.is_rasl(nut):
-            self.skip_rasl = False
+            # RASL pictures after a CRA that starts the sequence are skipped
+            if T.is_irap(nut):
+                no_rasl_output = (self.first_picture or T.is_idr(nut)
+                                  or T.is_bla(nut))
+                self.skip_rasl = no_rasl_output and not T.is_idr(nut)
+                if T.is_idr(nut) or T.is_bla(nut):
+                    self.skip_rasl = True
+            if T.is_rasl(nut) and self.skip_rasl:
+                return []
+            if T.is_irap(nut):
+                pass
+            elif not T.is_rasl(nut):
+                self.skip_rasl = False
 
-        poc = self.dpb.derive_poc(sh0, self.first_picture)
-        self.first_picture = False
-        self.dpb.apply_rps(sh0, poc)
+            poc = self.dpb.derive_poc(sh0, self.first_picture)
+            TRACE.set_picture(poc)
+            self.first_picture = False
+            self.dpb.apply_rps(sh0, poc)
 
-        plan = PicturePlan(sps, pps)
-        dss_state = None  # (ContextPool, last_cu_qp) across dependent segs
-        slice_number = -1
-        prev_indep = None
-        for (sh, rbsp, bitpos) in slices:
-            if not sh.dependent_slice_segment_flag:
-                slice_number += 1
-                plan.slice_headers.append(sh)
-                prev_indep = sh
-            elif prev_indep is not None:
-                _inherit_slice_header(sh, prev_indep)
-            self.dpb.build_ref_lists(sh)
-            hook = None
-            if not sh.is_i:
-                hook = InterDeriver(plan, self.geom, sh, self.dpb, poc)
-            try:
-                dss_state = parse_slice_segment_data(
-                    plan, self.geom, sh, rbsp, bitpos, slice_number, hook,
-                    dss_state=dss_state)
-            except Violation:
-                raise
-            except Exception as e:
-                # any parse failure on a corrupt stream is a conformance
-                # violation, never a raw crash (the reference's StreamAbort
-                # wrapping, Read.hpp:104-113 / Violation.h)
-                from turingcodec_tpu_torch.decode.violations import Violation as V
-                raise V("7.3.8.1",
-                        f"slice segment data parse failed: "
-                        f"{type(e).__name__}: {e}") from e
+            with TRACE.span("dec.parse"):
+                plan = PicturePlan(sps, pps)
+                # (ContextPool, last_cu_qp) across dependent segments
+                dss_state = None
+                slice_number = -1
+                prev_indep = None
+                for (sh, rbsp, bitpos) in slices:
+                    if not sh.dependent_slice_segment_flag:
+                        slice_number += 1
+                        plan.slice_headers.append(sh)
+                        prev_indep = sh
+                    elif prev_indep is not None:
+                        _inherit_slice_header(sh, prev_indep)
+                    self.dpb.build_ref_lists(sh)
+                    hook = None
+                    if not sh.is_i:
+                        hook = InterDeriver(plan, self.geom, sh, self.dpb, poc)
+                    try:
+                        dss_state = parse_slice_segment_data(
+                            plan, self.geom, sh, rbsp, bitpos, slice_number,
+                            hook, dss_state=dss_state)
+                    except Violation:
+                        raise
+                    except Exception as e:
+                        # any parse failure on a corrupt stream is a
+                        # conformance violation, never a raw crash (the
+                        # reference's StreamAbort wrapping, Read.hpp:104-113
+                        # / Violation.h)
+                        from turingcodec_tpu_torch.decode.violations import (
+                            Violation as V)
+                        raise V("7.3.8.1",
+                                f"slice segment data parse failed: "
+                                f"{type(e).__name__}: {e}") from e
 
-        # reconstruction (ref lists of the last slice are fine for single-
-        # slice pictures; multi-slice pictures re-derive per slice)
-        planes = self._reconstruct(plan, sh0, poc)
+            # reconstruction (ref lists of the last slice are fine for single-
+            # slice pictures; multi-slice pictures re-derive per slice)
+            with TRACE.span("dec.recon"):
+                planes = self._reconstruct(plan, sh0, poc)
 
-        # decoded_picture_hash SEI verification (StateDecode.h:139-157 parity)
-        hash_ok = None
-        if self._pending_sei:
-            from turingcodec_tpu_torch.hevc import sei as sei_mod
-            for m in self._pending_sei:
-                if m.payload_type == sei_mod.SEI_DECODED_PICTURE_HASH:
-                    hash_ok = sei_mod.verify_decoded_picture_hash(
-                        m, planes, sps.bit_depth_y)
-                    if not hash_ok:
-                        self.hash_failures += 1
-            self._pending_sei = []
+            # decoded_picture_hash SEI verification (StateDecode.h:139-157
+            # parity)
+            hash_ok = None
+            with TRACE.span("dec.hash"):
+                if self._pending_sei:
+                    from turingcodec_tpu_torch.hevc import sei as sei_mod
+                    for m in self._pending_sei:
+                        if m.payload_type == sei_mod.SEI_DECODED_PICTURE_HASH:
+                            hash_ok = sei_mod.verify_decoded_picture_hash(
+                                m, planes, sps.bit_depth_y)
+                            if not hash_ok:
+                                self.hash_failures += 1
+                    self._pending_sei = []
 
-        pic = DecodedPicture(poc=poc, temporal_id=sh0.temporal_id,
-                             nal_unit_type=nut)
-        pic.planes = planes
-        pic.plan = plan
-        pic.is_reference = True
-        pic.hash_ok = hash_ok
-        out = self.dpb.picture_done(pic, sh0)
-        return [DecodedFrame(p.poc, p.planes, getattr(p, "hash_ok", None))
-                for p in out]
+            with TRACE.span("dec.dpb"):
+                pic = DecodedPicture(poc=poc, temporal_id=sh0.temporal_id,
+                                     nal_unit_type=nut)
+                pic.planes = planes
+                pic.plan = plan
+                pic.is_reference = True
+                pic.hash_ok = hash_ok
+                out = self.dpb.picture_done(pic, sh0)
+                return [DecodedFrame(p.poc, p.planes,
+                                     getattr(p, "hash_ok", None))
+                        for p in out]
 
     def _reconstruct(self, plan, sh0, poc):
         # per-slice ref lists: rebuild for reconstruction (predict_pu pulls

@@ -19,6 +19,9 @@ With TURING_TPU_PIPELINE_TRACE set, each picture's stages (mc, residual,
 intra, deblock, sao, pull) are timed on the host clock, the device
 synchronised at every probe: each probe prints the time since the
 picture's start to stderr and adds its stage's seconds to `stage_seconds`.
+The port's trace (utils/profiler.py) has a span at each of the same
+stages (dec.mc, dec.residual, dec.intra_host, dec.deblock, dec.sao,
+dec.pull), with dec.upload around each upload, and never synchronises.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from turingcodec_tpu_torch.decode.device_recon import (
 from turingcodec_tpu_torch.ops.deblock import deblock_planes_device
 from turingcodec_tpu_torch.ops.sao import sao_picture_device
 from turingcodec_tpu_torch.ops.transform import dequant_idct_add
+from turingcodec_tpu_torch.utils.profiler import TRACE
 
 # pictures the pipeline decoded, and pictures it left to the host path
 # because they lie outside its envelope (counted by the decoder's
@@ -50,18 +54,32 @@ _DEV_DPB: "OrderedDict[int, tuple]" = OrderedDict()
 _DEV_DPB_MAX = 24
 
 
+def left_to_host() -> None:
+    """Count a picture left to the host path, here and in the trace."""
+    global envelope_host
+    envelope_host += 1
+    TRACE.count("dec.envelope_host")
+
+
 def _upload(plane: np.ndarray, device) -> torch.Tensor:
     """A copy of a host plane on `device`: never a view of the host array,
-    which the host stages go on writing."""
-    return torch.from_numpy(np.ascontiguousarray(plane)).to(device,
-                                                            copy=True)
+    which the host stages go on writing. Sent from pageable memory."""
+    with TRACE.span("dec.upload"):
+        host = np.ascontiguousarray(plane)
+        TRACE.count("dec.upload.pageable_bytes", host.nbytes)
+        return torch.from_numpy(host).to(device, copy=True)
 
 
 def _pull(planes):
-    """The planes as new int16 host arrays, in one transfer."""
-    flat = torch.cat([p.reshape(-1) for p in planes]).to(torch.int16).cpu()
-    parts = np.split(flat.numpy(), np.cumsum([p.numel() for p in planes])[:-1])
-    return [a.reshape(p.shape) for a, p in zip(parts, planes)]
+    """The planes as new int16 host arrays, in one transfer (into pageable
+    memory; the wait for the device's work on them included)."""
+    with TRACE.span("dec.pull"):
+        flat = torch.cat([p.reshape(-1) for p in planes]).to(
+            torch.int16).cpu()
+        TRACE.count("dec.pull.pageable_bytes", flat.numel() * 2)
+        parts = np.split(flat.numpy(),
+                         np.cumsum([p.numel() for p in planes])[:-1])
+        return [a.reshape(p.shape) for a, p in zip(parts, planes)]
 
 
 def _register_dev(planes, dev):
@@ -75,6 +93,7 @@ def _dev_planes_for(pic, device):
     if ent is not None and ent[1][0].device == device:
         _DEV_DPB.move_to_end(id(pic.planes[0]))
         return ent[1]
+    TRACE.count("dec.ref_uploads")
     dev = tuple(_upload(p, device) for p in pic.planes[:3])
     _register_dev(pic.planes, dev)
     return dev
@@ -130,12 +149,12 @@ def decode_picture_device(pr, device):
 
     Returns the final [y, cb, cr] host planes, or None when the picture
     lies outside the pipeline's envelope (the caller runs the host path)."""
-    global pictures, envelope_host
+    global pictures
     plan, geom = pr.plan, pr.geom
     sps = plan.sps
     if (sps.chroma_array_type != 1 or pr.scaling is not None
             or plan.pcm_samples):
-        envelope_host += 1
+        left_to_host()
         return None
     trace = bool(os.environ.get("TURING_TPU_PIPELINE_TRACE"))
     t0 = last = time.perf_counter()
@@ -151,30 +170,37 @@ def decode_picture_device(pr, device):
             print(f"    [pipeline] {tag:10s} +{now - t0:8.4f}s",
                   file=sys.stderr, flush=True)
 
-    planes = [_upload(p, device) for p in (pr.ry, pr.rcb, pr.rcr)]
-    planes = _mc_device(plan, geom, pr.ref_lists, planes)
-    tp("mc")
-    planes = _residuals_device(plan, planes)
-    tp("residual")
-
-    if ((plan.cu_pred_mode == 1) & (plan.cu_id >= 0)).any():
-        # the one serial-by-spec stage: pull, reconstruct intra CUs on the
-        # host (native core), push back
-        from turingcodec_tpu_torch import native
-        pr.ry[:], pr.rcb[:], pr.rcr[:] = _pull(planes)
-        if not native.intra_recon(pr):
-            for cu in plan.cu_list:
-                if cu.pred_mode == 1:
-                    pr._recon_intra_cu(cu)
+    with TRACE.span("dec.mc"):
         planes = [_upload(p, device) for p in (pr.ry, pr.rcb, pr.rcr)]
-    tp("intra")
+        planes = _mc_device(plan, geom, pr.ref_lists, planes)
+        tp("mc")
+    with TRACE.span("dec.residual"):
+        planes = _residuals_device(plan, planes)
+        tp("residual")
 
-    planes = deblock_planes_device(plan, geom, planes)
-    tp("deblock")
-    if any(sh.slice_sao_luma_flag or sh.slice_sao_chroma_flag
-           for sh in plan.slice_headers):
-        planes = sao_picture_device(plan, geom, planes, device, pull=False)
-    tp("sao")
+    with TRACE.span("dec.intra_host"):
+        if ((plan.cu_pred_mode == 1) & (plan.cu_id >= 0)).any():
+            # the one serial-by-spec stage: pull, reconstruct intra CUs on
+            # the host (native core), push back
+            from turingcodec_tpu_torch import native
+            pr.ry[:], pr.rcb[:], pr.rcr[:] = _pull(planes)
+            if not native.intra_recon(pr):
+                for cu in plan.cu_list:
+                    if cu.pred_mode == 1:
+                        pr._recon_intra_cu(cu)
+            planes = [_upload(p, device) for p in (pr.ry, pr.rcb, pr.rcr)]
+        tp("intra")
+
+    with TRACE.span("dec.deblock"):
+        planes = deblock_planes_device(plan, geom, planes,
+                                       span="dec.upload")
+        tp("deblock")
+    with TRACE.span("dec.sao"):
+        if any(sh.slice_sao_luma_flag or sh.slice_sao_chroma_flag
+               for sh in plan.slice_headers):
+            planes = sao_picture_device(plan, geom, planes, device,
+                                        pull=False, span="dec.upload")
+        tp("sao")
 
     out = _pull(planes)
     tp("pull")

@@ -92,7 +92,7 @@ class PictureReconstructor:
             # outside the device pipeline's envelope
             if self.device is not None:
                 from turingcodec_tpu_torch.decode import device_pipeline
-                device_pipeline.envelope_host += 1
+                device_pipeline.left_to_host()
             for cu in plan.cu_list:
                 if cu.pcm:
                     self._recon_pcm(cu)

@@ -48,6 +48,7 @@ import torch
 from turingcodec_tpu_torch.ops import kernel_build
 from turingcodec_tpu_torch.ops.dense_me import dense_me_sweep, edge_pad
 from turingcodec_tpu_torch.ops.metrics import _wht_last
+from turingcodec_tpu_torch.utils.profiler import TRACE
 
 _STATIC = {}  # per-geometry index tensors, keyed by shape and device
 # the rank kernel's int32 z-scan tables on the card, keyed by the id of
@@ -92,9 +93,11 @@ def device_enc_enabled(device) -> bool:
 
 def upload(plane: np.ndarray, device, dtype=torch.int32) -> torch.Tensor:
     """A host sample plane as a `dtype` tensor on `device` (sent as
-    int16)."""
-    return torch.from_numpy(np.ascontiguousarray(plane, np.int16)).to(
-        device).to(dtype)
+    int16, from pageable memory)."""
+    with TRACE.span("enc.upload"):
+        host = np.ascontiguousarray(plane, np.int16)
+        TRACE.count("enc.upload.pageable_bytes", host.nbytes)
+        return torch.from_numpy(host).to(device).to(dtype)
 
 
 def _first_min(cost: torch.Tensor) -> torch.Tensor:
@@ -362,13 +365,20 @@ def _to_host(tensors) -> list:
     then one synchronise); each array is a view that keeps its buffer
     alive, as the native core reads it by pointer while the picture
     encodes, and the allocator takes the buffer back once the array dies."""
-    out = [t if t.device.type == "cpu" else torch.empty(
-        t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
-        for t in tensors]
-    cards = [t.device for t in tensors if t.device.type == "cuda"]
-    if cards:
-        torch.cuda.current_stream(cards[0]).synchronize()
-    return [t.numpy() for t in out]
+    with TRACE.span("enc.download"):
+        for t in tensors:
+            TRACE.count("enc.download.pageable_bytes"
+                        if t.device.type == "cpu"
+                        else "enc.download.pinned_bytes",
+                        t.numel() * t.element_size())
+        out = [t if t.device.type == "cpu" else torch.empty(
+            t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                t, non_blocking=True)
+            for t in tensors]
+        cards = [t.device for t in tensors if t.device.type == "cuda"]
+        if cards:
+            torch.cuda.current_stream(cards[0]).synchronize()
+        return [t.numpy() for t in out]
 
 
 def _check_plane(plane: torch.Tensor, bd: int):

@@ -31,6 +31,7 @@ from turingcodec_tpu_torch.hevc.params import (
 from turingcodec_tpu_torch.encode.ctu_write import write_slice_data
 from turingcodec_tpu_torch.encode.intra_search import IntraPictureEncoder
 from turingcodec_tpu_torch.decode.picture_recon import PictureReconstructor
+from turingcodec_tpu_torch.utils.profiler import TRACE
 
 
 @dataclass
@@ -743,7 +744,7 @@ class Encoder:
                 j0, f0 = st["q"].pop(0)
                 f0.result()
                 out.append(self._docket_finalize(j0))
-            job = self._docket_prepare(d)
+            job = self._prepare_traced(d)
             st["fol"].add(job)
             st["q"].append((job, st["pool"].submit(run, job)))
         # opportunistic early finalize of completed pictures — but NOT
@@ -786,7 +787,7 @@ class Encoder:
                     break
                 batch.append(d)
                 i += 1
-            jobs = [self._docket_prepare(d) for d in batch]
+            jobs = [self._prepare_traced(d) for d in batch]
             if len(jobs) == 1:
                 self._docket_encode(jobs[0])
             else:
@@ -920,9 +921,19 @@ class Encoder:
     # ------------------------------------------------------------------
     def _encode_docket(self, docket) -> tuple:
         """Sequential single-picture path: prepare + encode + finalize."""
-        job = self._docket_prepare(docket)
+        job = self._prepare_traced(docket)
         self._docket_encode(job)
         return self._docket_finalize(job)
+
+    def _prepare_traced(self, docket):
+        """_docket_prepare inside the picture's root span (enc.docket),
+        which the job carries through its encode and finalize."""
+        root = TRACE.root("enc.docket", (0 if docket.is_idr else docket.poc,
+                                         docket.input_index))
+        with TRACE.within(root), TRACE.span("enc.prepare"):
+            job = self._docket_prepare(docket)
+        job.trace = root
+        return job
 
     def _docket_prepare(self, docket):
         """Sequential phase: everything that touches cross-picture state —
@@ -1108,9 +1119,12 @@ class Encoder:
                          or os.environ.get("TC_SRC_RANK"))
                     and self.cfg.slices == 1 and self.cfg.tile_cols == 1
                     and self.cfg.tile_rows == 1):
-                enc._device_ranksatd = rank_satd_tables_device(
-                    np.asarray(yuv[0]), self.geom.zscan, self.cfg.bit_depth,
-                    bool(self.sps.strong_intra_smoothing_enabled_flag), dev)
+                with TRACE.span("enc.rank_tables"):
+                    enc._device_ranksatd = rank_satd_tables_device(
+                        np.asarray(yuv[0]), self.geom.zscan,
+                        self.cfg.bit_depth,
+                        bool(self.sps.strong_intra_smoothing_enabled_flag),
+                        dev)
 
         # pre-analysis (device fields + noise streak) is cross-picture
         # sequential state: run it here, not in the parallel encode phase
@@ -1129,7 +1143,8 @@ class Encoder:
                         ss[lx] = stash[refs[0].poc]
                 if ss:
                     enc._seed_src = ss
-            enc.prepare_analysis(yuv)
+            with TRACE.span("enc.fields"):
+                enc.prepare_analysis(yuv)
             self._noise_streak = getattr(enc, "noise_streak",
                                          self._noise_streak)
 
@@ -1211,114 +1226,137 @@ class Encoder:
         """Parallel-safe phase: the picture's RDO, loop filters, SAO
         estimation and CABAC write — no cross-picture state (worker
         threads bind their own native context, native.bind_thread_ctx)."""
-        docket, yuv, sh, enc = job.docket, job.yuv, job.sh, job.enc
-        n_slices, bounds = job.n_slices, job.bounds
-        plan, search_recon = enc.encode_picture(yuv)
-        if getattr(enc, "_aq_qp_layers", None):
-            self._apply_aq_qp(plan, enc._aq_qp_layers)
-            self._reconcile_qp_qg(plan, sh)
-        elif self.cfg.aq_strength > 0 or getattr(enc, "ctu_rc", None):
-            self._reconcile_qp_qg(plan, sh)
+        with TRACE.within(job.trace):
+            docket, yuv, sh, enc = job.docket, job.yuv, job.sh, job.enc
+            n_slices, bounds = job.n_slices, job.bounds
+            with TRACE.span("enc.search"):
+                plan, search_recon = enc.encode_picture(yuv)
+                if getattr(enc, "_aq_qp_layers", None):
+                    self._apply_aq_qp(plan, enc._aq_qp_layers)
+                    self._reconcile_qp_qg(plan, sh)
+                elif (self.cfg.aq_strength > 0
+                      or getattr(enc, "ctu_rc", None)):
+                    self._reconcile_qp_qg(plan, sh)
 
-        if job.ovl:
-            # overlap: the follower deblocked band-by-band behind the
-            # search into the pre-allocated DPB planes; wait for it to
-            # drain the tail bands (sample-exact with the whole-picture
-            # pass — banded-deblock equivalence is pinned by test)
-            job.ovl_done.wait()
-            if job.ovl_st.get("error"):
-                raise RuntimeError("overlap follower failed")
-            recon = job.pic.planes
-        else:
-            # reconstruction: search recon + the decoder's own deblocking
-            # over the same plan (round-trip tests assert bit-exact
-            # decoder agreement, the signature.cpp:171-177 invariant)
-            from turingcodec_tpu_torch.decode.deblock_vec import (
-                deblock_picture_vec)
-            recon = [p.copy() for p in search_recon]
-            deblock_picture_vec(plan, self.geom, recon[0], recon[1],
-                                recon[2])
+            with TRACE.span("enc.filter"):
+                if job.ovl:
+                    # overlap: the follower deblocked band-by-band behind
+                    # the search into the pre-allocated DPB planes; wait for
+                    # it to drain the tail bands (sample-exact with the
+                    # whole-picture pass — banded-deblock equivalence is
+                    # pinned by test)
+                    job.ovl_done.wait()
+                    if job.ovl_st.get("error"):
+                        raise RuntimeError("overlap follower failed")
+                    recon = job.pic.planes
+                else:
+                    # reconstruction: search recon + the decoder's own
+                    # deblocking over the same plan (round-trip tests
+                    # assert bit-exact decoder agreement, the
+                    # signature.cpp:171-177 invariant)
+                    from turingcodec_tpu_torch.decode.deblock_vec import (
+                        deblock_picture_vec)
+                    recon = [p.copy() for p in search_recon]
+                    deblock_picture_vec(plan, self.geom, recon[0], recon[1],
+                                        recon[2])
 
-        if self.cfg.sao and not job.ovl:
-            # SAO estimation needs the deblocked picture; its parameters
-            # go into the per-CTU syntax, so estimate before writing
-            # slice data (under overlap the follower estimated + applied
-            # per band already — identical raster decisions)
-            from turingcodec_tpu_torch.encode.sao_search import estimate_sao
-            estimate_sao(plan, self.geom, yuv, recon, enc.lam)
+                if self.cfg.sao and not job.ovl:
+                    # SAO estimation needs the deblocked picture; its
+                    # parameters go into the per-CTU syntax, so estimate
+                    # before writing slice data (under overlap the follower
+                    # estimated + applied per band already — identical
+                    # raster decisions)
+                    from turingcodec_tpu_torch.encode.sao_search import (
+                        estimate_sao)
+                    estimate_sao(plan, self.geom, yuv, recon, enc.lam)
 
-        # slice data: WPP entry point offsets go into the header.
-        # Offsets count EBSP bytes; per-substream emulation prevention equals
-        # whole-buffer EP3 because every substream ends in a non-zero byte
-        # (the CABAC flush '1' lands in the final byte).
-        from turingcodec_tpu_torch.bitstream.reader import insert_emulation_prevention
-        nal = job.nal_prefix
-        if n_slices == 1:
-            seg_shs = [sh]
-        else:
-            import copy
-            dep = self.cfg.dependent_slices
-            seg_shs = []
-            for si in range(n_slices):
-                shi = sh if si == 0 else copy.copy(sh)
-                if si > 0:
-                    shi.first_slice_segment_in_pic_flag = 0
-                    shi.slice_segment_address = bounds[si] * self.geom.wc
-                    shi.dependent_slice_segment_flag = int(dep)
-                seg_shs.append(shi)
-            plan.slice_headers = [s for s in seg_shs
-                                  if not s.dependent_slice_segment_flag]
-        seg_state = None
-        for si, shi in enumerate(seg_shs):
-            dep_seg = bool(shi.dependent_slice_segment_flag)
-            end_ts = None
-            if n_slices > 1 and self.cfg.dependent_slices:
-                end_ts = bounds[si + 1] * self.geom.wc
-            substreams, seg_state = write_slice_data(
-                plan, self.geom, shi, 0 if dep_seg or n_slices == 1 else si,
-                init_state=seg_state if dep_seg else None, end_ts=end_ts)
-            if len(substreams) > 1:
-                ep = [len(insert_emulation_prevention(s))
-                      for s in substreams[:-1]]
-                shi.num_entry_point_offsets = len(ep)
-                shi.offset_len_minus1 = max(
-                    1, max(e - 1 for e in ep).bit_length()) - 1
-                shi.entry_point_offset_minus1 = [e - 1 for e in ep]
-            else:
-                shi.num_entry_point_offsets = 0
-            bw = BitWriter()
-            write_slice_segment_header(bw, shi, self.sps, self.pps)
-            rbsp = bw.get_bytes() + b"".join(substreams)
-            nal += wrap_nal(shi.nal_unit_type, rbsp,
-                            temporal_id=docket.temporal_id)
+            with TRACE.span("enc.write"):
+                # slice data: WPP entry point offsets go into the header.
+                # Offsets count EBSP bytes; per-substream emulation
+                # prevention equals whole-buffer EP3 because every
+                # substream ends in a non-zero byte (the CABAC flush '1'
+                # lands in the final byte).
+                from turingcodec_tpu_torch.bitstream.reader import (
+                    insert_emulation_prevention)
+                nal = job.nal_prefix
+                if n_slices == 1:
+                    seg_shs = [sh]
+                else:
+                    import copy
+                    dep = self.cfg.dependent_slices
+                    seg_shs = []
+                    for si in range(n_slices):
+                        shi = sh if si == 0 else copy.copy(sh)
+                        if si > 0:
+                            shi.first_slice_segment_in_pic_flag = 0
+                            shi.slice_segment_address = \
+                                bounds[si] * self.geom.wc
+                            shi.dependent_slice_segment_flag = int(dep)
+                        seg_shs.append(shi)
+                    plan.slice_headers = [
+                        s for s in seg_shs
+                        if not s.dependent_slice_segment_flag]
+                seg_state = None
+                for si, shi in enumerate(seg_shs):
+                    dep_seg = bool(shi.dependent_slice_segment_flag)
+                    end_ts = None
+                    if n_slices > 1 and self.cfg.dependent_slices:
+                        end_ts = bounds[si + 1] * self.geom.wc
+                    substreams, seg_state = write_slice_data(
+                        plan, self.geom, shi,
+                        0 if dep_seg or n_slices == 1 else si,
+                        init_state=seg_state if dep_seg else None,
+                        end_ts=end_ts)
+                    if len(substreams) > 1:
+                        ep = [len(insert_emulation_prevention(s))
+                              for s in substreams[:-1]]
+                        shi.num_entry_point_offsets = len(ep)
+                        shi.offset_len_minus1 = max(
+                            1, max(e - 1 for e in ep).bit_length()) - 1
+                        shi.entry_point_offset_minus1 = [e - 1 for e in ep]
+                    else:
+                        shi.num_entry_point_offsets = 0
+                    bw = BitWriter()
+                    write_slice_segment_header(bw, shi, self.sps,
+                                               self.pps)
+                    rbsp = bw.get_bytes() + b"".join(substreams)
+                    nal += wrap_nal(shi.nal_unit_type, rbsp,
+                                    temporal_id=docket.temporal_id)
 
-        if self.cfg.sao and not job.ovl:
-            from turingcodec_tpu_torch.decode.sao import sao_picture
-            recon = sao_picture(plan, self.geom, recon)
-        if self.cfg.hash_type is not None:
-            from turingcodec_tpu_torch.hevc.sei import (
-                make_decoded_picture_hash, write_sei_nal)
-            msg = make_decoded_picture_hash(recon, self.cfg.hash_type,
-                                            self.cfg.bit_depth)
-            nal += write_sei_nal([msg], suffix=True,
-                                 temporal_id=docket.temporal_id)
-        job.nal = nal
-        job.recon = recon
-        job.plan = plan
+            if self.cfg.sao and not job.ovl:
+                from turingcodec_tpu_torch.decode.sao import sao_picture
+                with TRACE.span("enc.filter"):
+                    recon = sao_picture(plan, self.geom, recon)
+            if self.cfg.hash_type is not None:
+                from turingcodec_tpu_torch.hevc.sei import (
+                    make_decoded_picture_hash, write_sei_nal)
+                with TRACE.span("enc.hash"):
+                    msg = make_decoded_picture_hash(
+                        recon, self.cfg.hash_type, self.cfg.bit_depth)
+                    nal += write_sei_nal([msg], suffix=True,
+                                         temporal_id=docket.temporal_id)
+            from turingcodec_tpu_torch import native
+            native.count_enc_phases()
+            job.nal = nal
+            job.recon = recon
+            job.plan = plan
 
     def _docket_finalize(self, job) -> tuple:
         """Sequential phase, in docket order: rate-control/CPB updates and
-        filling the DPB stub with the finished planes/plan."""
+        filling the DPB stub with the finished planes/plan; ends the
+        picture's root span."""
         nal, sh, enc = job.nal, job.sh, job.enc
-        if self._rc is not None:
-            self._rc.post_picture(8 * len(nal))
-            self._cpb.update(8 * len(nal))
-        job.pic.planes = job.recon
-        job.pic.plan = job.plan
-        self._last_plan = job.plan
-        # exposed for the checkRate invariant test (encode/rate_check.py)
-        self._last_sh = sh
-        self._last_ctu_frac = list(enc.ctu_frac_list)
+        with TRACE.within(job.trace), TRACE.span("enc.finalize"):
+            if self._rc is not None:
+                self._rc.post_picture(8 * len(nal))
+                self._cpb.update(8 * len(nal))
+            job.pic.planes = job.recon
+            job.pic.plan = job.plan
+            self._last_plan = job.plan
+            # exposed for the checkRate invariant test (encode/rate_check.py)
+            self._last_sh = sh
+            self._last_ctu_frac = list(enc.ctu_frac_list)
+        job.trace.end()
         return job.docket.input_index, nal, job.recon
 
 

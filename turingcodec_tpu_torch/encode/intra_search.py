@@ -30,6 +30,7 @@ from turingcodec_tpu_torch.decode.reconstruct import (
 )
 from turingcodec_tpu_torch.ops.transform import forward_transform_np
 from turingcodec_tpu_torch.hevc.tables import QUANT_SCALES
+from turingcodec_tpu_torch.utils.profiler import TRACE
 
 
 def quantize_np(coeffs: np.ndarray, qp: int, bit_depth: int, log2_size: int,
@@ -203,36 +204,38 @@ class IntraPictureEncoder:
     def encode_picture(self, orig: List[np.ndarray], slice_number: int = 0
                        ) -> Tuple[PicturePlan, List[np.ndarray]]:
         sps = self.sps
-        # overlap mode pre-creates the plan in the facade's prepare phase
-        # so dependent pictures' TMVP binds these tensors while this
-        # picture is still encoding
-        plan = getattr(self, "_preset_plan", None)
-        if plan is None:
-            plan = PicturePlan(self.sps, self.pps)
-        plan.slice_headers.append(self.sh)
-        self.plan = plan
-        self.orig = orig
-        w, h = sps.pic_width_in_luma_samples, sps.pic_height_in_luma_samples
-        self.recon = [np.zeros((h, w), np.int16),
-                      np.zeros((h // 2, w // 2), np.int16),
-                      np.zeros((h // 2, w // 2), np.int16)]
-        self.refs = ReferenceSampleBuilder(plan, self.geom)
-        self.next_id = [0, 0, 0]
-        plan.qp_y[:] = self.qp
-        from turingcodec_tpu_torch import native
-        nat = native.EncNative.try_create(self, plan)
-        if nat is not None and getattr(self, "_device_seeds", None):
-            nat.install_seeds(self._device_seeds)
-        if nat is not None and getattr(self, "_device_subpel", None):
-            nat.install_subpel(self._device_subpel)
-        if nat is not None and getattr(self, "_device_ranksatd", None):
-            nat.install_ranksatd(self._device_ranksatd)
-        if getattr(self, "_overlap", False):
-            assert nat is not None, \
-                "inter-picture overlap requires the native search core"
-            nat.setup_overlap(self)
-        if nat is not None and getattr(self, "_aq_layers_full", None):
-            nat.install_aq(self._aq_layers_full)
+        with TRACE.span("enc.search_setup"):
+            # overlap mode pre-creates the plan in the facade's prepare phase
+            # so dependent pictures' TMVP binds these tensors while this
+            # picture is still encoding
+            plan = getattr(self, "_preset_plan", None)
+            if plan is None:
+                plan = PicturePlan(self.sps, self.pps)
+            plan.slice_headers.append(self.sh)
+            self.plan = plan
+            self.orig = orig
+            w = sps.pic_width_in_luma_samples
+            h = sps.pic_height_in_luma_samples
+            self.recon = [np.zeros((h, w), np.int16),
+                          np.zeros((h // 2, w // 2), np.int16),
+                          np.zeros((h // 2, w // 2), np.int16)]
+            self.refs = ReferenceSampleBuilder(plan, self.geom)
+            self.next_id = [0, 0, 0]
+            plan.qp_y[:] = self.qp
+            from turingcodec_tpu_torch import native
+            nat = native.EncNative.try_create(self, plan)
+            if nat is not None and getattr(self, "_device_seeds", None):
+                nat.install_seeds(self._device_seeds)
+            if nat is not None and getattr(self, "_device_subpel", None):
+                nat.install_subpel(self._device_subpel)
+            if nat is not None and getattr(self, "_device_ranksatd", None):
+                nat.install_ranksatd(self._device_ranksatd)
+            if getattr(self, "_overlap", False):
+                assert nat is not None, \
+                    "inter-picture overlap requires the native search core"
+                nat.setup_overlap(self)
+            if nat is not None and getattr(self, "_aq_layers_full", None):
+                nat.install_aq(self._aq_layers_full)
         ctb = sps.ctb_size_y
         wpp = bool(self.pps.entropy_coding_sync_enabled_flag)
         wc = sps.pic_width_in_ctbs_y

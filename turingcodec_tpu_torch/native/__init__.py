@@ -16,6 +16,8 @@ import sys
 
 import numpy as np
 
+from turingcodec_tpu_torch.utils.profiler import TRACE
+
 _LIB = None
 _TRIED = False
 
@@ -232,6 +234,12 @@ def _build_and_load():
     lib.tc_ctx_bind.argtypes = [ctypes.c_void_p]
     lib.tc_ctx_free.restype = None
     lib.tc_ctx_free.argtypes = [ctypes.c_void_p]
+    lib.tc_enc_trace.restype = None
+    lib.tc_enc_trace.argtypes = [ctypes.c_int32]
+    lib.tc_enc_counters.restype = None
+    lib.tc_enc_counters.argtypes = [ctypes.c_void_p]
+    lib.tc_enc_wpp_read.restype = ctypes.c_int32
+    lib.tc_enc_wpp_read.argtypes = [ctypes.c_void_p]
     lib.tc_enc_ctu.restype = ctypes.c_double
     lib.tc_enc_picture.restype = ctypes.c_double
     lib.tc_enc_picture.argtypes = [
@@ -289,6 +297,8 @@ def get_lib():
         return None
     try:
         _LIB = _build_and_load()
+        TRACE.on_switch = _trace_switch
+        _trace_switch(TRACE.on)
     except Exception as e:
         # fall back to the pure-Python path, but never silently: a broken
         # native build otherwise shows up only as a huge slowdown
@@ -301,6 +311,51 @@ def get_lib():
         traceback.print_exc(limit=2, file=sys.stderr)
         _LIB = None
     return _LIB
+
+
+# the phase slots of enc_core.cpp's g_enc_ns (16..23 count events in the
+# profiling build alone)
+ENC_PHASES = (
+    "inter_cu", "smp", "intra_cu", "snap", "full_pel", "subpel",
+    "fwd_xform", "quantize", "rate_est", "pred_full", "pred_luma", "satd",
+    "rank_modes", "intra_nxn", "try_tb", "lowres", None, None, None, None,
+    None, "rdoq", None, None, "dense_me", "analysis", "subpel_planes",
+    "deblock", None, None, None, None)
+_WPP_MAX = 64
+
+
+def _trace_switch(on: bool) -> None:
+    """The native timers follow the trace: cleared when it starts
+    recording, reading the clock only while it records."""
+    if on:
+        scratch = np.zeros(2 * _WPP_MAX, np.int64)
+        _LIB.tc_enc_counters(scratch.ctypes.data)
+        _LIB.tc_enc_wpp_read(scratch.ctypes.data)
+    _LIB.tc_enc_trace(int(on))
+
+
+def count_enc_phases() -> None:
+    """Move the native phase timers' thread-ns since the last read into
+    the trace, as enc.native.<phase>_ns of the thread's picture."""
+    if not TRACE.on or _LIB is None:
+        return
+    ns = np.zeros(32, np.int64)
+    _LIB.tc_enc_counters(ns.ctypes.data)
+    for name, v in zip(ENC_PHASES, ns.tolist()):
+        if name and v:
+            TRACE.count(f"enc.native.{name}_ns", v)
+
+
+def _count_wpp() -> None:
+    """The last CTU walk's row threads into the trace: their count and,
+    summed over them, ns inside decide_cqt and ns waiting on the row
+    above."""
+    ns = np.zeros((_WPP_MAX, 2), np.int64)
+    threads = _LIB.tc_enc_wpp_read(ns.ctypes.data)
+    if threads:
+        TRACE.count("enc.wpp.threads", threads)
+        TRACE.count("enc.wpp.ctu_ns", int(ns[:, 0].sum()))
+        TRACE.count("enc.wpp.wait_ns", int(ns[:, 1].sum()))
 
 
 _NUMCTX = None
@@ -1216,9 +1271,13 @@ class EncNative:
         frac = np.zeros(n, np.int64)
         self.lib.tc_enc_set_frac_out(ctypes.c_void_p(frac.ctypes.data))
         try:
-            cost = self.lib.tc_enc_picture(
-                ctx, self.ids.ctypes.data, qp3.ctypes.data, lam3.ctypes.data,
-                wpp, snap_rx, init_states, enc_threads())
+            with TRACE.span("enc.ctu_walk"):
+                cost = self.lib.tc_enc_picture(
+                    ctx, self.ids.ctypes.data, qp3.ctypes.data,
+                    lam3.ctypes.data, wpp, snap_rx, init_states,
+                    enc_threads())
+            if TRACE.on:
+                _count_wpp()
         finally:
             self.lib.tc_enc_set_frac_out(None)
         if cost < 0:

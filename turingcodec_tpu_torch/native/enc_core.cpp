@@ -57,12 +57,28 @@ static inline int64_t now_ns() {
     clock_gettime(CLOCK_MONOTONIC, &t);
     return (int64_t)t.tv_sec * 1000000000 + t.tv_nsec;
 }
+// the port's trace records (utils/profiler.py, tc_enc_trace): the phase
+// timers and the WPP walk's per-thread timers read the clock only then;
+// the profiling build times always
+static std::atomic<int> g_trace_on{0};
+static inline bool trace_on() {
+#ifdef TC_ENC_PROF
+    return true;
+#else
+    return g_trace_on.load(std::memory_order_relaxed) != 0;
+#endif
+}
+extern "C" void tc_enc_trace(int32_t on) {
+    g_trace_on.store(on, std::memory_order_relaxed);
+}
+extern "C" int32_t tc_enc_trace_on() { return trace_on(); }
 struct PhaseTimer {
     int i;
     int64_t t0;
-    PhaseTimer(int idx) : i(idx), t0(now_ns()) {}
+    PhaseTimer(int idx) : i(idx), t0(trace_on() ? now_ns() : -1) {}
     ~PhaseTimer() {
-        g_enc_ns[i].fetch_add(now_ns() - t0, std::memory_order_relaxed);
+        if (t0 >= 0)
+            g_enc_ns[i].fetch_add(now_ns() - t0, std::memory_order_relaxed);
     }
 };
 // leaf-kernel timers: clock_gettime in the per-block kernels costs ~5-8% of
@@ -85,6 +101,27 @@ extern "C" void tc_enc_counters(int64_t* out) {  // out: int64[32]
 extern "C" void tc_enc_add_ns(int32_t slot, int64_t ns) {
     if (slot >= 0 && slot < 32)
         g_enc_ns[slot].fetch_add(ns, std::memory_order_relaxed);
+}
+// the CTU walk's threads while the trace records: per row thread, ns
+// inside decide_cqt and ns waiting on the row above, summed since the
+// last tc_enc_wpp_read; and the thread count of the last walk
+constexpr int WPP_MAX = 64;
+static std::atomic<int64_t> g_wpp_ns[WPP_MAX][2];
+static std::atomic<int32_t> g_wpp_threads{0};
+static void wpp_add(int tid, int64_t ctu_ns, int64_t wait_ns) {
+    if (tid < WPP_MAX) {
+        g_wpp_ns[tid][0].fetch_add(ctu_ns, std::memory_order_relaxed);
+        g_wpp_ns[tid][1].fetch_add(wait_ns, std::memory_order_relaxed);
+    }
+}
+// out: int64[2 * WPP_MAX], (ctu ns, wait ns) per thread, then zeroed;
+// returns the last walk's thread count (0: no walk timed since)
+extern "C" int32_t tc_enc_wpp_read(int64_t* out) {
+    for (int t = 0; t < WPP_MAX; t++)
+        for (int k = 0; k < 2; k++)
+            out[2 * t + k] =
+                g_wpp_ns[t][k].exchange(0, std::memory_order_relaxed);
+    return g_wpp_threads.exchange(0, std::memory_order_relaxed);
 }
 
 namespace {
@@ -6566,9 +6603,13 @@ double enc_picture_mt(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
     std::vector<double> ctu_cost((size_t)wc * hc, 0.0);
     std::atomic<int> err{0};
 
+    const bool timed = trace_on();
+    if (timed)
+        g_wpp_threads.store(T, std::memory_order_relaxed);
     auto worker = [&](int tid) {
         alignas(64) uint8_t myctx[512];
         int32_t myids[3];
+        int64_t ctu_ns = 0, wait_ns = 0;
         for (int ry = tid; ry < hc; ry += T) {
             if (ry == 0)
                 std::memcpy(myctx, ctx, nctx);
@@ -6579,12 +6620,17 @@ double enc_picture_mt(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
             for (int rx = 0; rx < wc; rx++) {
                 if (ry > 0) {
                     const int need = std::min(wc, rx + 2);
+                    int64_t w0 = 0;
                     while (prog[ry - 1].done.load(std::memory_order_acquire)
                            < need) {
                         if (err.load(std::memory_order_relaxed))
                             return;
+                        if (timed && !w0)
+                            w0 = now_ns();
                         std::this_thread::yield();
                     }
+                    if (w0)
+                        wait_ns += now_ns() - w0;
                     if (rx == 0)  // WPP inheritance from the row above
                         std::memcpy(myctx, snaps[ry - 1].data(), nctx);
                 }
@@ -6599,9 +6645,12 @@ double enc_picture_mt(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
                 myids[0] = myids[1] = myids[2] = (int32_t)(i * 512);
                 cur.err = 0;
                 cur.ctu_frac = 0;
+                const int64_t c0 = timed ? now_ns() : 0;
                 ctu_cost[i] = decide_cqt(rx << g_sp.ctb_log2,
                                          ry << g_sp.ctb_log2,
                                          g_sp.ctb_log2, 0);
+                if (timed)
+                    ctu_ns += now_ns() - c0;
                 if (en.frac_out)
                     en.frac_out[i] = cur.ctu_frac;
                 if (cur.err) {
@@ -6620,6 +6669,8 @@ double enc_picture_mt(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
             if (ry == hc - 1)  // caller continues from the last row's state
                 std::memcpy(ctx, myctx, nctx);
         }
+        if (timed)
+            wpp_add(tid, ctu_ns, wait_ns);
     };
 
     std::vector<std::thread> threads;
@@ -7057,6 +7108,10 @@ double tc_enc_picture(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
     static thread_local uint8_t snap_ctx[512];
     bool have_snap = false;
     double total = 0.0;
+    const bool timed = trace_on();
+    if (timed)
+        g_wpp_threads.store(1, std::memory_order_relaxed);
+    int64_t ctu_ns = 0;
     for (int ry = 0; ry < hc; ry++) {
         ovl_wait_row(ry);
         for (int rx = 0; rx < wc; rx++) {
@@ -7075,8 +7130,11 @@ double tc_enc_picture(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
             cur.lam_bits = lam3[i * 3 + 1];
             cur.lam_me = lam3[i * 3 + 2];
             cur.ctu_frac = 0;
+            const int64_t c0 = timed ? now_ns() : 0;
             total += decide_cqt(rx << g_sp.ctb_log2, ry << g_sp.ctb_log2,
                                 g_sp.ctb_log2, 0);
+            if (timed)
+                ctu_ns += now_ns() - c0;
             if (en.frac_out)
                 en.frac_out[i] = cur.ctu_frac;
             if (cur.err)
@@ -7089,6 +7147,8 @@ double tc_enc_picture(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
         if (en.ovl.self_rows)
             ovl_publish(en.ovl.self_rows, ry + 1);
     }
+    if (timed)
+        wpp_add(0, ctu_ns, 0);
     return total;
 }
 

@@ -655,14 +655,20 @@ int tc_deblock(const int64_t* ptrs, const int32_t* ip,
     db.cb_off = cb_off;
     db.cr_off = cr_off;
     db.across_tiles = across_tiles;
+    // timed into the encoder's phase slot 27 while the trace records
+    extern int32_t tc_enc_trace_on();
+    extern void tc_enc_add_ns(int32_t, int64_t);
+    const bool timed = tc_enc_trace_on();
     struct timespec t0, t1;
-    clock_gettime(CLOCK_MONOTONIC, &t0);
+    if (timed)
+        clock_gettime(CLOCK_MONOTONIC, &t0);
     deblock_dir(true, vy0, vy1);
     deblock_dir(false, ey0, ey1);
-    clock_gettime(CLOCK_MONOTONIC, &t1);
-    extern void tc_enc_add_ns(int32_t, int64_t);
-    tc_enc_add_ns(27, (t1.tv_sec - t0.tv_sec) * 1000000000LL
-                      + (t1.tv_nsec - t0.tv_nsec));
+    if (timed) {
+        clock_gettime(CLOCK_MONOTONIC, &t1);
+        tc_enc_add_ns(27, (t1.tv_sec - t0.tv_sec) * 1000000000LL
+                          + (t1.tv_nsec - t0.tv_nsec));
+    }
     return 0;
 }
 

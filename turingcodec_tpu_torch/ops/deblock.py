@@ -413,7 +413,7 @@ def deblock_frames(ry, rcb, rcr, maps, sl, ctb_log2, bd_y, bd_c,
     return tuple(out)
 
 
-def plan_tensors(plan, geom, device):
+def plan_tensors(plan, geom, device, span=None):
     """The plan's per-block maps and per-slice parameters on `device` (one
     packed upload, from pinned memory on a card), and whether filtering
     crosses tile boundaries: deblock_device's (maps, sl, across_tiles)
@@ -435,17 +435,19 @@ def plan_tensors(plan, geom, device):
                       for sh in shs], np.int32),
           np.asarray([pps.pps_cr_qp_offset + sh.slice_cr_qp_offset
                       for sh in shs], np.int32))
-    up = kernel_build.upload_packed(maps + sl, device)
+    up = kernel_build.upload_packed(maps + sl, device, span)
     across_tiles = (bool(pps.loop_filter_across_tiles_enabled_flag)
                     or geom.num_tiles == 1)
     return tuple(up[:11]), tuple(up[11:]), across_tiles
 
 
-def deblock_planes_device(plan, geom, planes):
+def deblock_planes_device(plan, geom, planes, span=None):
     """deblock_device over a plan for [y, cb, cr] device tensors (the
-    chained pipeline's deblock); returns the new planes as a list."""
+    chained pipeline's deblock); returns the new planes as a list. `span`
+    names the maps' upload in the port's trace (upload_packed)."""
     sps = plan.sps
-    maps, sl, across_tiles = plan_tensors(plan, geom, planes[0].device)
+    maps, sl, across_tiles = plan_tensors(plan, geom, planes[0].device,
+                                          span)
     return list(deblock_device(
         planes[0], planes[1], planes[2], maps, sl, int(sps.ctb_log2_size_y),
         int(sps.bit_depth_y), int(sps.bit_depth_c), across_tiles))

@@ -18,6 +18,7 @@ filter; the SAO edge directions and sign remap).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -25,6 +26,8 @@ import subprocess
 
 import numpy as np
 import torch
+
+from turingcodec_tpu_torch.utils.profiler import TRACE
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -128,25 +131,31 @@ def table(array: np.ndarray, device) -> torch.Tensor:
     return ent[1]
 
 
-def upload_packed(arrays, device) -> list:
+def upload_packed(arrays, device, span=None) -> list:
     """Host arrays as tensors on `device` by one copy: packed at 16-byte
     offsets into one host buffer, pinned for a card (so the copy runs
     asynchronously from page-locked memory), each returned tensor a view of
     its part of the device buffer with the array's type and shape. The
     caching host allocator keeps the pinned buffer from reuse until the
-    copy is done."""
+    copy is done. `span` names the copy in the port's trace: a span of
+    that name, its bytes counted as `<span>.pinned_bytes` (or
+    `.pageable_bytes`) of the caller's picture."""
     device = torch.device(device)
     arrays = [np.ascontiguousarray(a) for a in arrays]
     offsets, total = [], 0
     for a in arrays:
         offsets.append(total)
         total += -(-a.nbytes // 16) * 16
-    host = torch.empty(total, dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-    buf = host.numpy()
-    for a, o in zip(arrays, offsets):
-        buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
-    dev = host.to(device, non_blocking=True)
+    pinned = device.type == "cuda"
+    with TRACE.span(span) if span else contextlib.nullcontext():
+        if span:
+            TRACE.count(f"{span}.{'pinned' if pinned else 'pageable'}_bytes",
+                        total)
+        host = torch.empty(total, dtype=torch.uint8, pin_memory=pinned)
+        buf = host.numpy()
+        for a, o in zip(arrays, offsets):
+            buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+        dev = host.to(device, non_blocking=True)
     return [dev[o:o + a.nbytes].view(torch.from_numpy(a[:0].reshape(-1))
                                      .dtype).view(a.shape)
             for a, o in zip(arrays, offsets)]

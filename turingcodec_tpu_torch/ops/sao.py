@@ -148,7 +148,7 @@ def _tensor(a, device, dtype=None):
                            device=device)
 
 
-def _picture_maps(plan, geom, device):
+def _picture_maps(plan, geom, device, span=None):
     """A picture's SAO maps on `device`, in one packed upload (pinned on a
     card): what every component's call shares (the per-slice across
     flags, the tile flag, the slice, tile and 4x4 skip maps) and each
@@ -180,7 +180,8 @@ def _picture_maps(plan, geom, device):
         np.asarray([[bool(sh.slice_sao_luma_flag) for sh in shs] or [False]]
                    + [[bool(sh.slice_sao_chroma_flag) for sh in shs]
                       or [False]] * 2))
-    maps = dict(zip(names, kernel_build.upload_packed(arrays, device)))
+    maps = dict(zip(names, kernel_build.upload_packed(arrays, device,
+                                                      span)))
     maps["across_tiles"] = across_tiles
     return maps
 
@@ -395,14 +396,16 @@ def sao_picture_frames(planes, ctb, bd_y, bd_c, sao_type, sao_class, sao_off,
                    skip4)
 
 
-def sao_picture_device(plan, geom, deblocked, device, pull=True):
+def sao_picture_device(plan, geom, deblocked, device, pull=True,
+                       span=None):
     """Apply SAO on `device` to [y, cb, cr] (numpy planes or tensors on
     `device`); returns new numpy planes (drop-in for decode/sao.sao_picture)
     or, with pull=False, new tensors left on the device: the chained
     pipeline's mode (decode/device_pipeline.py). One sao_picture_frames
     call for the picture's components (luma alone when monochrome): one
-    kernel launch on the card."""
-    maps = _picture_maps(plan, geom, device)
+    kernel launch on the card. `span` names the maps' upload in the
+    port's trace (upload_packed)."""
+    maps = _picture_maps(plan, geom, device, span)
     n = 3 if plan.sps.chroma_array_type else 1
     res = sao_picture_frames(*sao_picture_args(
         plan, maps, [torch.as_tensor(deblocked[c], device=device)

@@ -2,6 +2,7 @@
 
 Usage: python -m turingcodec_tpu_torch.tools.decode input.hevc [-o out.yuv]
            [--frames N] [--md5 EXPECTED] [--device {none,cpu,cuda}]
+           [--profiler]
 
 Parity reference: the `turing decode` subcommand (turing/decode.cpp:86,
 turing/main.cpp:54-162).
@@ -29,7 +30,13 @@ def main(argv=None):
                          "(raises without a GPU), none = host path, cpu = "
                          "the same pipeline through the kernels' plain "
                          "torch versions")
+    ap.add_argument("--profiler", action="store_true",
+                    help="record the trace's spans and counters and print "
+                         "its per-span summary at exit")
     args = ap.parse_args(argv)
+    if args.profiler:
+        from turingcodec_tpu_torch.utils.profiler import TRACE
+        TRACE.forced = True
 
     from turingcodec_tpu_torch.decode.decoder import decode_to_yuv
 
@@ -42,6 +49,8 @@ def main(argv=None):
     if not args.no_progress:
         print(f"decoded {n} frames in {dt:.1f}s ({n / dt:.2f} fps)  "
               f"md5 {digest}", file=sys.stderr)
+    if args.profiler:
+        print(TRACE.report(), file=sys.stderr)
     if args.md5 is not None:
         if digest != args.md5.lower():
             print(f"MD5 MISMATCH: got {digest}, want {args.md5}",

@@ -2,7 +2,7 @@
 
 Usage: python -m turingcodec_tpu_torch.tools.encode in.yuv --input-res WxH
            [-o out.hevc] [--qp N] [--frames N] [--dump-frames recon.yuv]
-           [--device {none,cpu,cuda}]
+           [--device {none,cpu,cuda}] [--profiler]
 
 Parity reference: the `turing encode` subcommand (turing/encode.cpp).
 """
@@ -79,7 +79,13 @@ def main(argv=None):
                          "(raises without a GPU), none = host path, cpu = "
                          "the same stage through the kernels' plain "
                          "torch versions")
+    ap.add_argument("--profiler", action="store_true",
+                    help="record the trace's spans and counters and print "
+                         "its per-span summary at exit")
     args = ap.parse_args(argv)
+    if args.profiler:
+        from turingcodec_tpu_torch.utils.profiler import TRACE
+        TRACE.forced = True
 
     import numpy as np
 
@@ -159,6 +165,8 @@ def main(argv=None):
         dt = time.time() - t0
         print(f"encoded {total} frames, {nbytes} bytes, {dt:.1f}s",
               file=sys.stderr)
+    if args.profiler:
+        print(TRACE.report(), file=sys.stderr)
     return 0
 
 
