@@ -160,23 +160,46 @@ def _encode(raw, n_frames, **cfg):
     return hashlib.md5(bs).hexdigest(), md5
 
 
-def test_wpp_row_threads_bit_identical(lib, monkeypatch):
+def _wpp_raw(w, h, n_frames):
+    """Textured luma moving by (2, 3) samples a frame, with noise, and
+    noisy chroma."""
+    rng = np.random.default_rng(7)
+    base = rng.integers(0, 256, (h, w), np.int32)
+    return _yuv([np.roll(base, (2 * i, 3 * i), (0, 1))
+                 + rng.integers(-4, 5, (h, w)) for i in range(n_frames)],
+                w, h, lambda i: rng.integers(100, 156, (h // 2, w // 2)))
+
+
+_WPP_SEQUENTIAL = {}
+
+
+def _wpp_encode(monkeypatch, w, h, ctb_log2, threads):
+    """An IDR and 3 P pictures coded with `threads` row threads: the
+    stream's MD5 and the reconstruction's."""
+    n_frames = 4
+    monkeypatch.setenv("TURING_TPU_ENC_THREADS", str(threads))
+    return _encode(_wpp_raw(w, h, n_frames), n_frames, width=w, height=h,
+                   ctb_log2=ctb_log2, qp=30, rd_candidates=1,
+                   search_range=32, sdh=False)
+
+
+@pytest.mark.parametrize("w, h, ctb_log2, threads", [
+    (192, 192, 6, 3),     # 3x3 CTUs: a row for every thread
+    (192, 448, 6, 2), (192, 448, 6, 3), (192, 448, 6, 4),  # 7 rows
+    (192, 192, 5, 2), (192, 192, 5, 3), (192, 192, 5, 4),  # 6 rows
+    (192, 448, 5, 12),    # 14 rows, more threads than the cores
+])
+def test_wpp_row_threads_bit_identical(lib, monkeypatch, w, h, ctb_log2,
+                                       threads):
     """Wavefront row threads (tc_enc_picture with nthreads > 1) give the
     bitstream and reconstruction of the sequential walk, as the reference's
-    signature rows share one hash across thread counts."""
-    rng = np.random.default_rng(7)
-    w, h, n_frames = 192, 192, 4     # 3x3 CTUs: a real wavefront
-    base = rng.integers(0, 256, (h, w), np.int32)
-    raw = _yuv([np.roll(base, (2 * i, 3 * i), (0, 1))
-                + rng.integers(-4, 5, (h, w)) for i in range(n_frames)],
-               w, h, lambda i: rng.integers(100, 156, (h // 2, w // 2)))
-    cfg = dict(width=w, height=h, qp=30, rd_candidates=1, search_range=32,
-               sdh=False)
-    results = {}
-    for t in (1, 3):
-        monkeypatch.setenv("TURING_TPU_ENC_THREADS", str(t))
-        results[t] = _encode(raw, n_frames, **cfg)
-    assert results[1] == results[3]
+    signature rows share one hash across thread counts. With more rows
+    than threads, rows move between threads at CTU boundaries."""
+    key = (w, h, ctb_log2)
+    if key not in _WPP_SEQUENTIAL:
+        _WPP_SEQUENTIAL[key] = _wpp_encode(monkeypatch, w, h, ctb_log2, 1)
+    assert _wpp_encode(monkeypatch, w, h, ctb_log2, threads) \
+        == _WPP_SEQUENTIAL[key]
 
 
 def _pan(seed, w, h, n_frames, dy, dx):

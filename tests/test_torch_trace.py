@@ -27,7 +27,7 @@ SEED = 2**33 + 19
 NEW_METRICS = {
     "enc-ldp1080-motion": ("enc.ctu_walk_ms", "enc.wpp_occupancy",
                            "enc.inter_search_ms", "enc.serial_ms",
-                           "enc.upload_mb"),
+                           "enc.upload_mb", "enc.wpp_switches"),
     "dec-ra1080-motion": ("dec.parse_ms", "dec.stage_host_ms",
                           "dec.transfer_ms", "dec.hash_ms", "dec.upload_mb"),
 }
@@ -221,6 +221,26 @@ def test_wpp_thread_timers_within_the_walk():
     phases = TRACE.summary()["counters"]
     assert phases["enc.native.inter_cu_ns"]["total"] > 0
     assert phases["enc.native.intra_cu_ns"]["total"] > 0
+
+
+def test_wpp_switches_counted_per_picture():
+    """With 2 row threads over 4 CTU rows, rows may move between threads
+    at CTU boundaries: every picture counts its moves, at most one per
+    CTU, and the occupancy stays a share of the walk."""
+    TRACE.forced = True
+    native.set_thread_enc_threads(2)
+    try:
+        _encode(256, 256, 3)
+    finally:
+        native.set_thread_enc_threads(None)
+    walk = TRACE.durations("enc.ctu_walk")
+    switches = TRACE.counter("enc.wpp.switches")
+    assert len(walk) == 3 and set(switches) == set(walk)
+    assert all(0 <= v <= 4 * 4 for v in switches.values())
+    assert harness.metric_reader("enc.wpp_switches")(None) \
+        == sum(switches.values()) / 3
+    occupancy = harness.metric_reader("enc.wpp_occupancy")(None)
+    assert 0 < occupancy <= 100
 
 
 def test_byte_counters_equal_the_planes_sizes():

@@ -328,7 +328,7 @@ def _trace_switch(on: bool) -> None:
     """The native timers follow the trace: cleared when it starts
     recording, reading the clock only while it records."""
     if on:
-        scratch = np.zeros(2 * _WPP_MAX, np.int64)
+        scratch = np.zeros(2 * _WPP_MAX + 1, np.int64)
         _LIB.tc_enc_counters(scratch.ctypes.data)
         _LIB.tc_enc_wpp_read(scratch.ctypes.data)
     _LIB.tc_enc_trace(int(on))
@@ -347,15 +347,17 @@ def count_enc_phases() -> None:
 
 
 def _count_wpp() -> None:
-    """The last CTU walk's row threads into the trace: their count and,
-    summed over them, ns inside decide_cqt and ns waiting on the row
-    above."""
-    ns = np.zeros((_WPP_MAX, 2), np.int64)
-    threads = _LIB.tc_enc_wpp_read(ns.ctypes.data)
+    """The last CTU walk's row threads into the trace: their count,
+    summed over them ns inside decide_cqt and ns waiting for a ready
+    row, and the times a thread took up a row another had left."""
+    out = np.zeros(2 * _WPP_MAX + 1, np.int64)
+    threads = _LIB.tc_enc_wpp_read(out.ctypes.data)
     if threads:
+        ns = out[:-1].reshape(_WPP_MAX, 2)
         TRACE.count("enc.wpp.threads", threads)
         TRACE.count("enc.wpp.ctu_ns", int(ns[:, 0].sum()))
         TRACE.count("enc.wpp.wait_ns", int(ns[:, 1].sum()))
+        TRACE.count("enc.wpp.switches", int(out[-1]))
 
 
 _NUMCTX = None

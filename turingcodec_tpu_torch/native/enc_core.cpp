@@ -103,24 +103,31 @@ extern "C" void tc_enc_add_ns(int32_t slot, int64_t ns) {
         g_enc_ns[slot].fetch_add(ns, std::memory_order_relaxed);
 }
 // the CTU walk's threads while the trace records: per row thread, ns
-// inside decide_cqt and ns waiting on the row above, summed since the
-// last tc_enc_wpp_read; and the thread count of the last walk
+// inside decide_cqt and ns waiting for a ready row, summed since the
+// last tc_enc_wpp_read; the row switches (a thread taking up a row that
+// another thread left after coding some of its CTUs) summed likewise;
+// and the thread count of the last walk
 constexpr int WPP_MAX = 64;
 static std::atomic<int64_t> g_wpp_ns[WPP_MAX][2];
+static std::atomic<int64_t> g_wpp_switches{0};
 static std::atomic<int32_t> g_wpp_threads{0};
-static void wpp_add(int tid, int64_t ctu_ns, int64_t wait_ns) {
+static void wpp_add(int tid, int64_t ctu_ns, int64_t wait_ns,
+                    int64_t switches) {
     if (tid < WPP_MAX) {
         g_wpp_ns[tid][0].fetch_add(ctu_ns, std::memory_order_relaxed);
         g_wpp_ns[tid][1].fetch_add(wait_ns, std::memory_order_relaxed);
     }
+    g_wpp_switches.fetch_add(switches, std::memory_order_relaxed);
 }
-// out: int64[2 * WPP_MAX], (ctu ns, wait ns) per thread, then zeroed;
-// returns the last walk's thread count (0: no walk timed since)
+// out: int64[2 * WPP_MAX + 1], (ctu ns, wait ns) per thread, then the
+// switches, all then zeroed; returns the last walk's thread count (0: no
+// walk timed since)
 extern "C" int32_t tc_enc_wpp_read(int64_t* out) {
     for (int t = 0; t < WPP_MAX; t++)
         for (int k = 0; k < 2; k++)
             out[2 * t + k] =
                 g_wpp_ns[t][k].exchange(0, std::memory_order_relaxed);
+    out[2 * WPP_MAX] = g_wpp_switches.exchange(0, std::memory_order_relaxed);
     return g_wpp_threads.exchange(0, std::memory_order_relaxed);
 }
 
@@ -267,28 +274,36 @@ static inline int ovl_hc() {
     return (g_sp.pic_h + (1 << g_sp.ctb_log2) - 1) >> g_sp.ctb_log2;
 }
 
-// Block until every reference picture has published enough FINAL
+// Whether every reference picture has published enough FINAL
 // (loop-filtered) CTU rows for this picture's row ry: the y-clamp lets
 // row ry's search/merge reach at most into the refs' first ry+4 rows.
-static void ovl_wait_row(int ry) {
+static bool ovl_row_ready(int ry) {
     if (!en.ovl.active)
-        return;
+        return true;
     const int64_t need = std::min(ry + 4, ovl_hc());
     for (int l = 0; l < 2; l++)
         for (int r = 0; r < 16; r++) {
             const volatile int64_t* p = en.ovl.ref_rows[l][r];
-            if (!p)
-                continue;
-            int spins = 0;
-            while (__atomic_load_n(p, __ATOMIC_ACQUIRE) < need) {
-                if (++spins < 64) {
-                    std::this_thread::yield();
-                } else {
-                    struct timespec ts = {0, 200000};  // 0.2 ms
-                    nanosleep(&ts, nullptr);
-                }
-            }
+            if (p && __atomic_load_n(p, __ATOMIC_ACQUIRE) < need)
+                return false;
         }
+    return true;
+}
+
+// yield, then sleep 0.2 ms once a wait has spun 64 times
+static void ovl_backoff(int& spins) {
+    if (++spins < 64) {
+        std::this_thread::yield();
+    } else {
+        struct timespec ts = {0, 200000};
+        nanosleep(&ts, nullptr);
+    }
+}
+
+static void ovl_wait_row(int ry) {
+    int spins = 0;
+    while (!ovl_row_ready(ry))
+        ovl_backoff(spins);
 }
 
 // set when both bit depths are 8: every satd_region input is then in
@@ -833,10 +848,11 @@ static void lowres_prepass(int nthreads) {
 }
 
 // Per-CTU mutable state. thread_local so WPP rows can run on independent
-// threads (tc_enc_picture nthreads>1): each row thread owns its own CABAC
-// rate contexts, id counters, and lambda/QP operating point — the analogue
-// of the reference's one-TaskEncodeSubstream-per-row state
-// (TaskEncodeSubstream.cpp:151).
+// threads (tc_enc_picture nthreads>1): each row thread codes with its own
+// id counters and lambda/QP operating point, and with the CABAC rate
+// contexts and ME seed of the row it holds (kept in the row's record,
+// WppRow, while no thread holds it) — the analogue of the reference's
+// one-TaskEncodeSubstream-per-row state (TaskEncodeSubstream.cpp:151).
 struct EnCur {
     uint8_t* ctx;
     int32_t* ids;   // [cu, pu, tu]
@@ -847,8 +863,9 @@ struct EnCur {
     // equals the writer's estimate re-walk exactly (checkRate invariant)
     int64_t ctu_frac;
     // last 2Nx2N integer-search best (quarter-pel), per list — ME seed
-    // (Search.hpp mvPreviousInteger2Nx2N); reset per CTU row so results
-    // are identical at any WPP thread count
+    // (Search.hpp mvPreviousInteger2Nx2N); reset per CTU row and carried
+    // with the row between threads, so results are identical at any WPP
+    // thread count
     int prev_int_mv[2][2];
     int prev_int_valid[2];
 };
@@ -6574,23 +6591,33 @@ void sao_apply(uint8_t* sao_type, uint8_t* sao_class, int8_t* sao_offsets,
 
 // ------------------------------------------------- wavefront row threading
 // The TaskEncodeSubstream analogue (reference TaskEncodeSubstream.cpp:55-184,
-// SURVEY §2.7 axis 1): one logical task per CTU row, scheduled round-robin
-// over nthreads OS threads with the standard WPP wavefront lag — CTU
-// (rx, ry) may start once the row above has finished CTU rx+1 (top-right
-// neighbour rule, TaskEncodeSubstream.cpp:62-69). Decisions are
-// bit-identical to the sequential walk: the rate contexts evolve per row
-// exactly as WPP inheritance dictates, and every cross-row read (intra
-// reference samples, merge/AMVP neighbours, ct_depth pruning) stays behind
-// the wavefront. Only the cu/pu/tu id numbering differs (per-CTU bases);
-// ids are only ever compared for equality across block edges, so the
-// bitstream and reconstruction are byte-identical with the 1-thread walk
-// (asserted in tests/test_native.py).
-struct RowProgress {
-    std::atomic<int> done{0};
-    char pad[64 - sizeof(std::atomic<int>)];  // avoid false sharing
+// SURVEY §2.7 axis 1): one logical task per CTU row, taken up by any of
+// nthreads OS threads at a CTU boundary, with the standard WPP wavefront
+// lag — CTU (rx, ry) may start once the row above has finished CTU rx+1
+// (top-right neighbour rule, TaskEncodeSubstream.cpp:62-69). After each
+// CTU a thread takes the ready row with the longest remaining critical
+// path, 2*(hc-1-ry) + (wc-rx) CTUs, ties to the upper row; its own row is
+// a candidate. So the rows below the first nthreads start while the upper
+// ones still run, and a thread whose row waits on the row above codes
+// another. Where threads >= rows every row keeps one thread throughout.
+// Decisions are bit-identical to the sequential walk: all state a row
+// carries from one CTU to the next (its rate contexts, the row-local ME
+// seed) lives in the row's record, not in the thread; the rate contexts
+// evolve per row exactly as WPP inheritance dictates, and every cross-row
+// read (intra reference samples, merge/AMVP neighbours, ct_depth pruning)
+// stays behind the wavefront. Only the cu/pu/tu id numbering differs
+// (per-CTU bases); ids are only ever compared for equality across block
+// edges, so the bitstream and reconstruction are byte-identical with the
+// 1-thread walk at any thread count (asserted in tests/test_native.py and
+// tests/test_torch_native.py).
+struct alignas(64) WppRow {
+    std::atomic<int> done{0};     // CTUs coded, published after each
+    std::atomic<int> holder{-1};  // the thread that holds the row, or -1
+    int last = -1;                // the thread that coded its last CTU
+    int prev_int_mv[2][2];        // EnCur's row-local ME seed, kept here
+    int prev_int_valid[2] = {0, 0};  // while no thread holds the row
+    alignas(64) uint8_t ctx[512];    // the row's CABAC rate contexts
 };
-
-// optional per-CTU committed-frac output (checkRate invariant harness)
 
 double enc_picture_mt(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
                       const double* lam3, int snap_rx,
@@ -6598,7 +6625,7 @@ double enc_picture_mt(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
                       int hc) {
     const int T = std::min(nthreads, hc);
     const int nctx = en.num_ctx;
-    std::vector<RowProgress> prog(hc);
+    std::vector<WppRow> rows(hc);
     std::vector<std::array<uint8_t, 512>> snaps(hc);
     std::vector<double> ctu_cost((size_t)wc * hc, 0.0);
     std::atomic<int> err{0};
@@ -6606,71 +6633,136 @@ double enc_picture_mt(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
     const bool timed = trace_on();
     if (timed)
         g_wpp_threads.store(T, std::memory_order_relaxed);
-    auto worker = [&](int tid) {
-        alignas(64) uint8_t myctx[512];
-        int32_t myids[3];
-        int64_t ctu_ns = 0, wait_ns = 0;
-        for (int ry = tid; ry < hc; ry += T) {
-            if (ry == 0)
-                std::memcpy(myctx, ctx, nctx);
-            cur.ctx = myctx;
-            cur.ids = myids;
-            cur.prev_int_valid[0] = cur.prev_int_valid[1] = 0;
-            ovl_wait_row(ry);
-            for (int rx = 0; rx < wc; rx++) {
-                if (ry > 0) {
-                    const int need = std::min(wc, rx + 2);
-                    int64_t w0 = 0;
-                    while (prog[ry - 1].done.load(std::memory_order_acquire)
-                           < need) {
-                        if (err.load(std::memory_order_relaxed))
-                            return;
-                        if (timed && !w0)
-                            w0 = now_ns();
-                        std::this_thread::yield();
-                    }
-                    if (w0)
-                        wait_ns += now_ns() - w0;
-                    if (rx == 0)  // WPP inheritance from the row above
-                        std::memcpy(myctx, snaps[ry - 1].data(), nctx);
-                }
-                const int64_t i = (int64_t)ry * wc + rx;
-                cur.qp_full = qp3[i * 3];
-                cur.qp_cb_full = qp3[i * 3 + 1];
-                cur.qp_cr_full = qp3[i * 3 + 2];
-                cur.lam = lam3[i * 3];
-                cur.lam_bits = lam3[i * 3 + 1];
-                cur.lam_me = lam3[i * 3 + 2];
-                // per-CTU id bases keep ids unique without a shared counter
-                myids[0] = myids[1] = myids[2] = (int32_t)(i * 512);
-                cur.err = 0;
-                cur.ctu_frac = 0;
-                const int64_t c0 = timed ? now_ns() : 0;
-                ctu_cost[i] = decide_cqt(rx << g_sp.ctb_log2,
-                                         ry << g_sp.ctb_log2,
-                                         g_sp.ctb_log2, 0);
-                if (timed)
-                    ctu_ns += now_ns() - c0;
-                if (en.frac_out)
-                    en.frac_out[i] = cur.ctu_frac;
-                if (cur.err) {
-                    err.store(1, std::memory_order_relaxed);
-                    return;
-                }
-                if (rx == snap_rx)
-                    std::memcpy(snaps[ry].data(), myctx, nctx);
-                prog[ry].done.store(rx + 1, std::memory_order_release);
+    // whether row r, d CTUs coded, may code its next CTU now
+    auto ready = [&](int r, int d) {
+        if (r > 0
+            && rows[r - 1].done.load(std::memory_order_acquire)
+                   < std::min(wc, d + 2))
+            return false;
+        return d > 0 || ovl_row_ready(r);
+    };
+    // the ready row of highest priority that tid may take (one it holds,
+    // or one nobody holds); -1: none ready now; -2: every row left is
+    // held by another thread, and rows are only left for free ones, so
+    // none will ever be free for tid
+    auto pick = [&](int tid) {
+        int best = -1, best_p = -1;
+        bool open = false;
+        for (int r = 0; r < hc; r++) {
+            const int d = rows[r].done.load(std::memory_order_acquire);
+            if (d >= wc)
+                continue;
+            const int h = rows[r].holder.load(std::memory_order_relaxed);
+            if (h >= 0 && h != tid)
+                continue;
+            open = true;
+            if (!ready(r, d))
+                continue;
+            const int p = 2 * (hc - 1 - r) + (wc - d);
+            if (p > best_p) {
+                best = r;
+                best_p = p;
             }
+        }
+        return best >= 0 ? best : (open ? -1 : -2);
+    };
+    auto worker = [&](int tid) {
+        int32_t myids[3];
+        cur.ids = myids;
+        int64_t ctu_ns = 0, wait_ns = 0, switches = 0, w0 = 0;
+        int own = -1, spins = 0;
+        while (!err.load(std::memory_order_relaxed)) {
+            const int ry = pick(tid);
+            if (ry == -2)
+                break;
+            if (ry < 0) {
+                if (timed && !w0)
+                    w0 = now_ns();
+                if (en.ovl.active)
+                    ovl_backoff(spins);
+                else
+                    std::this_thread::yield();
+                continue;
+            }
+            if (ry != own) {
+                int none = -1;
+                if (!rows[ry].holder.compare_exchange_strong(
+                        none, tid, std::memory_order_acquire))
+                    continue;  // another thread took it first
+                if (own >= 0) {
+                    WppRow& o = rows[own];
+                    std::memcpy(o.prev_int_mv, cur.prev_int_mv,
+                                sizeof(o.prev_int_mv));
+                    std::memcpy(o.prev_int_valid, cur.prev_int_valid,
+                                sizeof(o.prev_int_valid));
+                    o.holder.store(-1, std::memory_order_release);
+                }
+                WppRow& n = rows[ry];
+                std::memcpy(cur.prev_int_mv, n.prev_int_mv,
+                            sizeof(n.prev_int_mv));
+                std::memcpy(cur.prev_int_valid, n.prev_int_valid,
+                            sizeof(n.prev_int_valid));
+                cur.ctx = n.ctx;
+                if (n.last >= 0 && n.last != tid)
+                    switches++;
+                own = ry;
+            }
+            WppRow& row = rows[ry];
+            // another thread may have coded the row on between the pick
+            // and the take
+            const int rx = row.done.load(std::memory_order_relaxed);
+            if (rx >= wc || !ready(ry, rx))
+                continue;
+            if (w0) {
+                wait_ns += now_ns() - w0;
+                w0 = 0;
+            }
+            spins = 0;
+            if (rx == 0)  // row 0 starts from the caller's contexts, the
+                          // others by WPP inheritance from the row above
+                std::memcpy(row.ctx, ry ? snaps[ry - 1].data() : ctx, nctx);
+            const int64_t i = (int64_t)ry * wc + rx;
+            cur.qp_full = qp3[i * 3];
+            cur.qp_cb_full = qp3[i * 3 + 1];
+            cur.qp_cr_full = qp3[i * 3 + 2];
+            cur.lam = lam3[i * 3];
+            cur.lam_bits = lam3[i * 3 + 1];
+            cur.lam_me = lam3[i * 3 + 2];
+            // per-CTU id bases keep ids unique without a shared counter
+            myids[0] = myids[1] = myids[2] = (int32_t)(i * 512);
+            cur.err = 0;
+            cur.ctu_frac = 0;
+            const int64_t c0 = timed ? now_ns() : 0;
+            ctu_cost[i] = decide_cqt(rx << g_sp.ctb_log2,
+                                     ry << g_sp.ctb_log2, g_sp.ctb_log2, 0);
+            if (timed)
+                ctu_ns += now_ns() - c0;
+            if (en.frac_out)
+                en.frac_out[i] = cur.ctu_frac;
+            if (cur.err) {
+                err.store(1, std::memory_order_relaxed);
+                break;
+            }
+            if (rx == snap_rx)
+                std::memcpy(snaps[ry].data(), row.ctx, nctx);
+            row.last = tid;
+            row.done.store(rx + 1, std::memory_order_release);
+            if (rx + 1 < wc)
+                continue;
             // rows complete in order (the WPP top-right rule transitively
             // requires row ry-1 done before row ry's last CTU); publish
             // via CAS-max since the stores race across row threads
             if (en.ovl.self_rows)
                 ovl_publish(en.ovl.self_rows, ry + 1);
             if (ry == hc - 1)  // caller continues from the last row's state
-                std::memcpy(ctx, myctx, nctx);
+                std::memcpy(ctx, row.ctx, nctx);
+            row.holder.store(-1, std::memory_order_release);
+            own = -1;
         }
+        if (w0)
+            wait_ns += now_ns() - w0;
         if (timed)
-            wpp_add(tid, ctu_ns, wait_ns);
+            wpp_add(tid, ctu_ns, wait_ns, switches);
     };
 
     std::vector<std::thread> threads;
@@ -7148,7 +7240,7 @@ double tc_enc_picture(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
             ovl_publish(en.ovl.self_rows, ry + 1);
     }
     if (timed)
-        wpp_add(0, ctu_ns, 0);
+        wpp_add(0, ctu_ns, 0, 0);
     return total;
 }
 
