@@ -52,6 +52,8 @@ from hevc_bench.reference import decode as ref_decode
 from hevc_bench.reference import stream as ref_stream
 
 KERNELS = ("mc_block_grid", "dequant_idct", "deblock", "sao")
+# the end-to-end metrics end_to_end() measures, beside setup_s
+END_TO_END = ("decode_fps", "decode_p95_ms")
 DP = "turingcodec_tpu_torch.decode.device_pipeline"
 CACHE = os.path.join(BENCH, "cache")
 # the reference check's sample: an IDR and this many other pictures, in

@@ -41,6 +41,8 @@ from hevc_bench.reference import distortion as ref_distortion
 from hevc_bench.reference import stream as ref_stream
 
 KERNELS = ("seed_field", "dense_me", "subpel_planes", "rank_satd")
+# the end-to-end metrics end_to_end() measures, beside setup_s
+END_TO_END = ("encode_fps",)
 # the kernels a run launches: the analysis stage's and the witness decode's
 BUILD = KERNELS + ("mc_block_grid", "dequant_idct", "deblock", "sao")
 DA = "turingcodec_tpu_torch.encode.device_analysis"

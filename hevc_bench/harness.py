@@ -73,13 +73,22 @@ def bounds_module(kernel: str):
 
 
 def cell_metrics(spec: dict, workload: str, trace: bool) -> list:
-    """The metric entries a run of this cell reports: its end-to-end
-    metrics with trace 0, its per-layer metrics with trace 1."""
+    """The metric entries a run of this cell reports: with trace 1 the
+    per-layer metrics whose `workloads` list it; with trace 0 the
+    end-to-end metrics whose `workloads` list it, and those with no list,
+    which every cell reports. Raises ValueError where the cell is given an
+    end-to-end metric other than setup_s that its driver does not declare
+    in END_TO_END, which no run of it could report."""
+    if trace:
+        return [m for m in spec["per_layer"] if workload in m["workloads"]]
     e2e = [m for m in spec["end_to_end"]
-           if "workloads" not in m or workload in m["workloads"]]
-    if not trace:
-        return e2e
-    return [m for m in spec["per_layer"] if workload in m["workloads"]]
+           if workload in m.get("workloads", [workload])]
+    declared = set(driver_for(workload).END_TO_END) | {"setup_s"}
+    unmeasured = [m["name"] for m in e2e if m["name"] not in declared]
+    if unmeasured:
+        raise ValueError(f"{workload}: its driver measures none of "
+                         f"{unmeasured}")
+    return e2e
 
 
 def percentile(values, q: float) -> float:
@@ -326,6 +335,7 @@ def execute(workload: str, seed: int, seconds: float, trace: bool,
     t_start = time.perf_counter() if t_start is None else t_start
     spec = load_spec() if spec is None else spec
     cell, conf, traffic = cell_inputs(spec, workload)
+    wanted = cell_metrics(spec, workload, trace)
     config = conf if config is None else config
     run = Run(cell, config, traffic, seed, seconds, trace,
               torch.device(device))
@@ -357,7 +367,7 @@ def execute(workload: str, seed: int, seconds: float, trace: bool,
     run.info.append(f"checks took {time.perf_counter() - t_check:.3f} s "
                     f"after a window of {seconds} s")
     metrics = {}
-    for m in cell_metrics(spec, workload, trace):
+    for m in wanted:
         if not trace:
             v = setup_s if m["name"] == "setup_s" else drv.end_to_end(
                 run, state, m["name"])
