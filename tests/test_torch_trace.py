@@ -27,7 +27,10 @@ SEED = 2**33 + 19
 NEW_METRICS = {
     "enc-ldp1080-motion": ("enc.ctu_walk_ms", "enc.wpp_occupancy",
                            "enc.inter_search_ms", "enc.serial_ms",
-                           "enc.upload_mb", "enc.wpp_switches"),
+                           "enc.upload_mb", "enc.wpp_switches",
+                           "enc.subpel_install_mb"),
+    "enc-ra1080-motion": ("enc.bi_search_ms", "enc.sao_search_ms",
+                          "enc.batch_occupancy", "enc.subpel_install_mb"),
     "dec-ra1080-motion": ("dec.parse_ms", "dec.stage_host_ms",
                           "dec.transfer_ms", "dec.hash_ms", "dec.upload_mb"),
 }
@@ -62,6 +65,18 @@ def _encode(w, h, n):
     for f in _frames(w, h, n):
         out += enc.push_frame(f)
     return enc.headers() + b"".join(nal for _i, nal, _r in out)
+
+
+def _ra_encode(w, h, n):
+    """A random-access encode (GOP 8, SAO) of n frames, with the
+    frame-parallel batches of two pictures that the hierarchy allows."""
+    enc = Encoder(EncoderConfig(width=w, height=h, qp=32, rd_candidates=1,
+                                search_range=32, gop_m=8, sao=True,
+                                device="cpu"))
+    out = []
+    for f in _frames(w, h, n):
+        out += enc.push_frame(f)
+    return out + enc.flush()
 
 
 def _decode(n=3):
@@ -241,6 +256,136 @@ def test_wpp_switches_counted_per_picture():
         == sum(switches.values()) / 3
     occupancy = harness.metric_reader("enc.wpp_occupancy")(None)
     assert 0 < occupancy <= 100
+
+
+def test_batched_pictures_count_their_own_walks(monkeypatch):
+    """Pictures 1 and 3, and 5 and 7, of a GOP-8 encode walk at once, each
+    on half of the WPP budget of 4 (2 row threads over 4 CTU rows), the
+    others alone on all of it: each picture reads its own walk's thread
+    count and busy time, and the pictures' native phase timers take all
+    the process timed."""
+    monkeypatch.setenv("TURING_TPU_FRAME_THREADS", "2")
+    TRACE.forced = True
+    native.set_thread_enc_threads(4)
+    try:
+        _ra_encode(256, 256, 9)
+    finally:
+        native.set_thread_enc_threads(None)
+    assert native.enc_phase_totals() == [0] * 32
+    walk = TRACE.durations("enc.ctu_walk")
+    threads = TRACE.counter("enc.wpp.threads")
+    busy = TRACE.counter("enc.wpp.ctu_ns")
+    pocs = {r: TRACE.pictures[r][0] for r in walk}
+    assert sorted(pocs.values()) == list(range(9))
+    assert set(threads) == set(busy) == set(walk)
+    for r, poc in pocs.items():
+        assert threads[r] == (2 if poc in (1, 3, 5, 7) else 4), poc
+        assert 0 < busy[r] <= threads[r] * walk[r], poc
+        phase = "enc.native.inter_cu_ns" if poc else "enc.native.intra_cu_ns"
+        assert TRACE.counters[r][phase] > 0, poc
+    # IDR, 8, 4, 2, (1, 3), 6, (5, 7): each batch shares the budget
+    batches = TRACE.durations("enc.batch")
+    assert sorted(TRACE.counter("enc.batch.pictures").values()) == \
+        [1] * 5 + [2] * 2
+    assert set(TRACE.counter("enc.batch.threads").values()) == {4}
+    assert set(TRACE.counter("enc.batch.pictures")) == set(batches)
+    assert TRACE.summary()["pictures"] == 9
+    occupancy = harness.metric_reader("enc.batch_occupancy")(None)
+    assert occupancy == pytest.approx(100.0 * sum(busy.values()) / sum(
+        4 * t for t in batches.values()), rel=1e-12)
+    assert 0 < occupancy <= 100
+
+
+def test_b_pictures_time_bi_prediction_sao_and_the_subpel_install():
+    TRACE.forced = True
+    w, h = 192, 128
+    _ra_encode(w, h, 9)
+    sao = TRACE.durations("enc.sao_search")
+    pics = {r: p[0] for r, p in TRACE.pictures.items()}
+    assert sorted(pics.values()) == list(range(9))
+    for r, poc in pics.items():
+        c = TRACE.counters[r]
+        assert sao[r] > 0
+        if poc == 0:
+            assert "enc.native.bi_refine_ns" not in c
+            assert "enc.subpel.install_bytes" not in c
+            continue
+        assert 0 < c["enc.native.bi_refine_ns"] < c["enc.native.inter_cu_ns"]
+        # 15 int16 planes of the reference padded by 28, for each list
+        assert c["enc.subpel.install_bytes"] == \
+            2 * 15 * (h + 56) * (w + 56) * 2
+    summary = TRACE.summary()
+    read = harness.metric_reader
+
+    def same(v):  # the readers' order of operations, to the last bit
+        return pytest.approx(v, rel=1e-12)
+
+    assert read("enc.bi_search_ms")(None) == same(
+        summary["counters"]["enc.native.bi_refine_ns"]["total"] / 9 / 1e6)
+    assert read("enc.sao_search_ms")(None) == same(
+        summary["spans"]["enc.sao_search"]["total_ns"] / 9 / 1e6)
+    assert read("enc.subpel_install_mb")(None) == same(
+        8 * 2 * 15 * (h + 56) * (w + 56) * 2 / 9 / 1e6)
+
+
+def test_overlap_follower_counts_into_its_pictures(monkeypatch):
+    """Under inter-picture overlap the follower thread deblocks and
+    estimates SAO behind each picture's search: its spans and its native
+    loop-filter timer belong to the picture whose rows it filters."""
+    monkeypatch.setenv("TURING_TPU_FRAME_THREADS", "4")
+    TRACE.forced = True
+    enc = Encoder(EncoderConfig(width=192, height=128, qp=32,
+                                rd_candidates=1, search_range=32, gop_m=1,
+                                sao=True, frame_overlap=True, device=None))
+    assert enc._overlap_on()
+    for f in _frames(192, 128, 4):
+        enc.push_frame(f)
+    enc.flush()
+    assert native.enc_phase_totals() == [0] * 32
+    sao = TRACE.durations("enc.sao_search")
+    deblock = TRACE.counter("enc.native.deblock_ns")
+    pics = [r for r, p in TRACE.pictures.items() if p is not None]
+    assert len(pics) == 4 and set(sao) == set(deblock) == set(pics)
+    # one estimate per CTB row (two rows of 64), each inside its picture
+    assert all(sum(1 for s in TRACE.spans if s[0] == "enc.sao_search"
+                   and s[5] == r) == 2 for r in pics)
+
+
+# the counters of an LDP encode's inter pictures before frame-parallel
+# batches counted apart, and the two since
+LDP_COUNTERS = {
+    "enc.download.pageable_bytes", "enc.upload.pageable_bytes",
+    "enc.native.deblock_ns", "enc.native.dense_me_ns",
+    "enc.native.full_pel_ns", "enc.native.inter_cu_ns",
+    "enc.native.intra_cu_ns", "enc.native.lowres_ns", "enc.native.snap_ns",
+    "enc.native.subpel_ns", "enc.wpp.ctu_ns", "enc.wpp.switches",
+    "enc.wpp.threads", "enc.wpp.wait_ns"}
+LDP_NEW = {"enc.native.bi_refine_ns", "enc.subpel.install_bytes"}
+
+
+def test_low_delay_records_what_it_recorded():
+    """One picture at a time, as the LDP cell codes: each picture reads
+    its own walk as before, and the process keeps nothing unread."""
+    TRACE.forced = True
+    native.set_thread_enc_threads(2)
+    try:
+        _encode(256, 128, 3)
+    finally:
+        native.set_thread_enc_threads(None)
+    assert native.enc_phase_totals() == [0] * 32
+    pics = {r: p[0] for r, p in TRACE.pictures.items()}
+    assert sorted(pics.values()) == [0, 1, 2]
+    walk = TRACE.durations("enc.ctu_walk")
+    for r, poc in pics.items():
+        c = TRACE.counters[r]
+        assert c["enc.wpp.threads"] == 2
+        assert 0 < c["enc.wpp.ctu_ns"] <= 2 * walk[r]
+        if poc:
+            assert set(c) - LDP_NEW >= LDP_COUNTERS
+            assert set(c) - LDP_COUNTERS <= LDP_NEW | {
+                "enc.native.intra_nxn_ns"}
+            assert LDP_NEW <= set(c)
+    assert sorted(TRACE.counter("enc.batch.pictures").values()) == [1] * 3
 
 
 def test_byte_counters_equal_the_planes_sizes():

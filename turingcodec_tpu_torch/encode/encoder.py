@@ -185,6 +185,11 @@ class _OverlapFollower:
 
     def _run(self):
         import time
+
+        from turingcodec_tpu_torch import native
+        # a native context of its own: the loop filter's timers then count
+        # into the picture whose rows it filters, not the caller's
+        native.bind_thread_ctx()
         while not self._stop:
             with self._lock:
                 jobs = list(self._jobs)
@@ -192,8 +197,10 @@ class _OverlapFollower:
             done = []
             for job in jobs:
                 try:
-                    if self._advance(job):
-                        busy = True
+                    with TRACE.within(job.trace):
+                        if self._advance(job):
+                            busy = True
+                            native.count_enc_phases()
                 except BaseException:
                     # never leave a dependent picture waiting forever
                     job.ovl_st["error"] = True
@@ -248,8 +255,9 @@ class _OverlapFollower:
                 rows = ([r - 1] if r >= 1 else []) \
                     + ([r] if r == hc - 1 else [])
                 for cy in rows:
-                    estimate_sao(enc.plan, enc.geom, job.yuv, dbl,
-                                 enc.lam, cy, cy + 1)
+                    with TRACE.span("enc.sao_search"):
+                        estimate_sao(enc.plan, enc.geom, job.yuv, dbl,
+                                     enc.lam, cy, cy + 1)
                     sy0, sy1 = cy * S, min((cy + 1) * S, H)
                     for c, (dst, srcp) in enumerate(zip(pic.planes, dbl)):
                         a, b = (sy0, sy1) if c == 0 \
@@ -788,10 +796,15 @@ class Encoder:
                 batch.append(d)
                 i += 1
             jobs = [self._prepare_traced(d) for d in batch]
+            from turingcodec_tpu_torch import native
+            # the batch's encode phase: its pictures share the WPP budget
+            batch_trace = TRACE.group("enc.batch")
+            with TRACE.within(batch_trace):
+                TRACE.count("enc.batch.pictures", len(jobs))
+                TRACE.count("enc.batch.threads", native.enc_threads())
             if len(jobs) == 1:
                 self._docket_encode(jobs[0])
             else:
-                from turingcodec_tpu_torch import native
                 if self._pool is None:
                     from concurrent.futures import ThreadPoolExecutor
                     self._pool = ThreadPoolExecutor(max_workers=ft)
@@ -803,6 +816,7 @@ class Encoder:
                     self._docket_encode(job)
 
                 list(self._pool.map(run, jobs))
+            batch_trace.end()
             out += [self._docket_finalize(j) for j in jobs]
         return out
 
@@ -930,8 +944,13 @@ class Encoder:
         which the job carries through its encode and finalize."""
         root = TRACE.root("enc.docket", (0 if docket.is_idr else docket.poc,
                                          docket.input_index))
-        with TRACE.within(root), TRACE.span("enc.prepare"):
-            job = self._docket_prepare(docket)
+        with TRACE.within(root):
+            with TRACE.span("enc.prepare"):
+                job = self._docket_prepare(docket)
+            # this thread's native timers now hold this picture's prepare;
+            # its encode may run on another thread (frame-parallel batches)
+            from turingcodec_tpu_torch import native
+            native.count_enc_phases()
         job.trace = root
         return job
 
@@ -1268,7 +1287,8 @@ class Encoder:
                     # raster decisions)
                     from turingcodec_tpu_torch.encode.sao_search import (
                         estimate_sao)
-                    estimate_sao(plan, self.geom, yuv, recon, enc.lam)
+                    with TRACE.span("enc.sao_search"):
+                        estimate_sao(plan, self.geom, yuv, recon, enc.lam)
 
             with TRACE.span("enc.write"):
                 # slice data: WPP entry point offsets go into the header.

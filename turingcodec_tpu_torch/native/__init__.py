@@ -202,7 +202,7 @@ def _build_and_load():
     lib.tc_enc_install_dense.restype = None
     lib.tc_enc_install_dense.argtypes = [
         ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32]
-    lib.tc_enc_install_subpel.restype = None
+    lib.tc_enc_install_subpel.restype = ctypes.c_int64
     lib.tc_enc_install_subpel.argtypes = [
         ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32,
         ctypes.c_int32]
@@ -238,6 +238,8 @@ def _build_and_load():
     lib.tc_enc_trace.argtypes = [ctypes.c_int32]
     lib.tc_enc_counters.restype = None
     lib.tc_enc_counters.argtypes = [ctypes.c_void_p]
+    lib.tc_enc_counters_all.restype = None
+    lib.tc_enc_counters_all.argtypes = [ctypes.c_void_p]
     lib.tc_enc_wpp_read.restype = ctypes.c_int32
     lib.tc_enc_wpp_read.argtypes = [ctypes.c_void_p]
     lib.tc_enc_ctu.restype = ctypes.c_double
@@ -313,30 +315,28 @@ def get_lib():
     return _LIB
 
 
-# the phase slots of enc_core.cpp's g_enc_ns (16..23 count events in the
-# profiling build alone)
+# the phase slots of enc_core.cpp's EncCounters::ns (16..23 count events
+# in the profiling build alone)
 ENC_PHASES = (
     "inter_cu", "smp", "intra_cu", "snap", "full_pel", "subpel",
     "fwd_xform", "quantize", "rate_est", "pred_full", "pred_luma", "satd",
     "rank_modes", "intra_nxn", "try_tb", "lowres", None, None, None, None,
     None, "rdoq", None, None, "dense_me", "analysis", "subpel_planes",
-    "deblock", None, None, None, None)
+    "deblock", "bi_refine", None, None, None)
 _WPP_MAX = 64
 
 
 def _trace_switch(on: bool) -> None:
-    """The native timers follow the trace: cleared when it starts
-    recording, reading the clock only while it records."""
-    if on:
-        scratch = np.zeros(2 * _WPP_MAX + 1, np.int64)
-        _LIB.tc_enc_counters(scratch.ctypes.data)
-        _LIB.tc_enc_wpp_read(scratch.ctypes.data)
+    """The native timers follow the trace: every picture context's
+    cleared when it starts recording, reading the clock only while it
+    records."""
     _LIB.tc_enc_trace(int(on))
 
 
 def count_enc_phases() -> None:
-    """Move the native phase timers' thread-ns since the last read into
-    the trace, as enc.native.<phase>_ns of the thread's picture."""
+    """Move the phase timers' thread-ns since the last read of the
+    native picture context this thread is bound to (bind_thread_ctx)
+    into the trace, as enc.native.<phase>_ns of the thread's picture."""
     if not TRACE.on or _LIB is None:
         return
     ns = np.zeros(32, np.int64)
@@ -346,10 +346,21 @@ def count_enc_phases() -> None:
             TRACE.count(f"enc.native.{name}_ns", v)
 
 
+def enc_phase_totals() -> list:
+    """The 32 phase slots (ENC_PHASES; event counts at 16..23 in the
+    profiling build) since the last read, summed over every native
+    picture context, each then zeroed: the process totals, less what
+    pictures read with count_enc_phases."""
+    ns = np.zeros(32, np.int64)
+    get_lib().tc_enc_counters_all(ns.ctypes.data)
+    return ns.tolist()
+
+
 def _count_wpp() -> None:
-    """The last CTU walk's row threads into the trace: their count,
-    summed over them ns inside decide_cqt and ns waiting for a ready
-    row, and the times a thread took up a row another had left."""
+    """The CTU walk's row threads into the trace, from the picture
+    context this thread is bound to: their count, summed over them ns
+    inside decide_cqt and ns waiting for a ready row, and the times a
+    thread took up a row another had left."""
     out = np.zeros(2 * _WPP_MAX + 1, np.int64)
     threads = _LIB.tc_enc_wpp_read(out.ctypes.data)
     if threads:
@@ -1331,14 +1342,18 @@ class EncNative:
     def install_subpel(self, fields):
         """Install device-computed subpel planes
         ({(list, ref): (15, ph, pw) int16}, encode/device_analysis.py
-        subpel_planes_device — exact sp_build_plane values)."""
+        subpel_planes_device — exact sp_build_plane values); the native
+        core copies each list's planes into its cache (the trace counts
+        the bytes, enc.subpel.install_bytes)."""
         self._keep_subpel = []
+        copied = 0
         for (lx, r), planes in fields.items():
             arr = np.ascontiguousarray(planes, np.int16)
             self._keep_subpel.append(arr)
             _, ph, pw = arr.shape
-            self.lib.tc_enc_install_subpel(
+            copied += self.lib.tc_enc_install_subpel(
                 lx, r, ctypes.c_void_p(arr.ctypes.data), pw, ph)
+        TRACE.count("enc.subpel.install_bytes", copied)
 
     def install_ranksatd(self, tables):
         """Install device-computed source-referenced rank-SATD tables

@@ -41,14 +41,53 @@
 // subpel, fwd_xform, quantize, rate_est, pred_full, pred_luma, satd,
 // spare, spare, spare, spare]
 // [0..15] phase ns, [16..23] event counts, [24..31] extra phase ns
-// (24 = dense full-pel ME field prepass — the device-offloadable stage)
-// atomic (relaxed): pictures encode concurrently in separate contexts
-// (TURING_TPU_FRAME_THREADS>1) and WPP rows in helper threads, so the
-// accumulations would otherwise race and drop counts
-static std::atomic<int64_t> g_enc_ns[32];
+// (24 = dense full-pel ME field prepass — the device-offloadable stage;
+// 28 = bi-prediction: the alternating refinement and the bi candidate's
+// cost)
+// Each picture context (EN::cnt) keeps its own counters: a thread adds to
+// the context it is bound to (g_en_ptr; the CTU walk's row threads bind
+// their walk's), so pictures encoding at once in frame-parallel batches
+// count apart. Atomic (relaxed): a walk's row threads add together.
+constexpr int WPP_MAX = 64;
+struct EncCounters {
+    std::atomic<int64_t> ns[32];
+    // the CTU walk's threads while the trace records: per row thread (its
+    // index within the walk), ns inside decide_cqt and ns waiting for a
+    // ready row; the row switches (a thread taking up a row that another
+    // thread left after coding some of its CTUs); the thread count of the
+    // context's last walk
+    std::atomic<int64_t> wpp_ns[WPP_MAX][2];
+    std::atomic<int64_t> wpp_switches;
+    std::atomic<int32_t> wpp_threads;
+    EncCounters();
+    ~EncCounters();
+    void clear() {
+        for (auto& v : ns)
+            v.store(0, std::memory_order_relaxed);
+        for (auto& t : wpp_ns)
+            for (auto& v : t)
+                v.store(0, std::memory_order_relaxed);
+        wpp_switches.store(0, std::memory_order_relaxed);
+        wpp_threads.store(0, std::memory_order_relaxed);
+    }
+};
+// every context's counters: cleared together when the trace starts, and
+// summed for the process totals (tc_enc_counters_all)
+static std::mutex g_counters_mu;
+static std::vector<EncCounters*> g_counters_all;
+EncCounters::EncCounters() {
+    clear();
+    std::lock_guard<std::mutex> lk(g_counters_mu);
+    g_counters_all.push_back(this);
+}
+EncCounters::~EncCounters() {
+    std::lock_guard<std::mutex> lk(g_counters_mu);
+    g_counters_all.erase(std::find(g_counters_all.begin(),
+                                   g_counters_all.end(), this));
+}
 #ifdef TC_ENC_PROF
 #define PROF_COUNT(i, n) \
-    (g_enc_ns[i].fetch_add((n), std::memory_order_relaxed))
+    (en.cnt.ns[i].fetch_add((n), std::memory_order_relaxed))
 #else
 #define PROF_COUNT(i, n) ((void)0)
 #endif
@@ -68,7 +107,13 @@ static inline bool trace_on() {
     return g_trace_on.load(std::memory_order_relaxed) != 0;
 #endif
 }
+// recording starts with every context's counters at zero
 extern "C" void tc_enc_trace(int32_t on) {
+    if (on) {
+        std::lock_guard<std::mutex> lk(g_counters_mu);
+        for (EncCounters* c : g_counters_all)
+            c->clear();
+    }
     g_trace_on.store(on, std::memory_order_relaxed);
 }
 extern "C" int32_t tc_enc_trace_on() { return trace_on(); }
@@ -76,10 +121,7 @@ struct PhaseTimer {
     int i;
     int64_t t0;
     PhaseTimer(int idx) : i(idx), t0(trace_on() ? now_ns() : -1) {}
-    ~PhaseTimer() {
-        if (t0 >= 0)
-            g_enc_ns[i].fetch_add(now_ns() - t0, std::memory_order_relaxed);
-    }
+    inline ~PhaseTimer();  // adds to the bound context's counters
 };
 // leaf-kernel timers: clock_gettime in the per-block kernels costs ~5-8% of
 // the whole encode, so they compile to nothing unless TC_ENC_PROF is set
@@ -91,45 +133,6 @@ struct LeafTimer {
     LeafTimer(int) {}
 };
 #endif
-extern "C" void tc_enc_counters(int64_t* out) {  // out: int64[32]
-    for (int i = 0; i < 32; i++)
-        out[i] = g_enc_ns[i].exchange(0, std::memory_order_relaxed);
-}
-// cross-TU phase accumulator (pixel_recon.cpp's deblock times itself
-// into slot 27: the encoder's loop filter, device-twin-covered via
-// TURING_TPU_DEVICE_DEBLOCK)
-extern "C" void tc_enc_add_ns(int32_t slot, int64_t ns) {
-    if (slot >= 0 && slot < 32)
-        g_enc_ns[slot].fetch_add(ns, std::memory_order_relaxed);
-}
-// the CTU walk's threads while the trace records: per row thread, ns
-// inside decide_cqt and ns waiting for a ready row, summed since the
-// last tc_enc_wpp_read; the row switches (a thread taking up a row that
-// another thread left after coding some of its CTUs) summed likewise;
-// and the thread count of the last walk
-constexpr int WPP_MAX = 64;
-static std::atomic<int64_t> g_wpp_ns[WPP_MAX][2];
-static std::atomic<int64_t> g_wpp_switches{0};
-static std::atomic<int32_t> g_wpp_threads{0};
-static void wpp_add(int tid, int64_t ctu_ns, int64_t wait_ns,
-                    int64_t switches) {
-    if (tid < WPP_MAX) {
-        g_wpp_ns[tid][0].fetch_add(ctu_ns, std::memory_order_relaxed);
-        g_wpp_ns[tid][1].fetch_add(wait_ns, std::memory_order_relaxed);
-    }
-    g_wpp_switches.fetch_add(switches, std::memory_order_relaxed);
-}
-// out: int64[2 * WPP_MAX + 1], (ctu ns, wait ns) per thread, then the
-// switches, all then zeroed; returns the last walk's thread count (0: no
-// walk timed since)
-extern "C" int32_t tc_enc_wpp_read(int64_t* out) {
-    for (int t = 0; t < WPP_MAX; t++)
-        for (int k = 0; k < 2; k++)
-            out[2 * t + k] =
-                g_wpp_ns[t][k].exchange(0, std::memory_order_relaxed);
-    out[2 * WPP_MAX] = g_wpp_switches.exchange(0, std::memory_order_relaxed);
-    return g_wpp_threads.exchange(0, std::memory_order_relaxed);
-}
 
 namespace {
 
@@ -252,12 +255,33 @@ struct EN {
         volatile int64_t* self_rows = nullptr;        // search rows out
         const volatile int64_t* ref_rows[2][16] = {};  // refs' FINAL rows
     } ovl;
+    EncCounters cnt;  // this context's timers and WPP counters
     EN() { std::memset(sp_of, -1, sizeof(sp_of)); }
 };
 
 EN g_en_default;
 thread_local EN* g_en_ptr = &g_en_default;
 #define en (*g_en_ptr)
+
+}  // namespace
+
+PhaseTimer::~PhaseTimer() {
+    if (t0 >= 0)
+        en.cnt.ns[i].fetch_add(now_ns() - t0, std::memory_order_relaxed);
+}
+
+namespace {
+
+// a row thread's sums at the end of its walk (tid: its index within it)
+static void wpp_add(int tid, int64_t ctu_ns, int64_t wait_ns,
+                    int64_t switches) {
+    EncCounters& c = en.cnt;
+    if (tid < WPP_MAX) {
+        c.wpp_ns[tid][0].fetch_add(ctu_ns, std::memory_order_relaxed);
+        c.wpp_ns[tid][1].fetch_add(wait_ns, std::memory_order_relaxed);
+    }
+    c.wpp_switches.fetch_add(switches, std::memory_order_relaxed);
+}
 
 // monotonic max-publish of a picture's completed-row count (the follower
 // and multiple WPP row threads may race; the count must never regress)
@@ -5670,6 +5694,7 @@ double encode_inter_cu(int x0, int y0, int log2, int depth) {
         n_scored++;
     }
     if (n_lists == 2) {
+        PhaseTimer pt_bi(28);
         int mv_bi[2][2] = {{uni_mv[0][0], uni_mv[0][1]},
                            {uni_mv[1][0], uni_mv[1][1]}};
         bi_refine(orig_y, x0, y0, size, size, mv_bi, uni_mvps);
@@ -6632,7 +6657,7 @@ double enc_picture_mt(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
 
     const bool timed = trace_on();
     if (timed)
-        g_wpp_threads.store(T, std::memory_order_relaxed);
+        en.cnt.wpp_threads.store(T, std::memory_order_relaxed);
     // whether row r, d CTUs coded, may code its next CTU now
     auto ready = [&](int r, int d) {
         if (r > 0
@@ -6794,6 +6819,43 @@ double enc_picture_mt(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
 // ---------------------------------------------------------------- ctypes
 
 extern "C" {
+
+// the calling thread's picture context's phase counters since the last
+// read, then zeroed; out: int64[32]
+void tc_enc_counters(int64_t* out) {
+    for (int i = 0; i < 32; i++)
+        out[i] = en.cnt.ns[i].exchange(0, std::memory_order_relaxed);
+}
+// the same summed over every context (the process totals; the
+// profiling build counts outside any picture too), each then zeroed
+void tc_enc_counters_all(int64_t* out) {
+    std::lock_guard<std::mutex> lk(g_counters_mu);
+    for (int i = 0; i < 32; i++)
+        out[i] = 0;
+    for (EncCounters* c : g_counters_all)
+        for (int i = 0; i < 32; i++)
+            out[i] += c->ns[i].exchange(0, std::memory_order_relaxed);
+}
+// cross-TU phase accumulator (pixel_recon.cpp's deblock times itself
+// into slot 27: the encoder's loop filter, device-twin-covered via
+// TURING_TPU_DEVICE_DEBLOCK), into the calling thread's context
+void tc_enc_add_ns(int32_t slot, int64_t ns) {
+    if (slot >= 0 && slot < 32)
+        en.cnt.ns[slot].fetch_add(ns, std::memory_order_relaxed);
+}
+// the calling thread's context's CTU walk counters since the last read:
+// out: int64[2 * WPP_MAX + 1], (ctu ns, wait ns) per row thread, then the
+// switches, all then zeroed; returns the last walk's thread count (0: no
+// walk timed since)
+int32_t tc_enc_wpp_read(int64_t* out) {
+    EncCounters& c = en.cnt;
+    for (int t = 0; t < WPP_MAX; t++)
+        for (int k = 0; k < 2; k++)
+            out[2 * t + k] =
+                c.wpp_ns[t][k].exchange(0, std::memory_order_relaxed);
+    out[2 * WPP_MAX] = c.wpp_switches.exchange(0, std::memory_order_relaxed);
+    return c.wpp_threads.exchange(0, std::memory_order_relaxed);
+}
 
 // kernel parity test shims (tests/test_native.py)
 int64_t tc_test_satd(const int32_t* a, const int32_t* b, int bs) {
@@ -7202,7 +7264,7 @@ double tc_enc_picture(uint8_t* ctx, int32_t* ids, const int32_t* qp3,
     double total = 0.0;
     const bool timed = trace_on();
     if (timed)
-        g_wpp_threads.store(1, std::memory_order_relaxed);
+        en.cnt.wpp_threads.store(1, std::memory_order_relaxed);
     int64_t ctu_ns = 0;
     for (int ry = 0; ry < hc; ry++) {
         ovl_wait_row(ry);
@@ -7281,19 +7343,21 @@ void tc_enc_set_frac_out(int64_t* p) { en.frac_out = p; }
 
 // install device-computed subpel planes for (list, ref): data is
 // (15, ph, pw) int16, positions xf + 4*yf for pos 1..15, pad SP_P —
-// integer-exact twins of sp_build_plane (device_analysis.subpel_planes)
-void tc_enc_install_subpel(int32_t l, int32_t r, const int16_t* data,
-                           int32_t pw, int32_t ph) {
+// integer-exact twins of sp_build_plane (device_analysis.subpel_planes);
+// returns the bytes copied into the context's cache (0: not installed)
+int64_t tc_enc_install_subpel(int32_t l, int32_t r, const int16_t* data,
+                              int32_t pw, int32_t ph) {
     const int si = en.sp_of[l][r];
     if (si < 0 || pw != g_sp.pic_w + 2 * SP_P
         || ph != g_sp.pic_h + 2 * SP_P)
-        return;
+        return 0;
     EN::SubpelSet& s = en.spsets[si];
     for (int pos = 1; pos < 16; pos++) {
         s.plane[pos].assign(data + (size_t)(pos - 1) * ph * pw,
                             data + (size_t)pos * ph * pw);
         s.rows_built[pos].store(ph, std::memory_order_release);
     }
+    return (int64_t)15 * ph * pw * (int64_t)sizeof(int16_t);
 }
 
 // read one subpel plane (building it natively if needed) — device-twin

@@ -21,7 +21,8 @@ read, no profiler call.
 A picture's phases may run on several threads (frame-parallel encoding):
 ``root`` starts a picture's span without entering it, ``within(root)``
 makes it the parent of the spans a thread opens, and ``root.end()`` ends
-it.
+it. ``group`` starts a root span that is not a picture (``enc.batch``:
+the pictures that encode together), with counters of its own.
 """
 from __future__ import annotations
 
@@ -141,6 +142,16 @@ class Trace:
         self.pictures[span.id] = picture
         return span
 
+    def group(self, name: str):
+        """Start a root span that is no picture, with counters of its own
+        (see `within`), while recording is on; it does not decide whether
+        recording is on."""
+        if not self.on:
+            return _OFF
+        span = _Span(self, name, None, None)
+        span.root = span.id
+        return span
+
     def within(self, root):
         """The block's spans and counters belong to `root`."""
         if not self.on or root is _OFF:
@@ -190,7 +201,8 @@ class Trace:
     def summary(self) -> dict:
         """Per span name: count, total ns and self ns (each span's
         duration less the part of it its child spans cover); per counter:
-        its total and its value per picture (over the root spans)."""
+        its total and its value per picture (over the pictures' root
+        spans)."""
         kids = {}
         for s in self.spans:
             if s[4] is not None:
@@ -209,7 +221,8 @@ class Trace:
             e["count"] += 1
             e["total_ns"] += t1 - t0
             e["self_ns"] += t1 - t0 - covered
-        roots = sum(1 for s in self.spans if s[3] == s[5])
+        roots = sum(1 for s in self.spans
+                    if s[3] == s[5] and s[3] in self.pictures)
         counters = {}
         for c in self.counters.values():
             for k, v in c.items():
