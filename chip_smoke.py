@@ -52,7 +52,13 @@ gives each stage's ms per picture, and one more times the residual stage
 frames encoded with SAO on (the encoder's default) on the card and the
 host (identical bytes), decoded on the card equal to the host with one
 SAO launch per picture, its SAO stage traced; the SAO kernel's row is
-timed on that stream's picture 1. Then a 13-bit stream (tools/deep_bits.py)
+timed on that stream's picture 1. Then the encoder's SAO statistics
+kernel against its plain version on that picture's deblocked planes and
+its source (CTB 64, 32 and 16; 10 bits; int16 over the whole range at 16
+bits; ragged crops; planes at an odd element), timed there, and the
+random-access encode of the 8 frames (hevc_bench's ra_fast_1080p_one_idr
+settings) on the card and the host: identical bytes, one statistics
+launch per SAO-coded picture. Then a 13-bit stream (tools/deep_bits.py)
 decoded on the card to the JAX pipeline's md5 through the MC, residual
 and deblocking kernels, and its 14- and 16-bit twins raising the
 reference's error. Then the DSP op library at one 1080p
@@ -110,7 +116,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("dense_me", "mc_block_grid", "dequant_idct", "fwd_transform",
            "interp_all_phases", "rank_satd", "subpel_planes", "deblock", "sao",
-           "seed_field")
+           "seed_field", "sao_stats")
 STREAM = os.path.join(ROOT, "tests", "streams", "vfy_sweep.hevc")
 GOLDEN = os.path.join(ROOT, "tests", "streams", "GOLDEN.json")
 N_FRAMES = 8
@@ -771,16 +777,17 @@ def build_all():
 
 
 def occupancy():
-    """The subpel, deblocking, SAO and seed-field kernels' resources as the
-    card's runtime reports them (their <name>_occupancy entry points):
-    registers and spilled bytes a thread, shared bytes and threads a CTA,
-    CTAs an SM, and CTAs launched at 1080p (one pair for the seed field)."""
+    """The subpel, deblocking, SAO, seed-field and SAO statistics kernels'
+    resources as the card's runtime reports them (their <name>_occupancy
+    entry points): registers and spilled bytes a thread, shared bytes and
+    threads a CTA, CTAs an SM, and CTAs launched at 1080p (one pair for
+    the seed field)."""
     import ctypes
 
     from turingcodec_tpu_torch.ops import kernel_build
     what = ("registers", "local bytes", "shared bytes", "CTAs per SM",
             "threads", "CTAs at 1080p")
-    for k in ("subpel_planes", "deblock", "sao", "seed_field"):
+    for k in ("subpel_planes", "deblock", "sao", "seed_field", "sao_stats"):
         out = (ctypes.c_int * len(what))()
         rc = getattr(kernel_build.load(k), f"{k}_occupancy")(out)
         check(rc == 0, f"{k}_occupancy: CUDA error {rc}")
@@ -1182,6 +1189,135 @@ def sao_row(device, pic, err, reps):
     return row
 
 
+def sao_stats_bound(planes):
+    """Bound of one SAO statistics call over a picture's source and
+    deblocked int16 planes: each plane read once and the 96 int32 of each
+    (CTB, component) written once; 36 INT32 operations a sample (per edge
+    class the two differences, their signs, their sum, the category and
+    the two sums; for the band its index, the error and the two sums)."""
+    n = len(planes) // 2
+    ctbs = -(-planes[0].shape[0] // 64) * -(-planes[0].shape[1] // 64)
+    return bound(sum(p.nbytes for p in planes) + ctbs * n * 96 * 4,
+                 36 * sum(p.numel() for p in planes[n:]))
+
+
+def check_sao_stats(device, frames, pics, reps):
+    """The SAO statistics kernel against its plain version, equal on the
+    card: the 1080p SAO-coded encode's deblocked picture 1 and its source
+    at CTB 64, 32 and 16, the same shifted to 10 bits, int16 planes over
+    the whole range at 16 bits, crops of 1913x1064 and 1916x1080, and the
+    planes at an odd element of their buffer; timed on that picture past
+    L2 (its kernels-line row). Then the random-access encode of the main
+    path's frames (hevc_bench's ra_fast_1080p_one_idr settings, SAO on
+    every picture, frame-parallel pairs) on the card and the host:
+    identical bytes, hash-clean, one statistics launch per SAO-coded
+    picture. Returns (the row, the RA encode's launches)."""
+    import numpy as np
+    import torch
+
+    from turingcodec_tpu_torch.decode.decoder import Decoder
+    from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
+    from turingcodec_tpu_torch.ops import sao_stats as ss
+    from turingcodec_tpu_torch.parallel.gop_decode import capture_pictures
+
+    def both(org, rec, ctb, bd):
+        got = ss.sao_stats(org, rec, ctb, bd, bd)
+        h, w = rec[0].shape
+        hc, wc = -(-h // ctb), -(-w // ctb)
+        want = torch.stack([ss.sao_stats_plane(o, r, c, bd, hc, wc)
+                            for o, r, c in zip(org, rec,
+                                               (ctb, ctb // 2, ctb // 2))],
+                           dim=2)
+        return equal_on_card(f"sao_stats {w}x{h} CTB {ctb} {bd}-bit",
+                             got, want)
+
+    def on_card(planes):
+        return [torch.from_numpy(np.ascontiguousarray(p, np.int16))
+                .to(device) for p in planes]
+
+    t0 = time.perf_counter()
+    org = on_card(frames[1])
+    rec = on_card(pics[1]["post"])
+    cases = [(org, rec, ctb, 8) for ctb in (64, 32, 16)]
+    cases.append(([p << 2 for p in org], [p << 2 for p in rec], 64, 10))
+    g = torch.Generator().manual_seed(7)
+    full = [torch.randint(-32768, 32768, tuple(p.shape), generator=g,
+                          dtype=torch.int16).to(device) for p in org + rec]
+    cases.append((full[:3], full[3:], 64, 16))
+    for w, h in ((1913, 1064), (1916, 1080)):
+        cases.append(([p[:h >> (c > 0), :w >> (c > 0)].contiguous()
+                       for c, p in enumerate(org)],
+                      [p[:h >> (c > 0), :w >> (c > 0)].contiguous()
+                       for c, p in enumerate(rec)], 64, 8))
+
+    def odd(p):
+        buf = torch.empty(p.numel() + 1, dtype=p.dtype, device=device)
+        buf[1:] = p.reshape(-1)
+        return buf[1:].view(p.shape)
+    cases.append(([odd(p) for p in org], [odd(p) for p in rec], 32, 8))
+    err = max(both(*c) for c in cases)
+    log(f"sao_stats against its plain version on the card: {len(cases)} "
+        f"cases equal ({time.perf_counter() - t0:.1f} s)")
+
+    planes = org + rec
+    cold = cold_inputs(planes)
+    bnd = sao_stats_bound(planes)
+    h, w = rec[0].shape
+
+    def kernel():
+        c = cold()
+        return ss.sao_stats(c[:3], c[3:], 64, 8, 8)
+
+    def plain():
+        c = cold()
+        return [ss.sao_stats_plane(o, r, k, 8, -(-h // 64), -(-w // 64))
+                for o, r, k in zip(c[:3], c[3:], (64, 32, 32))]
+    row = dict(max_abs_err=err, kname="sao_stats", ms=timed_ms(
+        kernel, device, reps), plain_ms=timed_ms(plain, device,
+                                                 max(1, reps // 4)),
+               bound_ms=bnd[0], bound_by=bnd[1], timed={
+                   f"sao_stats at the 1080p SAO-coded encode's {w}x{h} "
+                   f"picture, 3 components in one launch": (kernel, bnd[0])})
+    log(f"sao_stats at its row's shape: kernel {row['ms']:.4f} ms, plain "
+        f"torch {row['plain_ms']:.4f} ms (median, CUDA events around the "
+        f"wrapper); bound {row['bound_ms'] * 1e3:.2f} us "
+        f"({row['bound_by']})")
+
+    # the random-access main path
+    with open(os.path.join(ROOT, "hevc_bench", "configs",
+                           "ra_fast_1080p_one_idr.json")) as f:
+        ra = json.load(f)["encoder"]
+    streams = {}
+    for dev in (str(device), None):
+        enc = Encoder(EncoderConfig(width=w, height=h, bit_depth=8,
+                                    device=dev, **ra))
+        reset_launches()
+        t1 = time.perf_counter()
+        out = [enc.headers()]
+        for fr in frames:
+            out += [nal for _i, nal, _r in enc.push_frame(
+                [p.copy() for p in fr])]
+        out += [nal for _i, nal, _r in enc.flush()]
+        streams[dev] = (b"".join(out), read_launches(),
+                        len(frames) / (time.perf_counter() - t1))
+    (bs, launches, fps), (bs_host, _l, fps_host) = streams.values()
+    check(bs == bs_host, "RA encode: card and host bitstreams differ")
+    n_sao = sum(1 for p in capture_pictures(bs) if p["sao"] is not None)
+    dec = Decoder(device=None)
+    n = sum(1 for _ in dec.decode_stream(bs))
+    check(n == len(frames) and dec.hash_failures == 0,
+          f"RA encode: decoded {n} frames, {dec.hash_failures} hash "
+          f"failures")
+    check(n_sao == len(frames) and launches["sao_stats"] == n_sao,
+          f"RA encode: {launches['sao_stats']} sao_stats launches for "
+          f"{n_sao} SAO-coded pictures of {len(frames)}")
+    log(f"RA encode {len(frames)} frames {w}x{h}: card {fps:.4f} fps, host "
+        f"{fps_host:.4f} fps, {len(bs)} bytes identical, hash-clean; "
+        f"sao_stats launches {launches['sao_stats']} for {n_sao} SAO-coded "
+        f"pictures")
+    return row, launches
+
+
 # one 1080p picture's block count per transform size, and the windows of
 # its 16x16 blocks: the DSP op library's full width
 BLOCKS_1080P = {2: 129600, 3: 32400, 4: 8160, 5: 2040}
@@ -1464,17 +1600,17 @@ def reset_launches():
     """Every kernel's launch count to 0."""
     from turingcodec_tpu_torch.encode import device_analysis as da
     from turingcodec_tpu_torch.ops import deblock, dense_me, inter, sao
-    from turingcodec_tpu_torch.ops import transform
+    from turingcodec_tpu_torch.ops import sao_stats, transform
     dense_me.launches = inter.launches = transform.launches = 0
     inter.interp_launches = transform.fwd_launches = 0
     da.rank_launches = da.subpel_launches = da.seed_launches = 0
-    deblock.launches = sao.launches = 0
+    deblock.launches = sao.launches = sao_stats.launches = 0
 
 
 def read_launches():
     from turingcodec_tpu_torch.encode import device_analysis as da
     from turingcodec_tpu_torch.ops import deblock, dense_me, inter, sao
-    from turingcodec_tpu_torch.ops import transform
+    from turingcodec_tpu_torch.ops import sao_stats, transform
     return {"dense_me": dense_me.launches, "mc_block_grid": inter.launches,
             "dequant_idct": transform.launches,
             "fwd_transform": transform.fwd_launches,
@@ -1482,7 +1618,7 @@ def read_launches():
             "rank_satd": da.rank_launches,
             "subpel_planes": da.subpel_launches,
             "deblock": deblock.launches, "sao": sao.launches,
-            "seed_field": da.seed_launches}
+            "seed_field": da.seed_launches, "sao_stats": sao_stats.launches}
 
 
 def decode_main_path(device, frames, bitstream):
@@ -2250,6 +2386,10 @@ def main() -> int:
         device, frames, bitstream)
     sao_launches, sao_pics = sao_stream(device, frames)
     dec_kern["sao"] = sao_row(device, sao_pics[1], sao_err, reps=20)
+    # the encoder's SAO statistics kernel against its plain version, and
+    # the random-access encode that launches it
+    stats_kern, ra_launches = check_sao_stats(device, frames, sao_pics,
+                                              reps=20)
     # the decode of a 13-bit stream, and the 14- and 16-bit ones that raise
     deep_launches = deep_decode(device)
 
@@ -2310,7 +2450,9 @@ def main() -> int:
                  launches=vfy_launches["sao"], **dec_kern["sao"]),
             dict(name="seed_field", source="seed_field.cu",
                  replaces="turingcodec_tpu/encode/device_analysis.py:66",
-                 launches=enc_launches["seed_field"], **seed_kern)]
+                 launches=enc_launches["seed_field"], **seed_kern),
+            dict(name="sao_stats", source="sao_stats.cu", replaces=None,
+                 launches=ra_launches["sao_stats"], **stats_kern)]
     device_times(rows)
     profile_counts(gop_jobs)
     kern_us, copy_us, per = residual_device_us(res_pics)
@@ -2319,7 +2461,7 @@ def main() -> int:
         f"launches, {copy_us:.2f} us of copies (profiler)")
 
     log(card)
-    # no single PyTorch call computes any of the ten functions (a
+    # no single PyTorch call computes any of the eleven functions (a
     # penalised argmin over 289 SADs, a per-block filter phase, an integer
     # dequantisation before two products, two integer products with a
     # rounding shift between them, 16 filter phases with their shifts and
@@ -2328,7 +2470,8 @@ def main() -> int:
     # decisions and filters driven by per-block maps, per-CTB band and
     # edge offsets with neighbour rules, two clamped decimations each
     # followed by a penalised argmin, the second around the first's
-    # winner), so library_ms is null
+    # winner, per-CTB sums of samples by edge category and by band), so
+    # library_ms is null
     log(json.dumps({"kernels": [{
         "name": r["name"], "route": "cuda",
         "source": "turingcodec_tpu_torch/csrc/" + r["source"],
@@ -2350,7 +2493,8 @@ def main() -> int:
             "tool_matrix": tm_launches[r["kname"]],
             "bitflip_decodes": flip_launches[r["kname"]],
             "gop_stages": gop_launches[r["kname"]],
-            "scaling_bdrate_entry": tool_launches[r["kname"]]}}
+            "scaling_bdrate_entry": tool_launches[r["kname"]],
+            "ra_encode": ra_launches[r["kname"]]}}
         for r in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1284,11 +1284,13 @@ class Encoder:
                     # parameters go into the per-CTU syntax, so estimate
                     # before writing slice data (under overlap the follower
                     # estimated + applied per band already — identical
-                    # raster decisions)
+                    # raster decisions); with an analysis device each
+                    # CTB's statistics are gathered there
                     from turingcodec_tpu_torch.encode.sao_search import (
                         estimate_sao)
                     with TRACE.span("enc.sao_search"):
-                        estimate_sao(plan, self.geom, yuv, recon, enc.lam)
+                        estimate_sao(plan, self.geom, yuv, recon, enc.lam,
+                                     device=self._analysis_device)
 
             with TRACE.span("enc.write"):
                 # slice data: WPP entry point offsets go into the header.

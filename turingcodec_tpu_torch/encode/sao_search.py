@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from turingcodec_tpu_torch.decode.plan import PicturePlan
+from turingcodec_tpu_torch.utils.profiler import TRACE
 
 _EO_NEIGHBOURS = {
     0: ((0, -1), (0, 1)),
@@ -141,16 +142,28 @@ _KEYS = ["off", "band", ("eo", 0), ("eo", 1), ("eo", 2), ("eo", 3)]
 
 
 def estimate_sao(plan: PicturePlan, geom, orig, deblocked, lam: float,
-                 cy0: int = 0, cy1: int = None):
+                 cy0: int = 0, cy1: int = None, device=None):
     """Fill plan.sao_* for CTB rows [cy0, cy1): luma independent, chroma
     joint-type, and per-CTB merge-left/up decisions against explicit
     re-signalling (the reference's rdSao merge RDO, EncSao.h:963+).
     Raster scan so a merge target's parameters are final when consulted —
     which also makes a row-banded call sequence (the overlap follower)
-    equal the whole-picture walk exactly."""
+    equal the whole-picture walk exactly. With a `device` and the whole
+    picture, each CTB's statistics are gathered there in one pass
+    (_estimate_sao_device); every other call gathers them on the host.
+    Either way the same decision runs over the same statistics."""
     sps = plan.sps
     if cy1 is None:
         cy1 = sps.pic_height_in_ctbs_y
+    ctbs = (min(cy1, sps.pic_height_in_ctbs_y) - cy0) \
+        * sps.pic_width_in_ctbs_y
+    if (device is not None and cy0 == 0
+            and cy1 >= sps.pic_height_in_ctbs_y
+            and _estimate_sao_device(plan, geom, orig, deblocked, lam,
+                                     device)):
+        TRACE.count("enc.sao.device_ctbs", ctbs)
+        return
+    TRACE.count("enc.sao.host_ctbs", ctbs)
     if _estimate_sao_native(plan, geom, orig, deblocked, lam, cy0, cy1):
         return
     ctb = sps.ctb_size_y
@@ -238,15 +251,12 @@ def estimate_sao(plan: PicturePlan, geom, orig, deblocked, lam: float,
 
 def _estimate_sao_native(plan, geom, orig, deblocked, lam,
                          cy0=0, cy1=None) -> bool:
-    """C twin of the loop above (enc_core.cpp tc_sao_estimate)."""
-    import os
-    if os.environ.get("TURING_TPU_NO_NATIVE_ENC"):
+    """C twin of the loop above (enc_core.cpp tc_sao_estimate: the gather
+    of each CTB's statistics, then the decision)."""
+    lib = _native_for(plan)
+    if lib is None:
         return False
-    from turingcodec_tpu_torch import native
-    lib = native.get_lib()
     sps = plan.sps
-    if lib is None or sps.chroma_array_type != 1:
-        return False
     o = [np.ascontiguousarray(p, np.int16) for p in orig]
     r = deblocked
     for p in r:
@@ -265,6 +275,54 @@ def _estimate_sao_native(plan, geom, orig, deblocked, lam,
         sps.pic_width_in_ctbs_y, sps.pic_height_in_ctbs_y, sps.ctb_size_y,
         sps.pic_width_in_luma_samples, sps.pic_height_in_luma_samples,
         sps.bit_depth_y, sps.bit_depth_c, float(lam), cy0, cy1)
+    return True
+
+
+def _native_for(plan):
+    """The native core where it can estimate this picture's SAO (4:2:0,
+    TURING_TPU_NO_NATIVE_ENC unset), else None."""
+    import os
+    if os.environ.get("TURING_TPU_NO_NATIVE_ENC"):
+        return None
+    from turingcodec_tpu_torch import native
+    lib = native.get_lib()
+    if lib is None or plan.sps.chroma_array_type != 1:
+        return None
+    return lib
+
+
+def _estimate_sao_device(plan, geom, orig, deblocked, lam, device) -> bool:
+    """The whole picture's statistics on `device` (ops/sao_stats.py: one
+    kernel launch on a card; the plain version on the CPU) from one
+    packed upload of the deblocked and source planes, brought down by one
+    pinned copy; then the native raster-order decision (tc_sao_decide)."""
+    lib = _native_for(plan)
+    if lib is None:
+        return False
+    import torch
+
+    from turingcodec_tpu_torch.ops import kernel_build
+    from turingcodec_tpu_torch.ops.sao_stats import sao_stats
+    sps = plan.sps
+    device = torch.device(device)
+    planes = kernel_build.upload_packed(
+        [np.ascontiguousarray(p, np.int16) for p in (*deblocked, *orig)],
+        device, span="enc.sao.upload")
+    stats = sao_stats(planes[3:], planes[:3], sps.ctb_size_y,
+                      sps.bit_depth_y, sps.bit_depth_c)
+    if device.type == "cuda":
+        host = torch.empty(stats.shape, dtype=stats.dtype, pin_memory=True)
+        host.copy_(stats, non_blocking=True)
+        torch.cuda.current_stream(device).synchronize()
+        stats = host
+    stats = stats.numpy()
+    tile_id = np.ascontiguousarray(geom.tile_id, np.int32)
+    lib.tc_sao_decide(
+        stats.ctypes.data, plan.sao_type.ctypes.data,
+        plan.sao_class.ctypes.data, plan.sao_offsets.ctypes.data,
+        plan.sao_merge.ctypes.data, plan.slice_idx.ctypes.data,
+        tile_id.ctypes.data, sps.pic_width_in_ctbs_y, sps.bit_depth_y,
+        sps.bit_depth_c, float(lam), 0, sps.pic_height_in_ctbs_y)
     return True
 
 

@@ -192,6 +192,13 @@ def _build_and_load():
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_double, ctypes.c_int32, ctypes.c_int32]
+    lib.tc_sao_gather.restype = None
+    lib.tc_sao_gather.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [
+        ctypes.c_int32] * 8 + [ctypes.c_int64]
+    lib.tc_sao_decide.restype = None
+    lib.tc_sao_decide.argtypes = [ctypes.c_int64] * 7 + [
+        ctypes.c_int32] * 3 + [ctypes.c_double, ctypes.c_int32,
+                               ctypes.c_int32]
 
     lib.tc_enc_setup.argtypes = [ctypes.c_void_p] * 5
     lib.tc_enc_set_frac_out.restype = None

@@ -6498,31 +6498,32 @@ void sao_best_offset(int64_t n, double e, double lam, int sign, int* out_k,
     *out_c = best_c;
 }
 
-// raw per-class statistics of one CTB of one component, for costing a
-// NEIGHBOUR's params on this CTB (merge candidates) — sao_search twin
+// one CTB's statistics of one component, as the gather step (or the
+// device kernel, ops/sao_stats.py) packs them: 96 int32 a (CTB,
+// component), in CTB raster order with the components innermost. Per
+// edge class eo and category k = 1..4 (the sign-remap classes; 0 is no
+// offset) the count cnt[eo*4 + k-1] and error sum (source minus deblocked)
+// esum[..] of the samples whose two neighbours along eo lie in the
+// picture; per band the count n_b and error sum e_b. Integer sums: exact
+// in int32 for CTBs of 64x64 and samples of 16 bits (4096 x 65535 < 2^31)
 struct SaoStats {
-    int64_t cnt[4][5];   // [eo][class]
-    int64_t esum[4][5];
-    int64_t n_b[32];
-    int64_t e_b[32];
+    int32_t cnt[16];
+    int32_t esum[16];
+    int32_t n_b[32];
+    int32_t e_b[32];
 };
+static_assert(sizeof(SaoStats) == 96 * sizeof(int32_t), "packed layout");
 
-// candidates for one CTB of one component: [0]=off, [1]=band, [2..5]=eo 0..3
-void sao_ctb_candidates(const int16_t* o, const int16_t* r, int w, int h,
-                        int y0, int y1, int x0, int x1, int bd, double lam,
-                        SaoCand out[6], SaoStats* st) {
+// the statistics of one CTB [y0, y1) x [x0, x1) of one component
+void sao_ctb_stats(const int16_t* o, const int16_t* r, int w, int h,
+                   int y0, int y1, int x0, int x1, int bd, SaoStats* st) {
     static const int eo_n[4][2][2] = {{{0, -1}, {0, 1}},
                                       {{-1, 0}, {1, 0}},
                                       {{-1, -1}, {1, 1}},
                                       {{-1, 1}, {1, -1}}};
     static const int remap[5] = {1, 2, 0, 3, 4};
-    out[0].cost = 0.0;
-    out[0].cls = 0;
-    out[0].offs[0] = out[0].offs[1] = out[0].offs[2] = out[0].offs[3] = 0;
-
+    std::memset(st, 0, sizeof(*st));
     for (int eo = 0; eo < 4; eo++) {
-        int64_t cnt[5] = {0, 0, 0, 0, 0};
-        int64_t esum[5] = {0, 0, 0, 0, 0};
         int ady = eo_n[eo][0][0], adx = eo_n[eo][0][1];
         int bdy = eo_n[eo][1][0], bdx = eo_n[eo][1][1];
         for (int y = y0; y < y1; y++)
@@ -6539,51 +6540,45 @@ void sao_ctb_candidates(const int16_t* o, const int16_t* r, int w, int h,
                 int cls = remap[cat];
                 if (cls == 0)
                     continue;
-                cnt[cls]++;
-                esum[cls] += o[(int64_t)y * w + x] - rv;
+                st->cnt[eo * 4 + cls - 1]++;
+                st->esum[eo * 4 + cls - 1] += o[(int64_t)y * w + x] - rv;
             }
+    }
+    int shift = bd - 5;
+    for (int y = y0; y < y1; y++)
+        for (int x = x0; x < x1; x++) {
+            int rv = r[(int64_t)y * w + x];
+            int b = rv >> shift;
+            st->n_b[b]++;
+            st->e_b[b] += o[(int64_t)y * w + x] - rv;
+        }
+}
+
+// candidates of one CTB of one component from its statistics alone:
+// [0]=off, [1]=band, [2..5]=eo 0..3
+void sao_ctb_candidates(const SaoStats& st, double lam, SaoCand out[6]) {
+    static const int cls_sgn[4] = {1, 1, -1, -1};
+    out[0].cost = 0.0;
+    out[0].cls = 0;
+    out[0].offs[0] = out[0].offs[1] = out[0].offs[2] = out[0].offs[3] = 0;
+    for (int eo = 0; eo < 4; eo++) {
         double cost = 0.0;
         SaoCand& c = out[2 + eo];
         for (int i = 0; i < 4; i++) {
-            static const int cls_sgn[4][2] = {{1, 1}, {2, 1}, {3, -1},
-                                              {4, -1}};
             int k;
             double cc;
-            sao_best_offset(cnt[cls_sgn[i][0]],
-                            (double)esum[cls_sgn[i][0]], lam, cls_sgn[i][1],
-                            &k, &cc);
+            sao_best_offset(st.cnt[eo * 4 + i], (double)st.esum[eo * 4 + i],
+                            lam, cls_sgn[i], &k, &cc);
             c.offs[i] = k;
             cost += cc;
         }
         c.cost = cost;
         c.cls = eo;
-        if (st)
-            for (int i = 0; i < 5; i++) {
-                st->cnt[eo][i] = cnt[i];
-                st->esum[eo][i] = esum[i];
-            }
     }
-
-    // band offsets
-    int shift = bd - 5;
-    int64_t n_b[32] = {};
-    int64_t e_b[32] = {};
-    for (int y = y0; y < y1; y++)
-        for (int x = x0; x < x1; x++) {
-            int rv = r[(int64_t)y * w + x];
-            int b = rv >> shift;
-            n_b[b]++;
-            e_b[b] += o[(int64_t)y * w + x] - rv;
-        }
-    if (st)
-        for (int b = 0; b < 32; b++) {
-            st->n_b[b] = n_b[b];
-            st->e_b[b] = e_b[b];
-        }
     int kb[32];
     double cb[32];
     for (int b = 0; b < 32; b++)
-        sao_best_offset(n_b[b], (double)e_b[b], lam, 0, &kb[b], &cb[b]);
+        sao_best_offset(st.n_b[b], (double)st.e_b[b], lam, 0, &kb[b], &cb[b]);
     int best_pos = 0;
     double best_cost = 1e30;
     for (int pos = 0; pos < 29; pos++) {
@@ -6870,9 +6865,9 @@ void tc_test_fwd_transform(const int32_t* res, int n, int bit_depth,
     fwd_transform(res, n, bit_depth, use_dst, out);
 }
 
-// SAO parameter estimation for the whole picture (sao_search.estimate_sao
-// oracle): luma independent, chroma joint-type. Writes plan.sao_* directly.
-// approximate signalling bits of one component's explicit params,
+// SAO parameter estimation (sao_search.estimate_sao oracle): the gather
+// of each CTB's statistics, then the raster-order decision over them.
+// Approximate signalling bits of one component's explicit params,
 // mirroring write_sao's bins (sao_search._explicit_bits twin)
 static int sao_explicit_bits(int key /*0 off,1 band,2..5 eo*/,
                              const SaoCand& c, int bd, int c_idx) {
@@ -6906,65 +6901,71 @@ static double sao_merge_delta(const SaoStats& st, int t, int cls,
             d += (double)st.n_b[b] * k * k - 2.0 * k * (double)st.e_b[b];
         }
     } else {
-        static const int map_[4] = {1, 2, 3, 4};
         for (int i = 0; i < 4; i++) {
             const int k = offs[i];
-            d += (double)st.cnt[cls][map_[i]] * k * k
-               - 2.0 * k * (double)st.esum[cls][map_[i]];
+            d += (double)st.cnt[cls * 4 + i] * k * k
+               - 2.0 * k * (double)st.esum[cls * 4 + i];
         }
     }
     return d;
 }
 
-// cy0/cy1 restrict to CTB rows [cy0, cy1): the per-CTB decision only
-// consults ALREADY-DECIDED left/up plan params, so a row-banded call
-// sequence equals the whole-picture raster walk exactly (the overlap
-// follower estimates behind the deblock band)
-void tc_sao_estimate(const int64_t* orig_ptrs, const int64_t* rec_ptrs,
-                     int64_t sao_type_p, int64_t sao_class_p,
-                     int64_t sao_offsets_p, int64_t sao_merge_p,
-                     int64_t slice_idx_p, int64_t tile_id_p,
-                     int32_t wc, int32_t hc,
-                     int32_t ctb, int32_t pic_w, int32_t pic_h,
-                     int32_t bd_y, int32_t bd_c, double lam,
-                     int32_t cy0, int32_t cy1) {
-    const int16_t* o[3];
-    const int16_t* r[3];
-    for (int i = 0; i < 3; i++) {
-        o[i] = (const int16_t*)orig_ptrs[i];
-        r[i] = (const int16_t*)rec_ptrs[i];
-    }
+// The statistics of CTB rows [cy0, cy1) of a 4:2:0 picture: out holds
+// (cy1 - cy0) * wc * 3 SaoStats, raster order, components innermost (the
+// layout ops/sao_stats.py's kernel writes). Reads only the source and the
+// deblocked planes, so every CTB's block is independent of the others.
+void tc_sao_gather(const int64_t* orig_ptrs, const int64_t* rec_ptrs,
+                   int32_t wc, int32_t ctb, int32_t pic_w, int32_t pic_h,
+                   int32_t bd_y, int32_t bd_c, int32_t cy0, int32_t cy1,
+                   int64_t out_p) {
+    SaoStats* out = (SaoStats*)out_p;
+    const int cwd = pic_w >> 1, chd = pic_h >> 1;
+    const int cs = ctb >> 1;
+    for (int cy = cy0; cy < cy1; cy++)
+        for (int cx = 0; cx < wc; cx++) {
+            SaoStats* st = out + ((int64_t)(cy - cy0) * wc + cx) * 3;
+            int y0 = cy * ctb, x0 = cx * ctb;
+            sao_ctb_stats((const int16_t*)orig_ptrs[0],
+                          (const int16_t*)rec_ptrs[0], pic_w, pic_h, y0,
+                          std::min(y0 + ctb, pic_h), x0,
+                          std::min(x0 + ctb, pic_w), bd_y, st);
+            y0 = cy * cs;
+            x0 = cx * cs;
+            for (int ci = 1; ci < 3; ci++)
+                sao_ctb_stats((const int16_t*)orig_ptrs[ci],
+                              (const int16_t*)rec_ptrs[ci], cwd, chd, y0,
+                              std::min(y0 + cs, chd), x0,
+                              std::min(x0 + cs, cwd), bd_c, st + ci);
+        }
+}
+
+// The raster-order decision of CTB rows [cy0, cy1) from their statistics
+// (stats_p: tc_sao_gather's layout for those rows): luma independent,
+// chroma joint-type, then explicit against merge-left/up. Writes plan.sao_*
+// directly. The per-CTB decision only consults ALREADY-DECIDED left/up plan
+// params, so a row-banded call sequence equals the whole-picture raster
+// walk exactly (the overlap follower estimates behind the deblock band)
+void tc_sao_decide(int64_t stats_p, int64_t sao_type_p, int64_t sao_class_p,
+                   int64_t sao_offsets_p, int64_t sao_merge_p,
+                   int64_t slice_idx_p, int64_t tile_id_p, int32_t wc,
+                   int32_t bd_y, int32_t bd_c, double lam, int32_t cy0,
+                   int32_t cy1) {
+    const SaoStats* stats = (const SaoStats*)stats_p;
     uint8_t* sao_type = (uint8_t*)sao_type_p;
     uint8_t* sao_class = (uint8_t*)sao_class_p;
     int8_t* sao_offsets = (int8_t*)sao_offsets_p;
     uint8_t* sao_merge = (uint8_t*)sao_merge_p;
     const int32_t* slice_idx = (const int32_t*)slice_idx_p;
     const int32_t* tile_id = (const int32_t*)tile_id_p;
-    const int cwd = pic_w >> 1, chd = pic_h >> 1;
-    const int cs = ctb >> 1;
-    if (cy1 > hc)
-        cy1 = hc;
     for (int cy = cy0; cy < cy1; cy++)
         for (int cx = 0; cx < wc; cx++) {
             const int64_t cur = (int64_t)cy * wc + cx;
+            const SaoStats* st = stats + ((int64_t)(cy - cy0) * wc + cx) * 3;
             SaoCand cl[6];
-            SaoStats stl;
-            {
-                int y0 = cy * ctb, x0 = cx * ctb;
-                int y1 = y0 + ctb < pic_h ? y0 + ctb : pic_h;
-                int x1 = x0 + ctb < pic_w ? x0 + ctb : pic_w;
-                sao_ctb_candidates(o[0], r[0], pic_w, pic_h, y0, y1, x0, x1,
-                                   bd_y, lam, cl, &stl);
-            }
+            sao_ctb_candidates(st[0], lam, cl);
             SaoCand cc[2][6];
-            SaoStats stc[2];
-            for (int ci = 0; ci < 2; ci++) {
-                int y0 = cy * cs, x0 = cx * cs;
-                int y1 = y0 + cs < chd ? y0 + cs : chd;
-                int x1 = x0 + cs < cwd ? x0 + cs : cwd;
-                sao_ctb_candidates(o[ci + 1], r[ci + 1], cwd, chd, y0, y1,
-                                   x0, x1, bd_c, lam, cc[ci], &stc[ci]);
-            }
+            for (int ci = 0; ci < 2; ci++)
+                sao_ctb_candidates(st[1 + ci], lam, cc[ci]);
             const bool left_ok = cx > 0 && slice_idx[cur - 1] == slice_idx[cur]
                 && tile_id[cur] == tile_id[cur - 1];
             const bool up_ok = cy > 0 && slice_idx[cur - wc] == slice_idx[cur]
@@ -6999,9 +7000,8 @@ void tc_sao_estimate(const int64_t* orig_ptrs, const int64_t* rec_ptrs,
             // merge candidates: apply the neighbour's resolved params
             auto merge_cost = [&](int64_t nb, int flag_bits) -> double {
                 double d = 0.0;
-                const SaoStats* sts[3] = {&stl, &stc[0], &stc[1]};
                 for (int ci = 0; ci < 3; ci++)
-                    d += sao_merge_delta(*sts[ci], sao_type[nb * 3 + ci],
+                    d += sao_merge_delta(st[ci], sao_type[nb * 3 + ci],
                                          sao_class[nb * 3 + ci],
                                          sao_offsets + nb * 12 + ci * 4);
                 return d + lam * flag_bits;
@@ -7041,6 +7041,27 @@ void tc_sao_estimate(const int64_t* orig_ptrs, const int64_t* rec_ptrs,
                           ckey, cc[1][ckey]);
             }
         }
+}
+
+// The host estimate of CTB rows [cy0, cy1): the gather, then the decision
+void tc_sao_estimate(const int64_t* orig_ptrs, const int64_t* rec_ptrs,
+                     int64_t sao_type_p, int64_t sao_class_p,
+                     int64_t sao_offsets_p, int64_t sao_merge_p,
+                     int64_t slice_idx_p, int64_t tile_id_p,
+                     int32_t wc, int32_t hc,
+                     int32_t ctb, int32_t pic_w, int32_t pic_h,
+                     int32_t bd_y, int32_t bd_c, double lam,
+                     int32_t cy0, int32_t cy1) {
+    if (cy1 > hc)
+        cy1 = hc;
+    if (cy1 <= cy0)
+        return;
+    std::vector<SaoStats> stats((size_t)(cy1 - cy0) * wc * 3);
+    tc_sao_gather(orig_ptrs, rec_ptrs, wc, ctb, pic_w, pic_h, bd_y, bd_c,
+                  cy0, cy1, (int64_t)stats.data());
+    tc_sao_decide((int64_t)stats.data(), sao_type_p, sao_class_p,
+                  sao_offsets_p, sao_merge_p, slice_idx_p, tile_id_p, wc,
+                  bd_y, bd_c, lam, cy0, cy1);
 }
 
 // Per-picture setup. g_sp must already be configured via tc_slice_setup.
