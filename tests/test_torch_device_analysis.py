@@ -117,12 +117,33 @@ def test_cuda_without_a_card_raises(monkeypatch):
     assert tda.resolve_device("cpu") == torch.device("cpu")
 
 
-def test_no_lowres_switch_turns_the_stage_off(monkeypatch):
+def test_device_enc_enabled_follows_the_device():
     dev = torch.device("cpu")
     assert tda.device_enc_enabled(dev)
     assert not tda.device_enc_enabled(None)
-    monkeypatch.setenv("TC_NO_LOWRES", "1")
-    assert not tda.device_enc_enabled(dev)
+
+
+# search switches that no test, tool row or benchmark set, retired with
+# the second paths they kept
+RETIRED_SWITCHES = (
+    "TC_NO_SATDGATE", "TC_SRC_RANK", "TC_NO_SRC_RANK", "TC_NO_II",
+    "TC_SATD_I16", "TC_NO_DENSEME", "TC_NO_LOWRES", "TC_NO_SUBPEL_PLANES",
+    "TC_SRC_SEEDS", "TC_NO_NOISE_ADAPT", "TURING_TPU_NO_NATIVE_RECON",
+    "TURING_TPU_NO_NATIVE_WRITE", "TURING_TPU_NO_NATIVE_PARSE",
+    "TURING_TPU_FRAME_OVERLAP", "CABAC_TRACE_PY")
+
+
+def test_no_source_of_the_port_names_a_retired_switch():
+    import pathlib
+    import re
+    pat = re.compile(r"\b(" + "|".join(RETIRED_SWITCHES) + r")\b")
+    root = pathlib.Path(tda.__file__).resolve().parents[1]
+    found = [f"{path.relative_to(root)}:{i}: {m.group(1)}"
+             for path in sorted(root.rglob("*"))
+             if path.suffix in (".py", ".cpp", ".h", ".cu")
+             for i, line in enumerate(path.read_text().splitlines(), 1)
+             for m in pat.finditer(line)]
+    assert not found, found
 
 
 def test_dense_surface_matches_jax_and_native():
@@ -235,3 +256,52 @@ def test_encode_keeps_no_installed_surface(monkeypatch):
     gc.collect()
     assert len(refs) == 5
     assert sum(r() is not None for r in refs) <= 1
+
+
+def test_search_installs_the_records_products(monkeypatch):
+    """A three-picture low-delay encode with the stage on "cpu": the
+    native core is handed exactly the seed fields, subpel planes and
+    rank-SATD tables that the facade put in each picture's record
+    (intra_search.SearchInputs), and the bytes equal the host path's."""
+    from turingcodec_tpu_torch import native
+    from turingcodec_tpu_torch.encode.encoder import Encoder, EncoderConfig
+    records, installed = [], {"seeds": [], "subpel": [], "rank_tables": []}
+    fill = Encoder._fill_search_inputs
+
+    def keep(self, docket, enc, *a):
+        fill(self, docket, enc, *a)
+        records.append(enc.inputs)
+
+    monkeypatch.setattr(Encoder, "_fill_search_inputs", keep)
+    for name, key in (("install_seeds", "seeds"),
+                      ("install_subpel", "subpel"),
+                      ("install_ranksatd", "rank_tables")):
+        def spy(self, products, real=getattr(native.EncNative, name),
+                key=key):
+            installed[key].append(products)
+            return real(self, products)
+        monkeypatch.setattr(native.EncNative, name, spy)
+    frames = _enc_frames(3, 128, 96, seed=5)
+
+    def encode(device):
+        enc = Encoder(EncoderConfig(width=128, height=96, qp=32, gop_m=1,
+                                    sao=False, rdoq=True, sdh=True,
+                                    rd_candidates=1, search_range=32,
+                                    device=device))
+        out = [enc.headers()]
+        for f in frames:
+            out += [nal for (_i, nal, _r) in enc.push_frame(
+                [p.copy() for p in f])]
+        out += [nal for (_i, nal, _r) in enc.flush()]
+        return b"".join(out)
+
+    got = encode("cpu")
+    assert len(records) == 3
+    for key, n in (("seeds", 2), ("subpel", 2), ("rank_tables", 3)):
+        want = [getattr(r, key) for r in records if getattr(r, key)]
+        assert len(want) == n, key
+        assert len(installed[key]) == n, key
+        assert all(a is b for a, b in zip(installed[key], want)), key
+    assert all(sorted(r.seeds) == [0, 1] for r in records[1:])
+    assert not records[0].seeds and not records[0].subpel
+    assert got == encode(None)

@@ -54,14 +54,6 @@ def ctx_index(element: str, inc: int = 0) -> int:
     return CONTEXT_OFFSET[element] + inc
 
 
-import os
-
-TRACE = None  # set to a file object to trace every bin (debug tool)
-if os.environ.get("CABAC_TRACE_PY"):
-    import sys
-    TRACE = sys.stderr
-
-
 class CabacDecoder:
     """Arithmetic decoding engine (spec 9.3.4.3).
 
@@ -115,14 +107,6 @@ class CabacDecoder:
     def decode_decision(self, ctx_idx: int) -> int:
         states = self.ctx.states
         s = states[ctx_idx]
-        if TRACE:
-            from .tables import CONTEXT_ELEMENTS, CONTEXT_OFFSET
-            name, inc = "?", 0
-            for el in CONTEXT_ELEMENTS:
-                off = CONTEXT_OFFSET[el]
-                if off <= ctx_idx:
-                    name, inc = el, ctx_idx - off
-            TRACE.write(f"E {name} {inc} {s}\n")
         r = self.range
         lps = _RANGE_LPS[s >> 1][(r >> 6) & 3]
         r -= lps
@@ -142,8 +126,6 @@ class CabacDecoder:
             off = (off << n) | self._read_bits(n)
         self.range = r
         self.offset = off
-        if TRACE:
-            TRACE.write(f"D {bin_val} {r} {off}\n")
         return bin_val
 
     def decode_bypass(self) -> int:
@@ -155,8 +137,6 @@ class CabacDecoder:
         else:
             bin_val = 0
         self.offset = off
-        if TRACE:
-            TRACE.write(f"B {bin_val} {r} {off}\n")
         return bin_val
 
     def decode_bypass_bits(self, n: int) -> int:
@@ -171,16 +151,12 @@ class CabacDecoder:
         if self.offset >= r:
             # end of slice / pcm escape: range is not renormalized
             self.range = r
-            if TRACE:
-                TRACE.write(f"T 1 {r} {self.offset}\n")
             return 1
         if r < 256:
             n = 9 - r.bit_length()
             r <<= n
             self.offset = (self.offset << n) | self._read_bits(n)
         self.range = r
-        if TRACE:
-            TRACE.write(f"T 0 {r} {self.offset}\n")
         return 0
 
     # --- standard binarizations -------------------------------------------

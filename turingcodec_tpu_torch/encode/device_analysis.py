@@ -86,9 +86,8 @@ def resolve_device(device) -> Optional[torch.device]:
 
 
 def device_enc_enabled(device) -> bool:
-    """Whether the analysis stage runs on `device` (TC_NO_LOWRES turns the
-    whole pre-analysis off, as on the host path)."""
-    return device is not None and not os.environ.get("TC_NO_LOWRES")
+    """Whether the analysis stage runs on `device` (None: the host path)."""
+    return device is not None
 
 
 def upload(plane: np.ndarray, device, dtype=torch.int32) -> torch.Tensor:
@@ -907,7 +906,7 @@ def rank_satd_tables_device(plane, zscan, bd, strong, device,
 def install_subpel_fields(enc) -> Optional[dict]:
     """Compute the subpel planes of each list's ref-0 plane on enc.device
     for native install; {(list, 0): (15, ph, pw) int16} or None."""
-    if enc.sh.is_i or os.environ.get("TC_NO_SUBPEL_PLANES"):
+    if enc.sh.is_i:
         return None
     out = {}
     done = {}
@@ -924,20 +923,27 @@ def install_subpel_fields(enc) -> Optional[dict]:
     return out or None
 
 
-def install_seed_fields(enc, orig) -> Optional[dict]:
+class SeedFields(dict):
+    """install_seed_fields' products: {list: (seed_mv, dense_mv, wb, hb,
+    surf|None)}, with each list's (hb, wb) dense winner SADs in `sads`."""
+
+    def __init__(self):
+        super().__init__()
+        self.sads = {}
+
+
+def install_seed_fields(enc, orig) -> Optional[SeedFields]:
     """Run the encoder analysis (lowres pre-ME + dense full-pel ME field
-    and its SAD surface) on enc.device for the encoder's list-0/1 ref-0
-    planes and prefill the Python caches; returns {list: (seed_mv,
-    dense_mv|None, wb, hb, surf|None)} for the native install, or None when
-    the stage does not apply. The surface comes with the dense field unless
-    TC_NO_ME_SURF is set, as on the host prepass; lists that share a plane
-    share its surface."""
+    and its SAD surface) on enc.device against the encoder's list-0/1
+    ref-0 planes; returns the fields for the native install, or None when
+    the stage does not apply. The surface comes with the dense field
+    unless TC_NO_ME_SURF is set, as on the host prepass; lists that share
+    a plane share its fields."""
     global surfaces
-    if enc.sh.is_i or getattr(enc, "search_range", 0) < 16:
+    if enc.sh.is_i or enc.search_range < 16:
         return None
-    want_dense = not os.environ.get("TC_NO_DENSEME")
-    want_surf = want_dense and not os.environ.get("TC_NO_ME_SURF")
-    fields = {}
+    want_surf = not os.environ.get("TC_NO_ME_SURF")
+    fields = SeedFields()
     done = {}
     for lx in (0, 1):
         refs = enc.ref_lists[lx] if lx < len(enc.ref_lists) else []
@@ -946,22 +952,11 @@ def install_seed_fields(enc, orig) -> Optional[dict]:
         plane = refs[0].planes[0]
         k = id(plane)
         if k not in done:
-            surf = None
-            if want_dense:
-                sm, dm, ds, wb, hb, *rest = analysis_device(
-                    np.asarray(orig[0]), np.asarray(plane), enc.device,
-                    want_surf, enc.sps.bit_depth_y)
-                if want_surf:
-                    surf = rest[0]
-                    surfaces += 1
-            else:
-                sm, wb, hb = seed_field_device(
-                    np.asarray(orig[0]), np.asarray(plane), enc.device)
-                dm = ds = None
-            done[k] = (sm, dm, ds, wb, hb, surf)
-        sm, dm, ds, wb, hb, surf = done[k]
-        enc._lr_seed_cache[k] = (sm, wb, hb)
-        if dm is not None:
-            enc._dense_cache[k] = (dm, ds, wb, hb, surf)
-        fields[lx] = (sm, dm, wb, hb, surf)
+            sm, dm, ds, wb, hb, *rest = analysis_device(
+                np.asarray(orig[0]), np.asarray(plane), enc.device,
+                want_surf, enc.sps.bit_depth_y)
+            if want_surf:
+                surfaces += 1
+            done[k] = (sm, dm, wb, hb, rest[0] if want_surf else None), ds
+        fields[lx], fields.sads[lx] = done[k]
     return fields or None

@@ -130,8 +130,7 @@ class EncoderConfig:
                                  # bitstreams are byte-identical at any
                                  # thread count with overlap on, but
                                  # differ from the sequential walk (the
-                                 # clamp). Env TURING_TPU_FRAME_OVERLAP
-                                 # overrides (1/0).
+                                 # clamp).
     device: Optional[str] = "cuda"  # torch device of the analysis stage
                                     # (encode/device_analysis.py): "cuda"
                                     # = on the card with the dense-ME
@@ -309,6 +308,7 @@ class Encoder:
         self._noise_streak = 0   # consecutive unpredictable inter pictures
         self._pool = None        # frame-parallel worker pool (lazy)
         self._ovl_state = None   # inter-picture overlap pipeline (lazy)
+        self._src_by_poc = {}    # source luma planes by POC (overlap)
         self._user_data_sent = False
         self._decode_count = 0   # pictures emitted in decode order
         self._timing = {}        # input_index -> (pts, dts, keyframe)
@@ -687,12 +687,9 @@ class Encoder:
         """Inter-picture overlap (the reference's --concurrent-frames
         dependent-picture wavefront): opt-in, its own deterministic
         operating point (see EncoderConfig.frame_overlap)."""
-        import os
-        v = os.environ.get("TURING_TPU_FRAME_OVERLAP")
-        on = self.cfg.frame_overlap if v is None else v not in ("", "0")
-        if not on:
-            return False
         cfg = self.cfg
+        if not cfg.frame_overlap:
+            return False
         # picture-level rate control works under overlap via the fixed-lag
         # rendezvous (see _encode_dockets_overlap); CTU-level RC shares
         # per-CTB model state across in-flight pictures and stays
@@ -704,9 +701,9 @@ class Encoder:
                 or cfg.tile_rows > 1 or cfg.wp_luma is not None
                 or cfg.tskip):
             return False
+        import os
         if os.environ.get("TURING_TPU_NO_NATIVE") \
-                or os.environ.get("TURING_TPU_NO_NATIVE_ENC") \
-                or os.environ.get("TURING_TPU_NO_NATIVE_RECON"):
+                or os.environ.get("TURING_TPU_NO_NATIVE_ENC"):
             return False
         from turingcodec_tpu_torch import native
         return native.get_lib() is not None
@@ -988,20 +985,7 @@ class Encoder:
         self._dpb.apply_rps(sh, poc)
         self._dpb.build_ref_lists(sh)
 
-        import os
         ovl = self._overlap_on()
-        if os.environ.get("TC_SRC_SEEDS") or ovl:
-            # stash source Y planes for source-referenced pre-analysis
-            # (pocs reset at IDR: clear so stale planes can't collide).
-            # Overlap mode REQUIRES source-referenced analysis: reference
-            # reconstructions are still being encoded at prepare time.
-            if docket.is_idr:
-                self._src_by_poc = {}
-            stash = self.__dict__.setdefault("_src_by_poc", {})
-            stash[poc] = np.asarray(yuv[0])
-            for p in sorted(stash)[:-12]:
-                del stash[p]
-
         if sh.is_i:
             enc = IntraPictureEncoder(self.sps, self.pps, sh, self.geom,
                                       rd_candidates=self.cfg.rd_candidates,
@@ -1103,12 +1087,12 @@ class Encoder:
                         int(max(lo, min(57, q + off)))))
                     return (f(qm) + sps.qp_bd_offset_c).astype(np.int32)
 
-                enc._aq_layers_full = [
+                enc.inputs.aq_layers_full = [
                     ((qm + sps.qp_bd_offset_y).astype(np.int32),
                      cfull(qm, pps.pps_cb_qp_offset),
                      cfull(qm, pps.pps_cr_qp_offset))
                     for qm in qp_layers]
-                enc._aq_qp_layers = qp_layers
+                enc.inputs.aq_qp_layers = qp_layers
         n_slices = max(1, self.cfg.slices)
         if n_slices > 1:
             assert not self.cfg.wpp and self.cfg.aq_strength == 0, \
@@ -1124,48 +1108,7 @@ class Encoder:
                 rows[bounds[i]:bounds[i + 1]] = 0 if dep else i
             enc.slice_row_map = rows
 
-        # device rank-SATD tables (source-referenced ranking presets):
-        # pure function of the input picture, computed for I and inter
-        # pictures alike; the native search reads the installed integers
-        # instead of sweeping (byte-identical — exact twins)
-        dev = self._analysis_device
-        if dev is not None:
-            from turingcodec_tpu_torch.encode.device_analysis import (
-                device_enc_enabled, rank_satd_tables_device)
-            if (device_enc_enabled(dev)
-                    and not os.environ.get("TC_NO_SRC_RANK")
-                    and (self.cfg.rd_candidates <= 2
-                         or os.environ.get("TC_SRC_RANK"))
-                    and self.cfg.slices == 1 and self.cfg.tile_cols == 1
-                    and self.cfg.tile_rows == 1):
-                with TRACE.span("enc.rank_tables"):
-                    enc._device_ranksatd = rank_satd_tables_device(
-                        np.asarray(yuv[0]), self.geom.zscan,
-                        self.cfg.bit_depth,
-                        bool(self.sps.strong_intra_smoothing_enabled_flag),
-                        dev)
-
-        # pre-analysis (device fields + noise streak) is cross-picture
-        # sequential state: run it here, not in the parallel encode phase
-        enc._overlap = ovl
-        if not sh.is_i:
-            # TC_SRC_SEEDS: analyse against reference SOURCES (stashed Y
-            # planes) instead of reconstructions — removes the analysis'
-            # recon dependency (GOP-batchable; overlap-safe). Overlap
-            # mode depends on it: in-flight reference reconstructions
-            # must not be read here.
-            if os.environ.get("TC_SRC_SEEDS") or ovl:
-                stash = getattr(self, "_src_by_poc", {})
-                ss = {}
-                for lx, refs in enumerate(self._dpb.ref_pic_list):
-                    if refs and refs[0].poc in stash:
-                        ss[lx] = stash[refs[0].poc]
-                if ss:
-                    enc._seed_src = ss
-            with TRACE.span("enc.fields"):
-                enc.prepare_analysis(yuv)
-            self._noise_streak = getattr(enc, "noise_streak",
-                                         self._noise_streak)
+        self._fill_search_inputs(docket, enc, yuv, sh, poc, ovl)
 
         # DPB stub: inserted now so the NEXT picture's RPS retains this
         # one; planes/plan are filled in _docket_finalize (nothing reads
@@ -1189,7 +1132,7 @@ class Encoder:
             h, w = (sps.pic_height_in_luma_samples,
                     sps.pic_width_in_luma_samples)
             plan = PicturePlan(sps, self.pps)
-            enc._preset_plan = plan
+            enc.inputs.preset_plan = plan
             pic.plan = plan
             pic.planes = [np.zeros((h, w), np.int16),
                           np.zeros((h // 2, w // 2), np.int16),
@@ -1205,8 +1148,99 @@ class Encoder:
                                 np.zeros((h // 2, w // 2), np.int16),
                                 np.zeros((h // 2, w // 2), np.int16)]
             job.search_rows = np.zeros(1, np.int64)
-            enc._ovl_self_rows = job.search_rows
+            enc.inputs.overlap_rows = job.search_rows
         return job
+
+    def _fill_search_inputs(self, docket, enc, yuv, sh, poc, ovl) -> None:
+        """Decide which analysis products the picture's search gets, make
+        them, and put them in its record (enc.inputs, intra_search.
+        SearchInputs): the one place that decides. It runs in the
+        sequential prepare phase because the noise streak and the source
+        stash are cross-picture state.
+        - The source-referenced rank-SATD tables, on the analysis device,
+          at the MET presets (rd_candidates <= 2) over one slice and tile.
+        - An inter picture's seed, dense and subpel fields, on the
+          analysis device unless the picture overlaps: its references'
+          reconstructions are then still being encoded.
+        - Under overlap, the seeds reference the references' sources,
+          which this stash keeps (reset at an IDR, so no stale POC
+          collides).
+        - Where noise-adaptive RDOQ applies (MET presets with RDOQ and a
+          search range of 16 or more), host dense fields for the lists
+          the device did not give, whose list-0 SADs decide it.
+        What the record leaves empty, the native core computes itself."""
+        from turingcodec_tpu_torch.encode import device_analysis as da
+        cfg, inputs, dev = self.cfg, enc.inputs, self._analysis_device
+        inputs.overlap = ovl
+        if ovl:
+            if docket.is_idr:
+                self._src_by_poc = {}
+            stash = self._src_by_poc
+            stash[poc] = np.asarray(yuv[0])
+            for p in sorted(stash)[:-12]:
+                del stash[p]
+        on_device = da.device_enc_enabled(dev)
+        if (on_device and cfg.rd_candidates <= 2 and cfg.slices == 1
+                and cfg.tile_cols == 1 and cfg.tile_rows == 1):
+            with TRACE.span("enc.rank_tables"):
+                inputs.rank_tables = da.rank_satd_tables_device(
+                    np.asarray(yuv[0]), self.geom.zscan, cfg.bit_depth,
+                    bool(self.sps.strong_intra_smoothing_enabled_flag), dev)
+        if sh.is_i:
+            return
+        if ovl:
+            for lx, refs in enumerate(self._dpb.ref_pic_list):
+                if refs and refs[0].poc in self._src_by_poc:
+                    inputs.seed_src[lx] = self._src_by_poc[refs[0].poc]
+        with TRACE.span("enc.fields"):
+            if on_device and not ovl:
+                seeds = da.install_seed_fields(enc, yuv)
+                if seeds:
+                    inputs.seeds = dict(seeds)
+                    inputs.dense_sads = dict(seeds.sads)
+                inputs.subpel = da.install_subpel_fields(enc)
+            if enc.use_rdoq and enc.met and enc.search_range >= 16:
+                self._host_seed_fields(enc, yuv)
+                enc._noise_adapt(yuv)
+        self._noise_streak = enc.noise_streak
+
+    def _host_seed_fields(self, enc, yuv) -> None:
+        """Seed and dense fields on the host (the native prepass) for the
+        record's lists that have none, against each list's ref-0 source
+        where the record names one, else its reconstruction (never an
+        in-flight one under overlap). A source-referenced field carries no
+        SAD surface: the surface is exact only against the reconstruction.
+        Without the native core, only the Python twin's list-0 SADs."""
+        from turingcodec_tpu_torch import native
+        from turingcodec_tpu_torch.encode.inter_search import dense_sad_twin
+        inputs = enc.inputs
+        planes = {}
+        for lx, refs in enumerate(enc.ref_lists[:2]):
+            plane = inputs.seed_src.get(lx)
+            if refs and plane is None and not inputs.overlap:
+                plane = refs[0].planes[0]
+            if refs and plane is not None:
+                planes[lx] = plane
+        if 0 not in planes:
+            return
+        orig = np.asarray(yuv[0])
+        done = {}
+        for lx, plane in planes.items():
+            if lx in inputs.dense_sads:
+                continue
+            k = id(plane)
+            if k not in done:
+                done[k] = native.dense_analysis(orig, np.asarray(plane),
+                                                self.cfg.bit_depth)
+            if done[k] is None:
+                if 0 not in inputs.dense_sads:
+                    inputs.dense_sads[0] = dense_sad_twin(orig, planes[0])
+                return
+            sm, dm, ds, wb, hb, *surf = done[k]
+            src = lx in inputs.seed_src
+            inputs.seeds[lx] = (sm, dm, wb, hb,
+                                surf[0] if surf and not src else None)
+            inputs.dense_sads[lx] = ds
 
     def _idr_unpredictable(self, docket, yuv) -> bool:
         """Lookahead temporal-unpredictability of an IDR: dense-ME the IDR
@@ -1215,31 +1249,18 @@ class Encoder:
         median against the noise threshold — the same integer field and
         rule the inter noise-adaptive RDOQ uses, so the decision is a
         deterministic function of the inputs."""
-        import os
-        if os.environ.get("TC_NO_NOISE_ADAPT") \
-                or os.environ.get("TC_NO_DENSEME") \
-                or os.environ.get("TC_NO_LOWRES") \
-                or self._rc is not None:
+        if self._rc is not None:
             return False
         nxt = self._inputs.get(docket.input_index + 1)
         if nxt is None:
             return False
         from turingcodec_tpu_torch import native
-        from turingcodec_tpu_torch.encode.inter_search import InterPictureEncoder
-        a = np.asarray(yuv[0])
-        res = native.dense_analysis(np.asarray(nxt[0]), a,
-                                    self.cfg.bit_depth)
-        if res is not None:
-            dsad = res[2]
-        else:
-            probe = InterPictureEncoder.__new__(InterPictureEncoder)
-            probe._lr_seed_cache = {}
-            probe._dense_cache = {}
-            probe.orig = [np.asarray(nxt[0])]
-            dsad = probe._dense_field(a)[1]
-        flat = np.sort(np.asarray(dsad), axis=None)
-        return int(flat[flat.size // 2]) \
-            > InterPictureEncoder.NOISE_SAD_MEDIAN
+        from turingcodec_tpu_torch.encode.inter_search import (
+            dense_sad_twin, unpredictable)
+        a, b = np.asarray(yuv[0]), np.asarray(nxt[0])
+        res = native.dense_analysis(b, a, self.cfg.bit_depth)
+        return unpredictable(res[2] if res is not None
+                             else dense_sad_twin(b, a))
 
     def _docket_encode(self, job) -> None:
         """Parallel-safe phase: the picture's RDO, loop filters, SAO
@@ -1250,8 +1271,8 @@ class Encoder:
             n_slices, bounds = job.n_slices, job.bounds
             with TRACE.span("enc.search"):
                 plan, search_recon = enc.encode_picture(yuv)
-                if getattr(enc, "_aq_qp_layers", None):
-                    self._apply_aq_qp(plan, enc._aq_qp_layers)
+                if enc.inputs.aq_qp_layers:
+                    self._apply_aq_qp(plan, enc.inputs.aq_qp_layers)
                     self._reconcile_qp_qg(plan, sh)
                 elif (self.cfg.aq_strength > 0
                       or getattr(enc, "ctu_rc", None)):

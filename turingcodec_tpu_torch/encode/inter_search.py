@@ -43,6 +43,23 @@ class _DpbView:
         self.ref_pic_list = ref_lists
 
 
+def unpredictable(dsad) -> bool:
+    """Whether a dense field's winner SADs mark its picture temporally
+    unpredictable: their median above InterPictureEncoder.NOISE_SAD_MEDIAN."""
+    flat = np.sort(np.asarray(dsad), axis=None)
+    return int(flat[flat.size // 2]) > InterPictureEncoder.NOISE_SAD_MEDIAN
+
+
+def dense_sad_twin(orig_y, ref_y):
+    """The (hb, wb) winner SADs of the Python twin of the dense full-pel
+    field of orig_y against ref_y: the noise measure where the native
+    core is unavailable."""
+    probe = InterPictureEncoder.__new__(InterPictureEncoder)
+    probe._lr_seed_cache, probe._dense_cache = {}, {}
+    probe.orig = [orig_y]
+    return probe._dense_field(ref_y)[1]
+
+
 class InterPictureEncoder(IntraPictureEncoder):
     def __init__(self, sps, pps, sh, geom, ref_lists, cur_poc,
                  rd_candidates=2, max_cu_log2=5, search_range=48,
@@ -75,6 +92,9 @@ class InterPictureEncoder(IntraPictureEncoder):
         # torch device of the analysis stage (set by the Encoder facade
         # from EncoderConfig.device; None = host path)
         self.device = None
+        # consecutive unpredictable inter pictures before this one (the
+        # facade carries it across pictures)
+        self.noise_streak = 0
 
     # dense-SAD median above this -> the picture is motion-unpredictable
     # (noise-dominated): 3 SAD/pixel over a 16x16 block. Measured medians:
@@ -83,30 +103,15 @@ class InterPictureEncoder(IntraPictureEncoder):
 
     def encode_picture(self, orig, slice_number=0):
         self.deriver = None  # created lazily (needs plan)
-        if not getattr(self, "_noise_done", False):
-            self.prepare_analysis(orig)
+        # the Python search reads the record's reconstruction-referenced
+        # fields through its caches
+        for lx, (sm, dm, wb, hb, surf) in self.inputs.seeds.items():
+            if lx not in self.inputs.seed_src:
+                k = id(self.ref_lists[lx][0].planes[0])
+                self._lr_seed_cache[k] = (sm, wb, hb)
+                self._dense_cache[k] = (dm, self.inputs.dense_sads[lx], wb,
+                                        hb, surf)
         return super().encode_picture(orig, slice_number)
-
-    def prepare_analysis(self, orig):
-        """Per-picture pre-analysis, callable ahead of encode_picture so
-        the frame-parallel facade can run it in the sequential prepare
-        phase: with an analysis device (EncoderConfig.device) the lowres
-        pre-ME + dense ME fields and the subpel planes run there
-        (bit-identical values feed the host RDO), and the noise-adaptive
-        RDOQ decision consumes the dense SAD field."""
-        self._device_seeds = None
-        self._device_subpel = None
-        if self.device is not None and not getattr(self, "_overlap", False):
-            from turingcodec_tpu_torch.encode.device_analysis import (
-                device_enc_enabled, install_seed_fields,
-                install_subpel_fields)
-            if device_enc_enabled(self.device):
-                # overlap: reference reconstructions are in flight — the
-                # source-referenced fields from _noise_adapt stand in
-                self._device_seeds = install_seed_fields(self, orig)
-                self._device_subpel = install_subpel_fields(self)
-        self._noise_adapt(orig)
-        self._noise_done = True
 
     def _noise_adapt(self, orig):
         """Noise-adaptive RDOQ: when the dense ME field says the picture
@@ -115,93 +120,22 @@ class InterPictureEncoder(IntraPictureEncoder):
         kept noise coefficient raises all future residuals — so fall back
         to dead-zone quantization for this picture. Closes the
         white-noise BD gap (+8% -> ~0) while keeping RDOQ's 5-7% win on
-        natural content. The decision uses the same integer SAD field in
-        the native / Python / device paths, so bitstreams stay identical
-        across them."""
-        if not self.use_rdoq or self.sh.is_i or self.search_range < 16:
+        natural content. The facade calls it where the tool applies (MET
+        presets with RDOQ), after filling the record's list-0 dense SADs,
+        which the native, Python and device paths give as the same
+        integers, so bitstreams stay identical across them; no list-0
+        field (overlap without the reference's source) decides nothing."""
+        dsad = self.inputs.dense_sads.get(0)
+        if dsad is None:
             return
-        if not self.met:
-            # MET presets (fast/medium) only: at slow the reference runs
-            # RDOQ too, and matching its operating point measured ~0.5%
-            # better BD on noise than the dead-zone fallback
-            return
-        if os.environ.get("TC_NO_NOISE_ADAPT") \
-                or os.environ.get("TC_NO_DENSEME") \
-                or os.environ.get("TC_NO_LOWRES"):
-            return
-        # _seed_src (facade, TC_SRC_SEEDS): analyse against the reference
-        # picture's SOURCE plane instead of its reconstruction — the
-        # x264-lookahead structure. Seeds/noise stats then depend only on
-        # input pictures, so the analysis of a whole GOP can run before
-        # (or concurrent with) any encode: the enabler for GOP-batched
-        # device analysis and dependent-picture overlap.
-        ss = getattr(self, "_seed_src", None) or {}
-
-        def seed_plane(lx):
-            r2 = self.ref_lists[lx] if lx < len(self.ref_lists) else []
-            if not r2:
-                return None
-            sp = ss.get(lx)
-            if sp is None and getattr(self, "_overlap", False):
-                # overlap: never touch an in-flight reconstruction here
-                # (no stashed source for this ref -> no field, which is a
-                # static function of the docket sequence: deterministic)
-                return None
-            return sp if sp is not None else r2[0].planes[0]
-
-        plane0 = seed_plane(0)
-        if plane0 is None:
-            return
-        from turingcodec_tpu_torch import native
-        fields = {}
-        have_native = True
-        for lx in (0, 1):
-            pl = seed_plane(lx)
-            if pl is None:
-                continue
-            k = id(pl)
-            if k not in self._dense_cache:
-                res = native.dense_analysis(np.asarray(orig[0]),
-                                            np.asarray(pl),
-                                            self.sps.bit_depth_y)
-                if res is None:
-                    have_native = False
-                    break
-                sm, dm, ds, wb, hb = res[:5]
-                surf = res[5] if len(res) > 5 else None
-                self._lr_seed_cache[k] = (sm, wb, hb)
-                self._dense_cache[k] = (dm, ds, wb, hb, surf)
-            sm = self._lr_seed_cache[k][0]
-            ce = self._dense_cache[k]
-            dm, ds, wb, hb = ce[:4]
-            surf = ce[4] if len(ce) > 4 else None
-            # the SAD surface is only exact against the true recon ref
-            # (source-referenced analysis fields install seeds only)
-            if ss.get(lx) is not None:
-                surf = None
-            fields[lx] = (sm, dm, wb, hb, surf)
-        if have_native:
-            # feed the in-picture native prepass the same fields
-            # (the install path the device stage already uses)
-            if fields:
-                prior = self._device_seeds or {}
-                prior.update({lx: f for lx, f in fields.items()
-                              if lx not in prior})
-                self._device_seeds = prior
-            dsad = self._dense_cache[id(plane0)][1]
-        else:
-            self.orig = orig  # _dense_field reads self.orig
-            dsad = self._dense_field(plane0)[1]
-        flat = np.sort(np.asarray(dsad), axis=None)
-        hit = int(flat[flat.size // 2]) > self.NOISE_SAD_MEDIAN
+        hit = unpredictable(dsad)
         # persistence: noise is unpredictable EVERY frame; a lone
         # unpredictable picture is a scene cut whose coded detail future
         # frames need (caminandes' cut measured median 5551 and cost
         # ~1.3% BD when it flipped rdoq off)
-        streak = getattr(self, "noise_streak", 0)
-        if hit and streak >= 1:
+        if hit and self.noise_streak >= 1:
             self.use_rdoq = False
-        self.noise_streak = streak + 1 if hit else 0
+        self.noise_streak = self.noise_streak + 1 if hit else 0
 
     # ------------------------------------------------------------------
     def _get_deriver(self) -> InterDeriver:
@@ -633,9 +567,7 @@ class InterPictureEncoder(IntraPictureEncoder):
         # dense full-res ME field: extra high-quality seeds from the
         # whole-picture exhaustive sweep (native full_pel_search has_dense
         # twin) — non-MET presets only (see the native comment)
-        has_dense = (self.search_range >= 16 and not self.met
-                     and not os.environ.get("TC_NO_DENSEME")
-                     and not os.environ.get("TC_NO_LOWRES"))
+        has_dense = self.search_range >= 16 and not self.met
         window = 64 if self.search_range >= 64 else 32
         max_counter = 3 if self.search_range >= 64 else 2
         raster_q = 240 if self.search_range >= 64 else 120

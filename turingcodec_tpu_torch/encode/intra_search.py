@@ -10,7 +10,8 @@ by the decoder's own pipeline, guaranteeing encoder-recon == decoder-recon
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -112,6 +113,34 @@ def apply_sdh(levels: np.ndarray, coeffs: np.ndarray, qp: int,
     return out
 
 
+@dataclass
+class SearchInputs:
+    """What a picture's analysis hands its search. The encoder facade
+    fills it in its prepare phase (Encoder._fill_search_inputs); an empty
+    record is the host path, where the native core computes its own
+    fields."""
+    # {list: (seed_mv, dense_mv, wb, hb, surf|None)}: each list's ref-0
+    # seed field, dense full-pel field and SAD surface
+    seeds: dict = field(default_factory=dict)
+    # {list: (hb, wb)} the dense fields' winner SADs (the noise measure)
+    dense_sads: dict = field(default_factory=dict)
+    # {(list, ref): (15, ph, pw) int16} subpel planes
+    subpel: Optional[dict] = None
+    # {n: (hn, wn, 35) int32} source-referenced rank-SATD tables
+    rank_tables: Optional[dict] = None
+    # {list: source luma plane} the seeds were referenced against in
+    # place of the ref-0 reconstruction (overlap)
+    seed_src: dict = field(default_factory=dict)
+    # inter-picture overlap: the plan the facade made ahead (dependent
+    # pictures bind it) and this picture's published search-row counter
+    overlap: bool = False
+    preset_plan: Optional[PicturePlan] = None
+    overlap_rows: Optional[np.ndarray] = None
+    # per-CU AQ: each layer's QP map, and its full (luma, cb, cr) QPs
+    aq_qp_layers: Optional[list] = None
+    aq_layers_full: Optional[list] = None
+
+
 class IntraPictureEncoder:
     """Encodes one picture, all-intra, fixed QP."""
 
@@ -151,16 +180,15 @@ class IntraPictureEncoder:
         self._ctu_frac = 0
         self.ctu_frac_list = []
         # the slow preset (rd_candidates >= 3) refines candidates
-        # ungated, like the reference; TC_NO_SATDGATE forces it anywhere
-        # (native twin keys off the same condition)
-        import os as _os
-        self._no_gate = (bool(_os.environ.get("TC_NO_SATDGATE"))
-                         or rd_candidates >= 3)
+        # ungated, like the reference (native twin keys off the same
+        # condition)
+        self._no_gate = rd_candidates >= 3
         self.qp_map = None  # per-CTB QP (adaptive quantization)
         self._base_lam_qp = self.qp
         # last 2Nx2N integer-search best per list (mvPreviousInteger2Nx2N
         # ME seed); row-local — reset at each CTU row start
         self._prev_int_mv = {}
+        self.inputs = SearchInputs()
 
     def set_qp_map(self, qp_map):
         self.qp_map = qp_map
@@ -170,7 +198,7 @@ class IntraPictureEncoder:
         aq_depth), Search.hpp:1145): QP only — the lambda stays at the
         CTB's layer-0 value, like the reference's picture lambda."""
         from turingcodec_tpu_torch.hevc.tables import chroma_qp_from_luma
-        qls = self._aq_qp_layers
+        qls = self.inputs.aq_qp_layers
         d = min(depth, len(qls) - 1)
         sh_ = self.sps.ctb_log2_size_y - d
         q = int(qls[d][y0 >> sh_, x0 >> sh_])
@@ -203,12 +231,12 @@ class IntraPictureEncoder:
     # ------------------------------------------------------------------
     def encode_picture(self, orig: List[np.ndarray], slice_number: int = 0
                        ) -> Tuple[PicturePlan, List[np.ndarray]]:
-        sps = self.sps
+        sps, inputs = self.sps, self.inputs
         with TRACE.span("enc.search_setup"):
             # overlap mode pre-creates the plan in the facade's prepare phase
             # so dependent pictures' TMVP binds these tensors while this
             # picture is still encoding
-            plan = getattr(self, "_preset_plan", None)
+            plan = inputs.preset_plan
             if plan is None:
                 plan = PicturePlan(self.sps, self.pps)
             plan.slice_headers.append(self.sh)
@@ -224,18 +252,19 @@ class IntraPictureEncoder:
             plan.qp_y[:] = self.qp
             from turingcodec_tpu_torch import native
             nat = native.EncNative.try_create(self, plan)
-            if nat is not None and getattr(self, "_device_seeds", None):
-                nat.install_seeds(self._device_seeds)
-            if nat is not None and getattr(self, "_device_subpel", None):
-                nat.install_subpel(self._device_subpel)
-            if nat is not None and getattr(self, "_device_ranksatd", None):
-                nat.install_ranksatd(self._device_ranksatd)
-            if getattr(self, "_overlap", False):
-                assert nat is not None, \
-                    "inter-picture overlap requires the native search core"
-                nat.setup_overlap(self)
-            if nat is not None and getattr(self, "_aq_layers_full", None):
-                nat.install_aq(self._aq_layers_full)
+            assert nat is not None or not inputs.overlap, \
+                "inter-picture overlap requires the native search core"
+            if nat is not None:
+                if inputs.seeds:
+                    nat.install_seeds(inputs.seeds)
+                if inputs.subpel:
+                    nat.install_subpel(inputs.subpel)
+                if inputs.rank_tables:
+                    nat.install_ranksatd(inputs.rank_tables)
+                if inputs.overlap:
+                    nat.setup_overlap(self)
+                if inputs.aq_layers_full:
+                    nat.install_aq(inputs.aq_layers_full)
         ctb = sps.ctb_size_y
         wpp = bool(self.pps.entropy_coding_sync_enabled_flag)
         wc = sps.pic_width_in_ctbs_y
@@ -253,7 +282,8 @@ class IntraPictureEncoder:
             nat.encode_picture_all(self)
             return plan, self.recon
         if self.geom.num_tiles > 1:
-            # tiles: walk CTUs in tile-scan order; fresh rate contexts at
+            # tiles (the Python search alone: the native core refuses
+            # them): walk CTUs in tile-scan order; fresh rate contexts at
             # each tile start, ME seeds reset per tile-row (all derivation
             # availability is tile-aware via geom.zscan / tile_id maps)
             geom = self.geom
@@ -263,8 +293,6 @@ class IntraPictureEncoder:
                 tile = int(geom.tile_id[ry, rx])
                 if rx == 0 or int(geom.tile_id[ry, rx - 1]) != tile:
                     self._prev_int_mv = {}  # ME seed state is row-local
-                    if nat is not None:
-                        nat.reset_me_seeds()
                 if ts > 0:
                     prs = int(geom.tile_scan_ctus[ts - 1])
                     if int(geom.tile_id[prs // wc, prs % wc]) != tile:
@@ -277,13 +305,9 @@ class IntraPictureEncoder:
                     self._set_ctb_qp(q)
                     plan.qp_y[ry * ctb >> 2:(ry + 1) * ctb >> 2,
                               rx * ctb >> 2:(rx + 1) * ctb >> 2] = q
-                if nat is not None:
-                    nat.encode_ctu(self, rx * ctb, ry * ctb)
-                else:
-                    self._ctu_frac = 0
-                    self._decide_cqt(rx * ctb, ry * ctb,
-                                     sps.ctb_log2_size_y, 0)
-                    self.ctu_frac_list.append(self._ctu_frac)
+                self._ctu_frac = 0
+                self._decide_cqt(rx * ctb, ry * ctb, sps.ctb_log2_size_y, 0)
+                self.ctu_frac_list.append(self._ctu_frac)
             return plan, self.recon
         for ry in range(sps.pic_height_in_ctbs_y):
             for rx in range(wc):
@@ -382,7 +406,7 @@ class IntraPictureEncoder:
                     cost += self._decide_cqt(x0 + dx, y0 + dy, log2 - 1,
                                              depth + 1)
             return cost
-        if getattr(self, "_aq_qp_layers", None) is not None:
+        if self.inputs.aq_qp_layers is not None:
             self._set_cu_qp_layer(x0, y0, depth)
         # intra pictures cap CUs at max_cu_log2; inter pictures search the
         # full CTB (64x64 skip/merge CUs are where B frames save bits —
@@ -1110,14 +1134,9 @@ class IntraPictureEncoder:
         return cost + self._encode_chroma64(plan, x0, y0, mode)
 
     def _use_src_rank(self) -> bool:
-        """Source-referenced SATD ranking (enc_core twin): default at MET
-        presets (rd_candidates <= 2); TC_SRC_RANK forces, TC_NO_SRC_RANK
-        disables."""
-        import os
-        if os.environ.get("TC_NO_SRC_RANK"):
-            return False
-        return bool(os.environ.get("TC_SRC_RANK")) \
-            or self.rd_candidates <= 2
+        """Source-referenced SATD ranking (enc_core twin): at MET presets
+        (rd_candidates <= 2)."""
+        return self.rd_candidates <= 2
 
     def _rank_modes(self, orig_b, rt, rl, corner, n, mpm, count=None,
                     n_mpm=0):

@@ -545,8 +545,6 @@ def _recon_records(plan, pred_mode):
 def inter_recon(plan, geom, ref_lists, recon) -> bool:
     """MC + residual add for all inter CUs natively. False -> caller falls
     back to the numpy path (lib unavailable / unsupported stream shape)."""
-    if os.environ.get("TURING_TPU_NO_NATIVE_RECON"):
-        return False
     lib = get_lib()
     if lib is None:
         return False
@@ -601,8 +599,6 @@ def sao_apply(plan, geom, deblocked, cy0=0, cy1=None, out=None):
     cy0/cy1 restrict to CTB rows [cy0, cy1) (the overlap follower's
     banded publisher); `out` supplies persistent destination planes
     whose band must already hold the deblocked samples."""
-    if os.environ.get("TURING_TPU_NO_NATIVE_RECON"):
-        return None
     lib = get_lib()
     sps, pps = plan.sps, plan.pps
     if lib is None or sps.chroma_array_type != 1:
@@ -683,8 +679,6 @@ def intra_recon(pr) -> bool:
     """Reconstruct all intra CUs of a PictureReconstructor natively, in
     decode order, falling back per-CU (stop-and-resume) for transquant
     bypass / transform-skip TUs. False -> caller runs the Python loop."""
-    if os.environ.get("TURING_TPU_NO_NATIVE_RECON"):
-        return False
     lib = get_lib()
     if lib is None:
         return False
@@ -759,8 +753,6 @@ class DeblockNative:
 
     @staticmethod
     def try_create(plan, geom, ry, rcb, rcr):
-        if os.environ.get("TURING_TPU_NO_NATIVE_RECON"):
-            return None
         lib = get_lib()
         if lib is None:
             return None
@@ -913,8 +905,6 @@ class WriterNative:
 
     @staticmethod
     def try_create(plan, geom, sh, slice_number):
-        if os.environ.get("TURING_TPU_NO_NATIVE_WRITE"):
-            return None
         lib = get_lib()
         if lib is None:
             return None
@@ -996,13 +986,8 @@ class SliceNative:
 
     @staticmethod
     def try_create(plan, geom, sh, slice_number, hook):
-        if os.environ.get("TURING_TPU_NO_NATIVE_PARSE"):
-            return None
         lib = get_lib()
         if lib is None:
-            return None
-        from turingcodec_tpu_torch.cabac.engine import TRACE
-        if TRACE is not None:
             return None
         sps = plan.sps
         if getattr(sps, "pcm_enabled_flag", 0):
@@ -1203,7 +1188,7 @@ class EncNative:
                         int(getattr(enc, "rqt", False)),
                         int(getattr(enc, "esd", False)),
                         int(getattr(enc, "aps", False)),
-                        int(getattr(enc, "_overlap", False))], np.int32)
+                        int(enc.inputs.overlap)], np.int32)
         from turingcodec_tpu_torch.hevc.tables import QUANT_SCALES
         qs = np.ascontiguousarray(QUANT_SCALES, np.int32)
         lf, cf, _, _ = _recon_tables()
@@ -1235,7 +1220,7 @@ class EncNative:
                 if p8 is not None:
                     u8s[l * 16 + r] = p8.ctypes.data
                     keep.append(p8)
-        sr = enc._ovl_self_rows
+        sr = enc.inputs.overlap_rows
         self._keep_ovl = (rows, u8s, keep, sr)
         self.lib.tc_enc_overlap_setup(int(sr.ctypes.data),
                                       rows.ctypes.data, u8s.ctypes.data)
@@ -1306,30 +1291,22 @@ class EncNative:
         enc.ctu_frac_list = [int(v) for v in frac]
         return cost
 
-    def reset_me_seeds(self):
-        """Clear the row-local previous-integer-MV ME seed (tile-row
-        starts; x0 == 0 resets implicitly inside tc_enc_ctu)."""
-        self.lib.tc_enc_me_seed_reset()
-
     def install_seeds(self, fields):
-        """Install device-computed encoder analysis fields
-        (encode/device_analysis.py):
-        {list: (seed_mv (hb, wb, 2), dense_mv|None, wb, hb[, surf|None])}.
-        The native core copies each array, so none is kept here."""
-        for lx, f in fields.items():
-            sm, dm, wb, hb = f[:4]
-            surf = f[4] if len(f) > 4 else None
+        """Install the picture's seed and dense fields
+        (intra_search.SearchInputs.seeds): {list: (seed_mv (hb, wb, 2),
+        dense_mv (hb, wb, 2), wb, hb, surf|None)}. The native core copies
+        each array, so none is kept here."""
+        for lx, (sm, dm, wb, hb, surf) in fields.items():
             arr = np.ascontiguousarray(sm, np.int16).reshape(-1)
             self.lib.tc_enc_install_seeds(
                 lx, ctypes.c_void_p(arr.ctypes.data), wb, hb)
-            if dm is not None:
-                darr = np.ascontiguousarray(dm, np.int16).reshape(-1)
-                self.lib.tc_enc_install_dense(
-                    lx, ctypes.c_void_p(darr.ctypes.data), wb, hb)
-                if surf is not None:
-                    sarr = np.ascontiguousarray(surf, np.int32)
-                    self.lib.tc_enc_install_densesurf(
-                        lx, ctypes.c_void_p(sarr.ctypes.data), wb, hb)
+            darr = np.ascontiguousarray(dm, np.int16).reshape(-1)
+            self.lib.tc_enc_install_dense(
+                lx, ctypes.c_void_p(darr.ctypes.data), wb, hb)
+            if surf is not None:
+                sarr = np.ascontiguousarray(surf, np.int32)
+                self.lib.tc_enc_install_densesurf(
+                    lx, ctypes.c_void_p(sarr.ctypes.data), wb, hb)
 
     def install_aq(self, layers):
         """Install the per-CU AQ pyramid: [(qp_y_full, qp_cb_full,
