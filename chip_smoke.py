@@ -43,9 +43,10 @@ int16 samples above 32767 wrap, as the JAX pipeline holds them),
 vfy_sweep and static_test (all full-pel) md5-exact through
 Decoder(device="cuda") with one deblocking launch per picture and one
 SAO launch per SAO-coded picture, and the 1080p encode decoded on the
-card equal to the host decode, every picture through the pipeline, at
-most 3 MC launches per inter picture, one residual launch per picture
-with coded inter TUs, one deblocking launch per picture and no SAO.
+card equal to the host decode, every picture through the pipeline, one
+mc_picture launch per inter picture and none of mc_block_grid, one
+residual launch per picture with coded inter TUs, one deblocking launch
+per picture and no SAO.
 After the decode rates, one more decode with TURING_TPU_PIPELINE_TRACE
 gives each stage's ms per picture, and one more times the residual stage
 (host clock, synchronised around it). Then the main path's first 3
@@ -61,7 +62,11 @@ settings) on the card and the host: identical bytes, one statistics
 launch per SAO-coded picture. Then a 13-bit stream (tools/deep_bits.py)
 decoded on the card to the JAX pipeline's md5 through the MC, residual
 and deblocking kernels, and its 14- and 16-bit twins raising the
-reference's error. Then the DSP op library at one 1080p
+reference's error. Then the pipeline's MC kernel (mc_picture) against its
+plain version on every call of card decodes of the random-access encode
+and the 13-bit stream, and on synthetic 1920x1080 and 12x20 maps at 8,
+10 and 13 bits (16 references a list at 1080p), timed past L2 on the RA
+decode's largest call. Then the DSP op library at one 1080p
 picture's block counts:
 the forward transform and all-phase interpolation kernels against their
 plain versions (8 and 10 bits, and 14 for the interpolation, extreme
@@ -1211,7 +1216,7 @@ def check_sao_stats(device, frames, pics, reps):
     path's frames (hevc_bench's ra_fast_1080p_one_idr settings, SAO on
     every picture, frame-parallel pairs) on the card and the host:
     identical bytes, hash-clean, one statistics launch per SAO-coded
-    picture. Returns (the row, the RA encode's launches)."""
+    picture. Returns (the row, the RA encode's launches, its stream)."""
     import numpy as np
     import torch
 
@@ -1315,7 +1320,7 @@ def check_sao_stats(device, frames, pics, reps):
         f"{fps_host:.4f} fps, {len(bs)} bytes identical, hash-clean; "
         f"sao_stats launches {launches['sao_stats']} for {n_sao} SAO-coded "
         f"pictures")
-    return row, launches
+    return row, launches, bs
 
 
 # one 1080p picture's block count per transform size, and the windows of
@@ -1573,6 +1578,40 @@ def mc_bound(args):
     return bound(nbytes + sum(read.values()), ops)
 
 
+def mc_picture_bound(args):
+    """Bound of one mc_picture call, from its own maps, counted as mc_bound
+    counts: the three maps in, each distinct reference picture that a
+    predicted block selects read once (by address, so a picture in both
+    lists counts once), each predicted block's samples out (16 luma and 2
+    x 4 chroma int16); one INT32 multiply-add per filter tap that a
+    block's phases need, for each list it uses and each component (none
+    for full-pel). The combine's few operations a sample are not
+    counted."""
+    import torch
+    _planes, refs, inter, ref_idx, mv, _bds = args
+    on = (ref_idx >= 0) & (inter != 0)[None]
+    nbytes = (inter.nbytes + ref_idx.nbytes + mv.nbytes
+              + 48 * int(on.any(0).sum()))
+    read, ops = {}, 0
+    for lx in (0, 1):
+        if not refs[lx]:
+            continue
+        sel = ref_idx[lx][on[lx]].long().clamp(max=len(refs[lx]) - 1)
+        for r in torch.unique(sel).tolist():
+            for p in refs[lx][r]:
+                read[p.data_ptr()] = p.nbytes
+        m = mv[lx][on[lx]].int()
+        for bs, taps, sh, comps in ((4, 8, 2, 1), (2, 4, 3, 2)):
+            fx = (m[:, 0] & ((1 << sh) - 1)) != 0
+            fy = (m[:, 1] & ((1 << sh) - 1)) != 0
+            one_d = int((fx ^ fy).sum())
+            two_d = int((fx & fy).sum())
+            span = bs + taps - 1
+            ops += comps * (one_d * bs * bs * taps
+                            + two_d * (span * bs * taps + bs * bs * taps))
+    return bound(nbytes + sum(read.values()), ops)
+
+
 def idct_ops(n: int) -> int:
     """INT32 operations of one n-point inverse DCT by the even-odd (partial
     butterfly) decomposition, which gives the same integers as the matrix
@@ -1603,6 +1642,7 @@ def reset_launches():
     from turingcodec_tpu_torch.ops import sao_stats, transform
     dense_me.launches = inter.launches = transform.launches = 0
     inter.interp_launches = transform.fwd_launches = 0
+    inter.picture_launches = 0
     da.rank_launches = da.subpel_launches = da.seed_launches = 0
     deblock.launches = sao.launches = sao_stats.launches = 0
 
@@ -1612,6 +1652,7 @@ def read_launches():
     from turingcodec_tpu_torch.ops import deblock, dense_me, inter, sao
     from turingcodec_tpu_torch.ops import sao_stats, transform
     return {"dense_me": dense_me.launches, "mc_block_grid": inter.launches,
+            "mc_picture": inter.picture_launches,
             "dequant_idct": transform.launches,
             "fwd_transform": transform.fwd_launches,
             "interp_all_phases": inter.interp_launches,
@@ -1689,13 +1730,15 @@ def decode_main_path(device, frames, bitstream):
     check(pictures == n and envelope == 0,
           f"1080p: {pictures} pictures through the pipeline, {envelope} "
           f"on the host")
-    # each inter picture takes one luma and one Cb+Cr launch over the lists
-    # its blocks use (6 before: one per list and component)
+    # each inter picture takes one mc_picture launch (two mc_block_grid
+    # launches and the torch combine and scatter before; 6 launches before
+    # that: one per list and component)
     # one residual launch per picture with coded inter TUs (9 per inter
     # picture before: one per (component, size, mode) bucket)
     # one deblocking launch per picture (both directions); no SAO in this
     # stream
-    check(0 < launches["mc_block_grid"] <= 3 * (n - 1)
+    check(0 < launches["mc_picture"] <= n - 1
+          and launches["mc_block_grid"] == 0
           and 0 < coded <= n - 1 and launches["dequant_idct"] == coded
           and launches["deblock"] == n
           and launches["dense_me"] == launches["fwd_transform"]
@@ -1721,20 +1764,151 @@ def decode_main_path(device, frames, bitstream):
 def deep_decode(device):
     """The 13-bit stream of tools/deep_bits.py decoded on the card (kernel
     counts read around this run) to the JAX pipeline's md5, every picture
-    through the pipeline, MC and the residuals each launched on its inter
-    pictures, one deblocking launch per picture; then its 14- and 16-bit
+    through the pipeline, one mc_picture launch on each of its 2 inter
+    pictures, the residuals launched, one deblocking launch per picture;
+    then its 14- and 16-bit
     streams raise the reference's error. Returns the 13-bit decode's
     launches."""
     from turingcodec_tpu_torch.tools import deep_bits
     reset_launches()   # the stream is encoded on the host path
     deep_bits.check_13(str(device), log)
     launches = read_launches()
-    check(launches["mc_block_grid"] and launches["dequant_idct"]
-          and launches["deblock"] == 3,
+    check(launches["mc_picture"] == 2 and launches["dequant_idct"]
+          and launches["mc_block_grid"] == 0 and launches["deblock"] == 3,
           f"13-bit decode of 3 pictures launched {launches}")
     log(f"13-bit decode on the card: launches {launches}")
     deep_bits.check_raises(str(device), log)
     return launches
+
+
+def check_mc_picture(device, ra_stream, reps):
+    """mc_picture against its plain version on the card, equal: every call
+    of a card decode of the 1080p random-access encode (hierarchical B:
+    blocks on list 0, on list 1 and on both) and of the 13-bit stream of
+    tools/deep_bits.py, captured as the pipeline made it (one launch per
+    inter picture, hash-clean), then synthetic maps of a 1080p picture
+    with 16 references in each list at 8, 10 and 13 bits (every phase,
+    windows past every edge, indices past a list's end, inter blocks that
+    use no list) and of a 12x20 one. Timed past L2 on the RA call with the
+    most predicted blocks, beside its bound (mc_picture_bound) and the
+    plain version. Returns the kernels-line row."""
+    import numpy as np
+    import torch
+
+    from turingcodec_tpu_torch.decode import device_pipeline as dp
+    from turingcodec_tpu_torch.decode.decoder import Decoder
+    from turingcodec_tpu_torch.ops.inter import mc_picture, mc_picture_ref
+    from turingcodec_tpu_torch.tools import deep_bits
+    t0 = time.perf_counter()
+    real = dp.mc_picture
+    calls = []
+
+    def capture(planes, refs, inter, ref_idx, mv, bds):
+        calls[-1][1].append(([p.clone() for p in planes], refs, inter,
+                             ref_idx, mv, bds))
+        return real(planes, refs, inter, ref_idx, mv, bds)
+
+    dp.mc_picture = capture
+    try:
+        for name, data in (("1080p RA", ra_stream),
+                           ("13-bit", deep_bits.stream(13))):
+            calls.append((name, []))
+            reset_launches()
+            dec = Decoder(device=str(device))
+            n = sum(1 for _ in dec.decode_stream(data))
+            torch.cuda.synchronize()
+            launches = read_launches()
+            check(dec.hash_failures == 0 and launches["mc_picture"]
+                  == len(calls[-1][1]) > 0 and not launches["mc_block_grid"],
+                  f"{name} decode: {n} pictures, {dec.hash_failures} hash "
+                  f"failures, launches {launches}")
+    finally:
+        dp.mc_picture = real
+
+    def both(what, args):
+        planes, rest = args[0], args[1:]
+        got = mc_picture([p.clone() for p in planes], *rest)
+        want = mc_picture_ref([p.clone() for p in planes], *rest)
+        return max(equal_on_card(f"mc_picture {what}", g, w)
+                   for g, w in zip(got, want))
+
+    errs = []
+    for name, cs in calls:
+        kinds = np.zeros(3, np.int64)
+        for args in cs:
+            errs.append(both(name, args))
+            on = ((args[3] >= 0) & (args[2] != 0)[None]).cpu().numpy()
+            kinds += [(on[0] & ~on[1]).sum(), (on[1] & ~on[0]).sum(),
+                      (on[0] & on[1]).sum()]
+        log(f"kernel vs plain, mc_picture on the {name} decode's {len(cs)} "
+            f"inter pictures (blocks on list 0 alone, list 1 alone, both: "
+            f"{kinds.tolist()}): equal")
+
+    rng = np.random.default_rng(17)
+    for h4, w4, counts in ((270, 480, (16, 16)), (5, 3, (3, 2))):
+        for bd in (8, 10, 13):
+            shapes = [(4 * h4, 4 * w4)] + [(2 * h4, 2 * w4)] * 2
+
+            def plane(shape):
+                return torch.from_numpy(rng.integers(
+                    0, 1 << bd, shape).astype(np.int16)).to(device)
+            refs = [[tuple(plane(sh) for sh in shapes) for _ in range(k)]
+                    for k in counts]
+            inter = rng.random((h4, w4)) < 0.85
+            ref_idx = np.stack([rng.integers(-1, k + 1, (h4, w4))
+                                for k in counts]).astype(np.int8)
+            mv = rng.integers(-64, 64, (2, h4, w4, 2))
+            far = rng.random(mv.shape) < 0.05
+            mv[far] = rng.integers(-16 * (h4 + w4) - 64,
+                                   16 * (h4 + w4) + 64, int(far.sum()))
+            maps = [torch.from_numpy(a).to(device) for a in (
+                inter.astype(np.uint8), ref_idx, mv.astype(np.int16))]
+            errs.append(both(f"synthetic {4 * w4}x{4 * h4} {bd}-bit", (
+                [plane(sh) for sh in shapes], refs, *maps, (bd, bd))))
+            log(f"kernel vs plain, mc_picture synthetic {4 * w4}x{4 * h4} "
+                f"{bd}-bit, {counts} references, every phase, windows "
+                f"past every edge: equal")
+    log(f"mc_picture checks: {time.perf_counter() - t0:.1f} s")
+
+    big = max(calls[0][1], key=lambda a: int(
+        ((a[3] >= 0) & (a[2] != 0)[None]).sum()))
+    planes, refs, inter, ref_idx, mv, bds = big
+    # every distinct reference picture once, so a cold copy keeps a
+    # picture in both lists one picture
+    pics, where = [], []
+    for lst in refs:
+        where.append([])
+        for pic in lst:
+            ptr = pic[0].data_ptr()
+            idx = next((i for i, q in enumerate(pics)
+                        if q[0].data_ptr() == ptr), None)
+            if idx is None:
+                idx = len(pics)
+                pics.append(pic)
+            where[-1].append(idx)
+    flat = list(planes) + [inter, ref_idx, mv] + [p for q in pics for p in q]
+    cold = cold_inputs(flat)
+
+    def unpack(c):
+        got = [tuple(c[6 + 3 * i:9 + 3 * i]) for i in range(len(pics))]
+        return (c[:3], [[got[i] for i in lst] for lst in where], c[3], c[4],
+                c[5], bds)
+
+    bound_ms, bound_by = mc_picture_bound(big)
+    ms = timed_ms(lambda: mc_picture(*unpack(cold())), device, reps)
+    plain_ms = timed_ms(lambda: mc_picture_ref(*unpack(cold())), device,
+                        max(1, reps // 4))
+    n_pred = int(((ref_idx >= 0) & (inter != 0)[None]).any(0).sum())
+    what = (f"mc_picture at the 1080p RA decode's picture with the most "
+            f"predicted blocks ({n_pred}; {len(refs[0])} + {len(refs[1])} "
+            f"references, {len(pics)} distinct), past L2")
+    log(f"{what}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
+        f"(median, CUDA events around the wrapper); bound "
+        f"{bound_ms * 1e3:.2f} us ({bound_by})")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, kname="mc_picture",
+                timed={what: (lambda: mc_picture(*unpack(cold())),
+                              bound_ms)})
 
 
 def sao_stream(device, frames):
@@ -1896,7 +2070,7 @@ def signature_phase(device):
     path = {}
     fails = driven(path, lambda: signature.run(device=str(device), log=log))
     check(fails == 0, f"signature matrix on the card: {fails} failures")
-    check(path["dense_me"] and path["mc_block_grid"]
+    check(path["dense_me"] and path["mc_picture"]
           and path["dequant_idct"], f"signature launches {path}")
     log(f"signature matrix, {len(signature.CONFIGS)} rows on the card: "
         f"every golden and recon == decode ({time.perf_counter() - t0:.1f} "
@@ -1961,7 +2135,7 @@ def tool_matrix_phase(device, frames):
               f"{name}: {pictures} pictures through the pipeline, "
               f"{envelope} on the host")
         check(dec["deblock"] == n and dec["sao"] == n_sao
-              and dec["mc_block_grid"],
+              and dec["mc_picture"] and not dec["mc_block_grid"],
               f"{name}: decode launches {dec} for {n} pictures, {n_sao} "
               f"SAO-coded")
         log(f"tool row {name}, {n} frames {w}x{h}: {len(bs)} bytes "
@@ -2388,10 +2562,13 @@ def main() -> int:
     dec_kern["sao"] = sao_row(device, sao_pics[1], sao_err, reps=20)
     # the encoder's SAO statistics kernel against its plain version, and
     # the random-access encode that launches it
-    stats_kern, ra_launches = check_sao_stats(device, frames, sao_pics,
-                                              reps=20)
+    stats_kern, ra_launches, ra_stream = check_sao_stats(
+        device, frames, sao_pics, reps=20)
     # the decode of a 13-bit stream, and the 14- and 16-bit ones that raise
     deep_launches = deep_decode(device)
+    # the pipeline's MC kernel against its plain version: the RA decode's
+    # and the 13-bit decode's calls, synthetic maps
+    pic_kern = check_mc_picture(device, ra_stream, reps=20)
 
     # 9. the DSP op library at full width: its two kernels against their
     # plain versions, the torch ops against the CPU; then its own path,
@@ -2420,8 +2597,11 @@ def main() -> int:
                  launches=enc_launches["dense_me"], **kern),
             dict(name="mc_block_grid", source="mc_block_grid.cu",
                  replaces="turingcodec_tpu/ops/inter.py:66",
-                 launches=dec_launches["mc_block_grid"],
+                 launches=gop_launches["mc_block_grid"],
                  **dec_kern["mc_block_grid"]),
+            dict(name="mc_picture", source="mc_block_grid.cu",
+                 replaces="turingcodec_tpu/decode/device_pipeline.py:73",
+                 launches=dec_launches["mc_picture"], **pic_kern),
             dict(name="dequant_idct", source="dequant_idct.cu",
                  replaces="turingcodec_tpu/ops/transform.py:32",
                  launches=dec_launches["dequant_idct"],

@@ -6,9 +6,10 @@ arithmetic.
 Covers ops/inter.mc_block_grid, ops/quant.dequant_batch,
 ops/transform.inverse_transform_batch and dequant_inverse_transform (the
 CUDA kernels' wrappers take their plain versions for CPU tensors),
-device_recon._combine_uni_bi, device_pipeline._scatter_blocks and
-ops/transform._block_grid_add (the add and clip of the residual kernel's
-plain version)."""
+device_recon._combine_uni_bi and ops/inter._scatter_blocks (the
+combine, which ops/inter now holds, and the scatter of mc_picture's plain
+version) and ops/transform._block_grid_add (the add and clip of the
+residual kernel's plain version)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +20,6 @@ import turingcodec_tpu.decode.device_recon as jrecon
 import turingcodec_tpu.ops.inter as jinter
 import turingcodec_tpu.ops.quant as jquant
 import turingcodec_tpu.ops.transform as jtransform
-import turingcodec_tpu_torch.decode.device_pipeline as tpipe
 import turingcodec_tpu_torch.decode.device_recon as trecon
 import turingcodec_tpu_torch.ops.inter as tinter
 import turingcodec_tpu_torch.ops.quant as tquant
@@ -216,7 +216,8 @@ def test_scatter_blocks_matches_jax(bs):
     want = np.asarray(jpipe._scatter_blocks(
         jnp.asarray(plane), jnp.asarray(by), jnp.asarray(bx),
         jnp.asarray(blocks), bs))
-    got = tpipe._scatter_blocks(T(plane.copy()), T(by), T(bx), T(blocks), bs)
+    got = tinter._scatter_blocks(T(plane.copy()), T(by), T(bx), T(blocks),
+                                 bs)
     assert got.dtype == torch.int16
     np.testing.assert_array_equal(got.numpy(), want)
 

@@ -190,8 +190,8 @@ def test_13_bit_stream_on_card():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     import turingcodec_tpu_torch.ops.deblock as tdeblock
     os.environ.pop("TURING_TPU_DEVICE_PIPELINE", None)
-    tinter.launches = ttransform.launches = tdeblock.launches = 0
+    tinter.picture_launches = ttransform.launches = tdeblock.launches = 0
     deep_bits.check_13("cuda")
-    assert tinter.launches and ttransform.launches
+    assert tinter.picture_launches and ttransform.launches
     assert tdeblock.launches == 3      # one per picture
     deep_bits.check_raises("cuda")

@@ -6,8 +6,10 @@ the kernels' plain versions), exact integers throughout.
   vfy_sweep (GOP8 with SAO);
 - Decoder(device="cpu") md5-equal to GOLDEN.json (md5s the JAX decoder and
   the reference decoder produced) with the chained pipeline taken;
-- MC's launches: a list no block uses is skipped (P pictures), and the
-  uni/bi combine stays exact where B pictures use list 1 in part;
+- MC's launches: one mc_picture call per picture with inter blocks and
+  none through device_recon's mc_block_grid; P pictures hand it an empty
+  list 1 that no block uses, and the uni/bi combine stays exact where B
+  pictures use list 1 in part;
 - the staged TURING_TPU_DEVICE_* switches, the envelope counts and the
   device DPB's copies;
 - all GOLDEN streams through the port's host path (the corpus oracle of
@@ -122,51 +124,66 @@ def test_device_pipeline_md5(name):
 
 
 def _mc_calls(monkeypatch):
-    """Record every mc_block_grid call of the pipeline's MC as (lists,
-    components, bs), and every _predict call's per-list block usage."""
+    """Record every mc_picture call of the pipeline's MC as (list 0's and
+    list 1's references, blocks predicted from list 0, from list 1, blocks
+    predicted), every picture's count of inter blocks as the staged path
+    finds them (device_recon._inter_blocks), and any call of device_recon's
+    mc_block_grid (the staged path's MC, which the pipeline no longer
+    takes)."""
     import turingcodec_tpu_torch.decode.device_recon as trecon
-    calls, pics = [], []
-    mc, predict = trecon.mc_block_grid, dp._predict
+    calls, pics, staged = [], [], []
+    fused, stage, block_grid = dp.mc_picture, dp._mc_device, \
+        trecon.mc_block_grid
 
-    def mc_hook(planes, *a):
-        calls.append((len(planes), len(planes[0]), a[-3]))
-        return mc(planes, *a)
+    def fused_hook(planes, refs, inter, ref_idx, mv, bds):
+        on = (ref_idx >= 0) & (inter != 0)
+        calls.append((len(refs[0]), len(refs[1]), int(on[0].sum()),
+                      int(on[1].sum()), int(on.any(0).sum())))
+        return fused(planes, refs, inter, ref_idx, mv, bds)
 
-    def predict_hook(plan, by4, bx4, refs, device):
-        pics.append([int((plan.ref_idx[lx, by4, bx4] >= 0).sum())
-                     for lx in (0, 1)] + [len(by4)])
-        return predict(plan, by4, bx4, refs, device)
+    def stage_hook(plan, ref_lists, planes):
+        blocks = trecon._inter_blocks(plan)
+        pics.append(0 if blocks is None else len(blocks[0]))
+        return stage(plan, ref_lists, planes)
 
-    monkeypatch.setattr(trecon, "mc_block_grid", mc_hook)
-    monkeypatch.setattr(dp, "_predict", predict_hook)
-    return calls, pics
+    def block_grid_hook(*a):
+        staged.append(a)
+        return block_grid(*a)
+
+    monkeypatch.setattr(dp, "mc_picture", fused_hook)
+    monkeypatch.setattr(dp, "_mc_device", stage_hook)
+    monkeypatch.setattr(trecon, "mc_block_grid", block_grid_hook)
+    return calls, pics, staged
 
 
 @pytest.mark.parametrize("name", ["vfy_hp.hevc", "static_test.hevc"])
 def test_p_pictures_make_no_list1_call(name, monkeypatch):
-    """P-only streams: one luma and one Cb+Cr launch per picture over list 0
-    alone, none for the empty list 1, and the md5 of the JAX and reference
-    decoders."""
-    calls, pics = _mc_calls(monkeypatch)
+    """P-only streams: one mc_picture call per inter picture, its list 1
+    empty and used by no block, none through mc_block_grid, and the md5 of
+    the JAX and reference decoders."""
+    calls, pics, staged = _mc_calls(monkeypatch)
     md5, _n, dec = _decode(name, "cpu")
     assert md5 == GOLDEN[name] and dec.hash_failures == 0
-    assert pics and all(l1 == 0 for _l0, l1, _b in pics)
-    assert calls == [(1, 1, 4), (1, 2, 2)] * len(pics)
+    inter = [b for b in pics if b]
+    assert inter and not staged
+    assert [c[4] for c in calls] == inter
+    assert all(l0 > 0 and l1 == 0 and u1 == 0 and u0 == b
+               for l0, l1, u0, u1, b in calls)
 
 
 def test_b_pictures_combine_both_lists(monkeypatch):
     """GOP8 with B pictures, some blocks on list 1 only, some on both, some
-    on list 0 only: one luma and one Cb+Cr launch per picture over the
-    lists its blocks use, and the decode stays md5-exact."""
-    calls, pics = _mc_calls(monkeypatch)
+    on list 0 only: one mc_picture call per picture with inter blocks over
+    every block the staged path predicts, and the decode stays
+    md5-exact."""
+    calls, pics, staged = _mc_calls(monkeypatch)
     md5, _n, dec = _decode("vfy_sweep.hevc", "cpu")
     assert md5 == GOLDEN["vfy_sweep.hevc"] and dec.hash_failures == 0
-    partial = [p for p in pics if 0 < p[1] < p[2] and 0 < p[0] < p[2]]
-    assert partial, pics
-    want = [c for l0, l1, _b in pics
-            for c in [((l0 > 0) + (l1 > 0), 1, 4),
-                      ((l0 > 0) + (l1 > 0), 2, 2)]]
-    assert calls == want
+    assert not staged
+    assert [c[4] for c in calls] == [b for b in pics if b]
+    partial = [c for c in calls if 0 < c[3] < c[4] and 0 < c[2] < c[4]]
+    assert partial, calls
+    assert any(c[1] > 0 for c in calls)
 
 
 def test_weighted_prediction_stays_on_the_host_and_is_counted():

@@ -415,6 +415,30 @@ def test_byte_counters_equal_the_planes_sizes():
                    "dec.pull.pageable_bytes": size}
 
 
+def test_fused_mc_counted_once_per_picture_with_inter_blocks(monkeypatch):
+    """dec.mc.fused: once in each pipeline picture whose MC took the one
+    mc_picture launch (a picture with inter blocks, as the staged path's
+    device_recon._inter_blocks finds them), in no other picture."""
+    from turingcodec_tpu_torch.decode import device_recon
+    inter = []
+    stage = dp._mc_device
+
+    def hook(plan, ref_lists, planes):
+        inter.append(device_recon._inter_blocks(plan) is not None)
+        return stage(plan, ref_lists, planes)
+
+    monkeypatch.setattr(dp, "_mc_device", hook)
+    TRACE.forced = True
+    before = dp.pictures
+    _decode(5)
+    roots = {s[5] for s in TRACE.spans if s[0] == "dec.finish"}
+    fused = TRACE.counter("dec.mc.fused")
+    assert any(inter) and not all(inter)
+    assert len(roots) == len(inter) == dp.pictures - before
+    assert set(fused) <= roots
+    assert list(fused.values()) == [1] * sum(inter)
+
+
 # one traced run of each cell at 128x64 on the CPU, in a child process:
 # the harness refuses to run where the JAX package is loaded, as it is in
 # this test process

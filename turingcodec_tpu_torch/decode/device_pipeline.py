@@ -7,7 +7,10 @@ the picture has intra CUs). Port of
 It keeps a device-resident DPB: each reconstructed picture's planes stay
 on the device, and MC reads its reference planes there in place, through
 a table of their addresses, instead of re-uploading or stacking them per
-picture (the device-resident DPB of SURVEY.md section 7 stage 6).
+picture (the device-resident DPB of SURVEY.md section 7 stage 6). MC is
+one ops/inter.mc_picture launch a picture with inter blocks, from the
+plan's dense motion maps (one pinned copy) into the picture's planes,
+which start as zeros allocated on the device.
 
 The decoder runs it for every picture when it is given a device
 (`Decoder(device=...)`). Bit-exact with the host path. Outside the
@@ -33,9 +36,10 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from turingcodec_tpu_torch.decode.device_recon import (
-    _inter_blocks, _predict, _residual_table)
+from turingcodec_tpu_torch.decode.device_recon import _residual_table
 from turingcodec_tpu_torch.ops.deblock import deblock_planes_device
+from turingcodec_tpu_torch.ops.inter import mc_picture
+from turingcodec_tpu_torch.ops.kernel_build import upload_packed
 from turingcodec_tpu_torch.ops.sao import sao_picture_device
 from turingcodec_tpu_torch.ops.transform import dequant_idct_add
 from turingcodec_tpu_torch.utils.profiler import TRACE
@@ -99,30 +103,30 @@ def _dev_planes_for(pic, device):
     return dev
 
 
-def _scatter_blocks(plane, by, bx, blocks, bs):
-    """Scatter disjoint bs-aligned (B, bs, bs) blocks at min-block coords
-    (by, bx) into the (H, W) plane, in place; returns the plane."""
-    h, w = plane.shape
-    pr = plane.view(h // bs, bs, w // bs, bs).permute(0, 2, 1, 3)
-    pr[by.long(), bx.long()] = blocks.to(plane.dtype)
-    return plane
-
-
-def _mc_device(plan, geom, ref_lists, planes):
-    """Whole-picture MC into the device planes (device_recon twin with the
-    scatter on the device)."""
-    blocks = _inter_blocks(plan)
-    if blocks is None:
+def _mc_device(plan, ref_lists, planes):
+    """Whole-picture MC into the device planes, in place: the plan's dense
+    motion maps go up in one pinned copy and one mc_picture launch
+    predicts, combines and writes every inter block. Nothing runs for a
+    picture without one."""
+    inter = ((plan.cu_pred_mode == 0) & (plan.cu_id >= 0)
+             & (plan.ref_idx.max(0) >= 0))
+    if not inter.any():
         return planes
     device = planes[0].device
     refs = [[_dev_planes_for(p, device)
              for p in (ref_lists[lx] if lx < len(ref_lists) else [])[:16]]
             for lx in (0, 1)]
-    by4, bx4 = blocks
-    preds = _predict(plan, by4, bx4, refs, device)
-    jb = torch.from_numpy(np.stack([by4, bx4]).astype(np.int32)).to(device)
-    return [_scatter_blocks(p, jb[0], jb[1], pred, bs)
-            for p, pred, bs in zip(planes, preds, (4, 2, 2))]
+    for lx in (0, 1):
+        if not refs[lx] and (inter & (plan.ref_idx[lx] >= 0)).any():
+            raise ValueError(f"inter blocks predict from the empty "
+                             f"reference list {lx}")
+    maps = upload_packed([inter.view(np.uint8), plan.ref_idx, plan.mv],
+                         device, span="dec.upload")
+    sps = plan.sps
+    planes = mc_picture(planes, refs, *maps,
+                        (sps.bit_depth_y, sps.bit_depth_c))
+    TRACE.count("dec.mc.fused")
+    return planes
 
 
 def _residuals_device(plan, planes):
@@ -171,8 +175,11 @@ def decode_picture_device(pr, device):
                   file=sys.stderr, flush=True)
 
     with TRACE.span("dec.mc"):
-        planes = [_upload(p, device) for p in (pr.ry, pr.rcb, pr.rcr)]
-        planes = _mc_device(plan, geom, pr.ref_lists, planes)
+        # zeros, as the host planes start: MC and the host intra write
+        # every coded sample
+        planes = [torch.zeros(p.shape, dtype=torch.int16, device=device)
+                  for p in (pr.ry, pr.rcb, pr.rcr)]
+        planes = _mc_device(plan, pr.ref_lists, planes)
         tp("mc")
     with TRACE.span("dec.residual"):
         planes = _residuals_device(plan, planes)

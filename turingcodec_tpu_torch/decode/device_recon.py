@@ -24,25 +24,8 @@ import torch
 
 from turingcodec_tpu_torch import native
 from turingcodec_tpu_torch.hevc.tables import chroma_qp_from_luma
-from turingcodec_tpu_torch.ops.inter import mc_block_grid
+from turingcodec_tpu_torch.ops.inter import _combine_uni_bi, mc_block_grid
 from turingcodec_tpu_torch.ops.transform import dequant_idct_add, tu_kind
-
-
-def _combine_uni_bi(p0, p1, on0, on1, bd):
-    """Default weighted sample prediction from 14-bit parts (8.5.3.3.4).
-    A list no block uses comes as None: every block then predicts from the
-    other list alone."""
-    shift = 14 - bd
-    if p0 is None or p1 is None:
-        p = p1 if p0 is None else p0
-        return ((p + (1 << (shift - 1))) >> shift).clamp(0, (1 << bd) - 1)
-    bi = (p0 + p1 + (1 << shift)) >> (shift + 1)
-    uni0 = (p0 + (1 << (shift - 1))) >> shift
-    uni1 = (p1 + (1 << (shift - 1))) >> shift
-    on0 = on0[:, None, None]
-    on1 = on1[:, None, None]
-    v = torch.where(on0 & on1, bi, torch.where(on0, uni0, uni1))
-    return v.clamp(0, (1 << bd) - 1)
 
 
 def _mc_plane(planes, ref_sel, mvx, mvy, bx4, by4, on, bs, taps, shift_mv,

@@ -9,6 +9,21 @@ an H100). `mc_block_grid_ref` is the plain torch version of the same
 function: the wrapper takes it for CPU tensors, and the kernel is held
 against it on the card.
 
+`mc_picture` is the decoder pipeline's whole MC stage in one launch of the
+same file's `mc_picture_kernel`, straight from the plan's dense maps into
+the picture's planes. It replaces the host glue of
+`turingcodec_tpu/decode/device_pipeline.py::_mc_device` as the port ran it
+(`_predict`'s host gather and upload of every block's motion, two
+`mc_block_grid` launches into int32 blocks, `_combine_uni_bi`'s dozen
+elementwise launches a component and `_scatter_blocks`' three index_put
+scatters): about 13 ms of host time a 1080p picture around a 10 us
+kernel. The kernel itself is bound by its INT32 multiply-adds or its bytes
+(maps, referenced planes, samples out; the source's header counts them);
+its design keeps both lists' predictions in registers until the combine and
+stores int16 rows in place, so nothing but the samples goes to memory.
+`mc_picture_ref` composes `mc_block_grid_ref`, `_combine_uni_bi` and
+`_scatter_blocks` over the same maps.
+
 `interp_luma_all_phases` gives all 16 quarter-sample phases of a batch of
 luma windows (the encoder side's sub-sample refinement): CUDA tensors
 launch `csrc/interp_all_phases.cu`, which replaces the int32 einsums of
@@ -26,16 +41,20 @@ from turingcodec_tpu_torch.hevc.tables import CHROMA_FILTER, LUMA_FILTER
 from turingcodec_tpu_torch.ops import kernel_build
 
 # kernel launches since import (or since a caller reset it to 0):
-# mc_block_grid's, and interp_luma_all_phases's
+# mc_block_grid's, mc_picture's and interp_luma_all_phases's
 launches = 0
+picture_launches = 0
 interp_launches = 0
-# what one launch takes (csrc kMaxGroups, kMaxPlanes): up to 4 (list,
-# component) groups and 64 reference planes in all (2 lists x 2 chroma
-# components x 16, the most an HEVC list holds)
+# what one launch takes (csrc kMaxGroups, kMaxPlanes, kMaxRefs): up to 4
+# (list, component) groups and 64 reference planes in all (2 lists x 2
+# chroma components x 16, the most an HEVC list holds); mc_picture takes 16
+# references a list
 MAX_GROUPS = 4
 MAX_PLANES = 64
+MAX_REFS = 16
 
 _LAUNCH = None
+_PICTURE_LAUNCH = None
 _INTERP_LAUNCH = None
 
 
@@ -189,6 +208,160 @@ def mc_block_grid(planes, ref_sel: torch.Tensor, xi: torch.Tensor,
         raise RuntimeError(f"mc_block_grid launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def _combine_uni_bi(p0, p1, on0, on1, bd):
+    """Default weighted sample prediction from 14-bit parts (8.5.3.3.4.2).
+    A list no block uses comes as None: every block then predicts from the
+    other list alone; with neither it combines nothing (None). The rounding
+    term is a Python shift, so at 14 bits and above this raises
+    ValueError("negative shift count"), as the reference pipeline does
+    (a trait the port keeps: mc_picture checks depths through it)."""
+    shift = 14 - bd
+    half = 1 << (shift - 1)
+    if p0 is None and p1 is None:
+        return None
+    if p0 is None or p1 is None:
+        p = p1 if p0 is None else p0
+        return ((p + half) >> shift).clamp(0, (1 << bd) - 1)
+    bi = (p0 + p1 + (1 << shift)) >> (shift + 1)
+    uni0 = (p0 + half) >> shift
+    uni1 = (p1 + half) >> shift
+    on0 = on0[:, None, None]
+    on1 = on1[:, None, None]
+    v = torch.where(on0 & on1, bi, torch.where(on0, uni0, uni1))
+    return v.clamp(0, (1 << bd) - 1)
+
+
+def _scatter_blocks(plane, by, bx, blocks, bs):
+    """Scatter disjoint bs-aligned (B, bs, bs) blocks at min-block coords
+    (by, bx) into the (H, W) plane, in place; returns the plane."""
+    h, w = plane.shape
+    pr = plane.view(h // bs, bs, w // bs, bs).permute(0, 2, 1, 3)
+    pr[by.long(), bx.long()] = blocks.to(plane.dtype)
+    return plane
+
+
+def _check_picture(planes, refs, inter, ref_idx, mv, bit_depths):
+    """Raises on anything mc_picture does not take; returns (h4, w4)."""
+    for bd in bit_depths:
+        _combine_uni_bi(None, None, None, None, bd)
+        if not 8 <= bd <= 13:
+            raise ValueError(f"bit depth {bd} unsupported")
+    if len(planes) != 3 or inter.dim() != 2:
+        raise ValueError("planes must be [y, cb, cr] and inter (h4, w4)")
+    h4, w4 = inter.shape
+    dev = planes[0].device
+    arrays = list(zip(planes, [torch.int16] * 3,
+                      [(4 * h4, 4 * w4)] + [(2 * h4, 2 * w4)] * 2))
+    arrays += [(inter, torch.uint8, (h4, w4)),
+               (ref_idx, torch.int8, (2, h4, w4)),
+               (mv, torch.int16, (2, h4, w4, 2))]
+    if len(refs) != 2 or any(len(lst) > MAX_REFS for lst in refs):
+        raise ValueError(f"refs must be 2 lists of at most {MAX_REFS} "
+                         f"reference pictures")
+    for lst in refs:
+        for pic in lst:
+            if len(pic) != 3:
+                raise ValueError("a reference picture is (y, cb, cr)")
+            arrays += [(p, torch.int16, tuple(q.shape))
+                       for p, q in zip(pic, planes)]
+    for a, dtype, shape in arrays:
+        if a.dtype != dtype or tuple(a.shape) != shape:
+            raise TypeError(f"{dtype} {shape} required, got {a.dtype} "
+                            f"{tuple(a.shape)}")
+        if a.device != dev or not a.is_contiguous():
+            raise ValueError("contiguous tensors on one device required")
+    return h4, w4
+
+
+def mc_picture_ref(planes, refs, inter: torch.Tensor, ref_idx: torch.Tensor,
+                   mv: torch.Tensor, bit_depths) -> list:
+    """Plain torch version of mc_picture: the predicted blocks' motion
+    gathered from the maps, mc_block_grid_ref per component over the lists
+    some block uses, the combine and the scatter into the planes."""
+    _check_picture(planes, refs, inter, ref_idx, mv, bit_depths)
+    by, bx = torch.nonzero((inter != 0) & (ref_idx >= 0).any(0),
+                           as_tuple=True)
+    if not len(by):
+        return planes
+    used = [lx for lx in (0, 1) if bool((ref_idx[lx, by, bx] >= 0).any())]
+    r = ref_idx[used][:, by, bx].to(torch.int32)          # (L, B)
+    m = mv[used][:, by, bx].to(torch.int32)               # (L, B, 2)
+    on = dict(zip(used, r >= 0))
+    sel = r.clamp(min=0)
+    bd_y, bd_c = bit_depths
+    for c, (plane, bs, taps, bd) in enumerate(zip(
+            planes, (4, 2, 2), (8, 4, 4), (bd_y, bd_c, bd_c))):
+        sh = 2 if bs == 4 else 3     # 1/4-sample luma, 1/8 4:2:0 chroma
+        frac = (1 << sh) - 1
+        p14 = mc_block_grid_ref(
+            [[[pic[c] for pic in refs[lx]]] for lx in used], sel,
+            bx.int() * bs + (m[..., 0] >> sh),
+            by.int() * bs + (m[..., 1] >> sh), m[..., 0] & frac,
+            m[..., 1] & frac, bs, taps, bd)[:, 0]
+        parts = dict(zip(used, p14))
+        _scatter_blocks(plane, by, bx, _combine_uni_bi(
+            parts.get(0), parts.get(1), on.get(0), on.get(1), bd), bs)
+    return planes
+
+
+def _picture_launcher():
+    global _PICTURE_LAUNCH
+    if _PICTURE_LAUNCH is None:
+        fn = kernel_build.load("mc_block_grid").mc_picture_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p] * 4)
+        _PICTURE_LAUNCH = fn
+    return _PICTURE_LAUNCH
+
+
+def mc_picture(planes, refs, inter: torch.Tensor, ref_idx: torch.Tensor,
+               mv: torch.Tensor, bit_depths) -> list:
+    """The whole MC stage of a 4:2:0 picture of (h4, w4) min-blocks, into
+    its planes, in place.
+
+    planes: [y, cb, cr] int16, (4 h4, 4 w4) and (2 h4, 2 w4); refs: two
+    lists (list 0, list 1) of at most MAX_REFS (y, cb, cr) reference
+    pictures of the same shapes; inter: (h4, w4) uint8; ref_idx: (2, h4, w4)
+    int8, -1 where a list is unused; mv: (2, h4, w4, 2) int16, (x, y) in
+    quarter luma samples; bit_depths (luma, chroma), 8..13 (14 and above
+    raise the reference's ValueError("negative shift count") from
+    _combine_uni_bi). A block where inter is nonzero and some list's
+    ref_idx is >= 0 is predicted from each such list (its index clamped
+    into the list, every read clamped into the plane), combined by the
+    default weighted prediction, clipped to the bit depth and written to
+    the three planes; every other sample is left as it was. A list that
+    some predicted block uses must hold a reference. Returns planes. CPU
+    tensors take the plain version; CUDA tensors launch the kernel once,
+    and a failed build or launch raises."""
+    global picture_launches
+    h4, w4 = _check_picture(planes, refs, inter, ref_idx, mv, bit_depths)
+    dev = planes[0].device
+    if dev.type == "cpu":
+        return mc_picture_ref(planes, refs, inter, ref_idx, mv, bit_depths)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if mv.data_ptr() % 4:
+        raise ValueError("mv must start at a 4-byte boundary")
+    # the planes' addresses go to the kernel by value; `refs` keeps the
+    # tensors alive until the launch is enqueued, the stream orders the rest
+    ptrs = [p.data_ptr() for lst in refs for pic in lst for p in pic]
+    table = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
+    counts = (ctypes.c_int * 2)(*map(len, refs))
+    fn = _picture_launcher()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = fn(table, counts, h4, w4, inter.data_ptr(), ref_idx.data_ptr(),
+                mv.data_ptr(), _filter_on(8, dev).data_ptr(),
+                _filter_on(4, dev).data_ptr(), *bit_depths,
+                *(p.data_ptr() for p in planes), stream)
+    if rc != 0:
+        raise RuntimeError(f"mc_picture launch failed: CUDA error {rc}")
+    picture_launches += 1
+    return planes
 
 
 def _check_interp(win: torch.Tensor, w: int, h: int, bit_depth: int):

@@ -12,7 +12,8 @@ first inter picture takes the MC and residual kernels at 13 bits, every
 picture the deblocking kernel. At 14 and 16 bits the reference pipeline
 raises ValueError("negative shift count") from
 decode/device_recon.py::_combine_uni_bi (the shift 14 - bd), and the
-port raises the same error from its twin.
+port raises the same error from its twin (ops/inter.py, which mc_picture
+checks the depths through).
 
 Usage: python -m turingcodec_tpu_torch.tools.deep_bits
            [--device {cuda,cpu}]
@@ -123,12 +124,13 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device")
     from turingcodec_tpu_torch.ops import inter, transform
-    inter.launches = transform.launches = 0
+    inter.picture_launches = transform.launches = 0
     check_13(args.device)
     if args.device == "cuda":
-        check(inter.launches and transform.launches,
-              f"the 13-bit decode launched mc_block_grid {inter.launches} "
-              f"and dequant_idct {transform.launches} times")
+        check(inter.picture_launches and transform.launches,
+              f"the 13-bit decode launched mc_picture "
+              f"{inter.picture_launches} and dequant_idct "
+              f"{transform.launches} times")
     check_raises(args.device)
     return 0
 
